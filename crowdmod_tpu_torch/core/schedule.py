@@ -1,0 +1,93 @@
+"""Diffusion noise schedules (port of ``crowdmod_tpu.core.schedule``).
+
+A linear beta schedule ``beta_t = linspace(scale*1e-4, scale*2e-2, T)`` with
+its derived closed-form buffers, built in float32 by the same formulas as the
+JAX package.  The schedule lives on the host as numpy arrays, so a sampler
+reads each step's coefficients as plain floats (no device round trip per
+step); :meth:`DiffusionSchedule.on` gives device copies for the gathers that
+take a per-example ``t`` tensor.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+_BUFFERS = (
+    "beta", "alpha", "alpha_bar", "sqrt_alpha_bar",
+    "sqrt_one_minus_alpha_bar", "one_by_sqrt_alpha",
+)
+
+
+@dataclass(frozen=True, eq=False)
+class DiffusionSchedule:
+    """Per-timestep buffers, each a ``(timesteps,)`` float32 numpy array."""
+
+    beta: np.ndarray
+    alpha: np.ndarray
+    alpha_bar: np.ndarray
+    sqrt_alpha_bar: np.ndarray
+    sqrt_one_minus_alpha_bar: np.ndarray
+    one_by_sqrt_alpha: np.ndarray
+    _on_device: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def timesteps(self) -> int:
+        return self.beta.shape[0]
+
+    def on(self, device) -> dict[str, torch.Tensor]:
+        """The buffers as float32 tensors on ``device`` (made once each)."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = {
+                name: torch.from_numpy(getattr(self, name)).to(device)
+                for name in _BUFFERS
+            }
+        return self._on_device[device]
+
+
+def linear_schedule(
+    timesteps: int = 1000,
+    scale: float = 1.0,
+    beta_start: float = 1e-4,
+    beta_end: float = 2e-2,
+) -> DiffusionSchedule:
+    """Linear beta schedule with the reference's scaling convention."""
+    f32 = np.float32
+    beta = np.linspace(
+        scale * beta_start, scale * beta_end, timesteps, dtype=f32
+    )
+    alpha = f32(1.0) - beta
+    alpha_bar = np.cumprod(alpha, dtype=f32)
+    return DiffusionSchedule(
+        beta=beta,
+        alpha=alpha,
+        alpha_bar=alpha_bar,
+        sqrt_alpha_bar=np.sqrt(alpha_bar),
+        sqrt_one_minus_alpha_bar=np.sqrt(f32(1.0) - alpha_bar),
+        one_by_sqrt_alpha=f32(1.0) / np.sqrt(alpha),
+    )
+
+
+def ddim_tau_schedule(timesteps: int, divider: int) -> np.ndarray:
+    """The reference's DDIM tau subset: ``arange(0, T-1, divider)``."""
+    return np.arange(0, timesteps - 1, divider, dtype=np.int32)
+
+
+def respaced_taus(timesteps: int, steps: int) -> np.ndarray:
+    """Ascending ``(steps,)`` int32 tau grid 0 ... T-1 for respaced sampling.
+
+    Unlike :func:`ddim_tau_schedule`, the grid always includes both
+    endpoints, so the chain starts at the x_T the model was trained on.
+    """
+    if not 1 <= steps <= timesteps:
+        raise ValueError(
+            f"steps must be in [1, timesteps={timesteps}]; got {steps}"
+        )
+    if steps == 1:
+        return np.array([timesteps - 1], dtype=np.int32)
+    return np.unique(
+        np.linspace(0, timesteps - 1, steps).round().astype(np.int32)
+    )

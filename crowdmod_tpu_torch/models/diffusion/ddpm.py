@@ -1,0 +1,289 @@
+"""DDPM reverse samplers (port of the JAX package's
+``models/diffusion/ddpm.py``: ``as_eps_fn``, ``prediction_target`` and the
+``ddpm``/``ddim``/``ddim_eta`` samplers).
+
+Each sampler is a Python loop over timesteps calling ``denoise_fn``, any
+callable ``(x, t_vec, past) -> eps_hat`` on native-layout ``(B, F, H, W, C)``
+tensors.  The per-step coefficients are read from the host copy of the
+schedule as floats, so a step never waits on the device.
+
+Randomness: a sampler takes ``noise``, a callable ``noise(t)`` that returns
+x_T for ``t=None`` and the step-``t`` Gaussian draw otherwise, with the
+sample's shape.  By default the draws come from ``torch.randn`` with the
+given ``generator`` on the sample's device; tests inject the JAX package's
+exact draws instead.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from crowdmod_tpu_torch.core.schedule import DiffusionSchedule
+from crowdmod_tpu_torch.models.guidance import (
+    mass_preservation_gradient,
+    sparsity_gradient,
+)
+from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update
+
+DenoiseFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], torch.Tensor]
+Noise = Callable[["int | None"], torch.Tensor]
+
+GUIDANCE_MODES = ("None", "Sparsity", "mass_preservation")
+
+PRED_TYPES = ("eps", "v", "x0")
+
+_f32 = np.float32
+
+
+def gaussian_noise(
+    shape: tuple[int, ...], device, generator: torch.Generator | None = None
+) -> Noise:
+    """Standard-normal draws of ``shape`` from ``generator`` on ``device``."""
+
+    def draw(t: int | None) -> torch.Tensor:
+        return torch.randn(
+            shape, generator=generator, device=device, dtype=torch.float32
+        )
+
+    return draw
+
+
+def _ab_coeffs(sched: DiffusionSchedule, t: torch.Tensor, ndim: int):
+    """``(sqrt_abar_t, sqrt_1m_abar_t)`` gathered on t's device and
+    broadcast over ``ndim`` dims."""
+    buf = sched.on(t.device)
+    sab = buf["sqrt_alpha_bar"][t]
+    somab = buf["sqrt_one_minus_alpha_bar"][t]
+    shape = sab.shape + (1,) * (ndim - sab.ndim)
+    return sab.reshape(shape), somab.reshape(shape)
+
+
+def prediction_target(
+    sched: DiffusionSchedule,
+    pred_type: str,
+    x0: torch.Tensor,
+    eps: torch.Tensor,
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """Training target for the chosen model parameterization: ``eps``,
+    ``v = sqrt(abar)*eps - sqrt(1-abar)*x0`` or ``x0``."""
+    if pred_type == "eps":
+        return eps
+    sab, somab = _ab_coeffs(sched, t, x0.ndim)
+    if pred_type == "v":
+        return sab * eps - somab * x0
+    if pred_type == "x0":
+        return x0
+    raise ValueError(f"unknown PRED_TYPE {pred_type!r}; expected {PRED_TYPES}")
+
+
+def as_eps_fn(fn: DenoiseFn, sched: DiffusionSchedule, pred_type: str) -> DenoiseFn:
+    """Adapt a ``pred_type``-parameterized model to the eps-space contract
+    every sampler consumes: eps = sab*v + somab*x_t, or
+    eps = (x_t - sab*x0_hat) / somab."""
+    if pred_type == "eps":
+        return fn
+    if pred_type not in PRED_TYPES:
+        raise ValueError(
+            f"unknown PRED_TYPE {pred_type!r}; expected {PRED_TYPES}"
+        )
+
+    def eps_fn(x, t, past):
+        out = fn(x, t, past)
+        sab, somab = _ab_coeffs(sched, t, x.ndim)
+        if pred_type == "v":
+            return sab * out + somab * x
+        return (x - sab * out) / somab  # x0
+
+    return eps_fn
+
+
+def _t_vec(t: int, b: int, device) -> torch.Tensor:
+    return torch.full((b,), t, dtype=torch.int64, device=device)
+
+
+def _noise_and_device(noise, generator, sample_shape, past, device):
+    if device is None:
+        if past is None:
+            raise ValueError("pass device= when sampling without a past")
+        device = past.device
+    if noise is None:
+        noise = gaussian_noise(sample_shape, device, generator)
+    return noise, torch.device(device)
+
+
+def _finish(x, traj, history):
+    return (x, torch.stack(traj)) if history else x
+
+
+def ddpm_sample(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    past: torch.Tensor | None,
+    sample_shape: tuple[int, ...],
+    *,
+    noise: Noise | None = None,
+    generator: torch.Generator | None = None,
+    device=None,
+    guidance: str = "None",
+    lambda_guidance: float = 0.0,
+    history: bool = False,
+):
+    """Ancestral DDPM sampling over all timesteps, T-1 down to 0.
+
+    ``history=True`` also returns the ``(T+1, B, F, H, W, C)`` trajectory:
+    the initial x_T followed by each denoised state.  With guidance None or
+    Sparsity each step is one fused kernel launch; mass-preservation takes
+    the composite path (it needs autograd).
+    """
+    if guidance not in GUIDANCE_MODES and guidance is not None:
+        raise ValueError(f"unknown guidance {guidance!r}; expected {GUIDANCE_MODES}")
+    noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
+    x = noise(None)
+    traj = [x] if history else None
+    b = sample_shape[0]
+    for t in range(sched.timesteps - 1, -1, -1):
+        eps = denoise_fn(x, _t_vec(t, b, device), past)
+        z = noise(t) if t > 0 else torch.zeros_like(x)
+        beta = sched.beta[t]
+        if guidance in ("None", None, "Sparsity"):
+            x = fused_ancestral_update(
+                x, eps, z,
+                inv_sqrt_alpha=float(sched.one_by_sqrt_alpha[t]),
+                beta_over_somab=float(beta / sched.sqrt_one_minus_alpha_bar[t]),
+                sigma=float(np.sqrt(beta)),
+                lambda_guidance=lambda_guidance,
+                sparsity=(guidance == "Sparsity"),
+            )
+        else:  # mass_preservation
+            x = float(sched.one_by_sqrt_alpha[t]) * (
+                x - float(beta / sched.sqrt_one_minus_alpha_bar[t]) * eps
+            ) + float(np.sqrt(beta)) * z
+            # Reference call site: delta_t = delta_l = 1; strength 1 - alpha_t.
+            alpha_t = _f32(1.0) - beta
+            grad = mass_preservation_gradient(x, 1.0, 1.0)
+            x = x - float(_f32(1.0) - alpha_t) * grad
+        if history:
+            traj.append(x)
+    return _finish(x, traj, history)
+
+
+def ddim_sample(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    past: torch.Tensor | None,
+    sample_shape: tuple[int, ...],
+    taus: np.ndarray,
+    *,
+    noise: Noise | None = None,
+    generator: torch.Generator | None = None,
+    device=None,
+    sigma: float = 0.001,
+    guidance: str = "None",
+    lambda_guidance: float = 0.0,
+    history: bool = False,
+):
+    """DDIM sampling with the reference's exact recurrence: the "current"
+    coefficients start at t = T-1 and each iteration consumes the previous
+    iteration's tau coefficients, with a constant sigma noise term.  Only
+    Sparsity guidance participates, as in the reference."""
+    if guidance == "mass_preservation":
+        raise ValueError(
+            "the DDIM path supports Sparsity/None guidance only "
+            "(the reference's DDIM applies no mass guidance)"
+        )
+    if guidance not in ("None", "Sparsity"):
+        raise ValueError(
+            f"unknown guidance {guidance!r}; expected ('None', 'Sparsity')"
+        )
+    noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
+    x = noise(None)
+    traj = [x] if history else None
+    b = sample_shape[0]
+    last = sched.timesteps - 1
+    beta_c = sched.beta[last]
+    sab_c = sched.sqrt_alpha_bar[last]
+    somab_c = sched.sqrt_one_minus_alpha_bar[last]
+    sigma32 = _f32(sigma)
+    for t in np.asarray(taus)[::-1]:
+        t = int(t)
+        eps = denoise_fn(x, _t_vec(t, b, device), past)
+        beta_p = sched.beta[t]
+        sab_p = sched.sqrt_alpha_bar[t]
+        pred_x0 = (x - float(somab_c) * eps) / float(sab_c)
+        direction = float(
+            np.sqrt(_f32(1.0) - sab_p**2 - _f32(sigma**2))
+        ) * eps
+        x = float(sab_p) * pred_x0 + direction + float(sigma32) * noise(t)
+        if guidance == "Sparsity":
+            c = _f32(lambda_guidance) * np.sqrt(beta_c)
+            x = x - float(c) * sparsity_gradient(x)
+        beta_c, sab_c, somab_c = beta_p, sab_p, sched.sqrt_one_minus_alpha_bar[t]
+        if history:
+            traj.append(x)
+    return _finish(x, traj, history)
+
+
+def ddim_eta_sample(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    past: torch.Tensor | None,
+    sample_shape: tuple[int, ...],
+    taus: np.ndarray,
+    *,
+    noise: Noise | None = None,
+    generator: torch.Generator | None = None,
+    device=None,
+    eta: float = 1.0,
+    guidance: str = "None",
+    lambda_guidance: float = 0.0,
+    history: bool = False,
+):
+    """Textbook DDIM (Song et al. Eq. 12) with current-level coefficients
+    and the full per-transition variance
+
+        sigma_i = eta * sqrt((1-abar_prev)/(1-abar_t)) * sqrt(1-abar_t/abar_prev)
+
+    ``eta == 1`` is the respaced ancestral sampler, ``eta == 0`` the
+    deterministic probability-flow DDIM.  ``taus`` is an ascending subset of
+    [0, T-1]; sampling starts from N(0, I) at ``taus[-1]`` and the last step
+    maps ``taus[0]`` to the clean x0 prediction.
+    """
+    if guidance not in GUIDANCE_MODES and guidance is not None:
+        raise ValueError(
+            f"unknown guidance {guidance!r}; expected {GUIDANCE_MODES}"
+        )
+    noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
+    x = noise(None)
+    traj = [x] if history else None
+    b = sample_shape[0]
+    ts = [int(t) for t in np.asarray(taus)[::-1]]
+    one, zero = _f32(1.0), _f32(0.0)
+    for t, tp in zip(ts, ts[1:] + [-1]):
+        eps = denoise_fn(x, _t_vec(t, b, device), past)
+        ab_t = sched.alpha_bar[t]
+        ab_p = sched.alpha_bar[tp] if tp >= 0 else one
+        sigma = (
+            _f32(eta) * np.sqrt(np.maximum((one - ab_p) / (one - ab_t), zero))
+            * np.sqrt(np.maximum(one - ab_t / ab_p, zero))
+        )
+        pred_x0 = (x - float(np.sqrt(one - ab_t)) * eps) / float(np.sqrt(ab_t))
+        direction = float(
+            np.sqrt(np.maximum(one - ab_p - sigma**2, zero))
+        ) * eps
+        x = float(np.sqrt(ab_p)) * pred_x0 + direction
+        if tp >= 0:
+            x = x + float(sigma) * noise(t)
+        if guidance == "Sparsity":
+            c = _f32(lambda_guidance) * np.sqrt(sched.beta[t])
+            x = x - float(c) * sparsity_gradient(x)
+        elif guidance == "mass_preservation":
+            x = x - float(one - ab_t / ab_p) * mass_preservation_gradient(
+                x, 1.0, 1.0
+            )
+        if history:
+            traj.append(x)
+    return _finish(x, traj, history)

@@ -1,0 +1,122 @@
+"""Multi-head attention primitives (port of ``crowdmod_tpu.ops.attention``).
+
+Semantics follow ``torch.nn.MultiheadAttention(batch_first=True)``, the
+reference's layer: packed QKV projection with bias, scaled dot-product,
+optional attention-weight dropout, output projection with bias.  The module's
+state_dict keys are that layer's (``in_proj_weight``, ``in_proj_bias``,
+``out_proj.*``), so weights move to and from the reference layout unchanged.
+
+With dropout off (always, at inference) attention runs through the fused
+kernel wrapper :func:`~crowdmod_tpu_torch.ops.kernels.fused_attention`, as
+the JAX package routes its Pallas kernel only when dropout is off.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from crowdmod_tpu_torch.ops.kernels import fused_attention
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` with the f32 weights cast at use,
+    as a flax ``Dense(dtype=...)`` does."""
+    return F.linear(
+        x.to(dtype), layer.weight.to(dtype),
+        None if layer.bias is None else layer.bias.to(dtype),
+    )
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    dropout_rate: float = 0.0,
+    training: bool = False,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention over ``(..., S, H, Dh)`` tensors.
+
+    Logits and softmax in float32 whatever the input dtype; returns the
+    input dtype.
+    """
+    dtype = q.dtype
+    dh = q.shape[-1]
+    scale = 1.0 / dh**0.5
+    if not (dropout_rate > 0.0 and training):
+        sq, h = q.shape[-3], q.shape[-2]
+        sk = k.shape[-3]
+        lead = q.shape[:-3]
+        # (…, S, H, Dh) → (N, H, S, Dh) views; no copy on the kernel path.
+        to_bhsd = lambda x, s: x.reshape((-1, s) + x.shape[-2:]).transpose(1, 2)
+        out = fused_attention(
+            to_bhsd(q, sq), to_bhsd(k, sk), to_bhsd(v, sk), scale=scale
+        )
+        return out.transpose(1, 2).reshape(lead + (sq, h, dh))
+    # Dropout path (training only): plain torch.
+    logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
+    weights = torch.softmax(logits * scale, dim=-1)
+    keep = torch.rand(
+        weights.shape, generator=generator, device=weights.device
+    ) < 1.0 - dropout_rate
+    weights = weights * keep / (1.0 - dropout_rate)
+    out = torch.einsum(
+        "...hqk,...khd->...qhd", weights.to(dtype).float(), v.float()
+    )
+    return out.to(dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """Torch-semantics MHA: packed QKV + output projection, both biased.
+
+    Call with ``(q_input, kv_input)``; self-attention passes one array.  The
+    DiT4D_V4 temporal stage passes future-slot queries against all-slot
+    keys/values.  Computes in ``dtype`` (weights stay float32).
+    """
+
+    def __init__(
+        self, dim: int, num_heads: int, *, dropout_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(
+                f"hidden dim {dim} not divisible by {num_heads} heads"
+            )
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Xavier-uniform on each of the q/k/v/out projections (as the JAX
+        package's four Dense layers), zero biases."""
+        for w in self.in_proj_weight.data.chunk(3):
+            nn.init.xavier_uniform_(w, generator=generator)
+        nn.init.xavier_uniform_(self.out_proj.weight, generator=generator)
+        nn.init.zeros_(self.in_proj_bias)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(
+        self, q_in: torch.Tensor, kv_in: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        d = q_in.shape[-1]
+        w = self.in_proj_weight.to(self.dtype)
+        b = self.in_proj_bias.to(self.dtype)
+        if kv_in is None:
+            q, k, v = F.linear(q_in.to(self.dtype), w, b).chunk(3, dim=-1)
+        else:
+            q = F.linear(q_in.to(self.dtype), w[:d], b[:d])
+            k, v = F.linear(kv_in.to(self.dtype), w[d:], b[d:]).chunk(2, dim=-1)
+        split = lambda x: x.unflatten(-1, (self.num_heads, d // self.num_heads))
+        out = dot_product_attention(
+            split(q), split(k), split(v),
+            dropout_rate=self.dropout_rate, training=self.training,
+        )
+        return dense(out.flatten(-2), self.out_proj, self.dtype)

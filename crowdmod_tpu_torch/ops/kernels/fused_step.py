@@ -1,0 +1,111 @@
+"""Fused DDPM ancestral update: the Hopper kernel and its plain twin.
+
+Replaces ``crowdmod_tpu/ops/pallas/fused_step.py``
+(``fused_ancestral_update``, kernel ``_step_kernel``).  One reverse step is
+the elementwise chain
+
+    x' = 1/√α_t · (x − β_t/√(1−ᾱ_t) · ε̂) + √β_t · z
+    x' = x' − λ·√β_t·sign(x')          [Sparsity guidance, ρ channel only]
+
+run in one pass by ``csrc/fused_step.cu``, whose note says what bounds it on
+the H100 (bytes) and how its design answers that.  The noise ``z`` is an
+input, so the kernel and the twin agree bit for bit on the same draws.  The
+three per-step scalars are host floats from the numpy schedule: no device
+round trip per step.  float32 only: ε̂ comes out of the DiT's f32 final
+layer and the sampler state stays f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from crowdmod_tpu_torch.ops.kernels import build
+
+_SIGNATURES = {
+    "crowdmod_ancestral_update": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p],
+    ),
+}
+
+
+def ancestral_update_reference(
+    x, eps, z, *, inv_sqrt_alpha, beta_over_somab, sigma,
+    lambda_guidance=0.0, sparsity=False, rho_channel=0,
+):
+    """Plain twin of the fused step, over any shape whose last dim is C."""
+    sigma = float(sigma)
+    out = float(inv_sqrt_alpha) * (x - float(beta_over_somab) * eps) + sigma * z
+    if sparsity:
+        guid = torch.zeros_like(out)
+        guid[..., rho_channel] = torch.sign(out[..., rho_channel])
+        out = out - float(lambda_guidance) * sigma * guid
+    return out
+
+
+def fused_ancestral_update(
+    x: torch.Tensor,
+    eps: torch.Tensor,
+    z: torch.Tensor,
+    *,
+    inv_sqrt_alpha: float,
+    beta_over_somab: float,
+    sigma: float,
+    lambda_guidance: float = 0.0,
+    sparsity: bool = False,
+    rho_channel: int = 0,
+) -> torch.Tensor:
+    """One fused reverse step over ``(B, F, H, W, C)`` (any shape, really).
+    CPU tensors take the plain twin; CUDA tensors the kernel."""
+    if x.device.type == "cpu":
+        return ancestral_update_reference(
+            x, eps, z, inv_sqrt_alpha=inv_sqrt_alpha,
+            beta_over_somab=beta_over_somab, sigma=sigma,
+            lambda_guidance=lambda_guidance, sparsity=sparsity,
+            rho_channel=rho_channel,
+        )
+    for name, t in (("x", x), ("eps", eps), ("z", z)):
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(
+                f"fused_ancestral_update: {name} is on {t.device}, x on "
+                f"{x.device}; all three must be on one CUDA device"
+            )
+        if t.dtype != torch.float32:
+            raise ValueError(
+                f"fused_ancestral_update: {name} has dtype {t.dtype}; the "
+                "kernel takes float32"
+            )
+        if t.shape != x.shape or not t.is_contiguous():
+            raise ValueError(
+                f"fused_ancestral_update: {name} must be contiguous with "
+                f"x's shape {tuple(x.shape)}, got {tuple(t.shape)}"
+            )
+    channels = x.shape[-1] if x.dim() else 1
+    if not 0 <= rho_channel < channels:
+        raise ValueError(
+            f"fused_ancestral_update: rho_channel {rho_channel} outside "
+            f"{channels} channels"
+        )
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    sigma = float(sigma)
+    lib = build.load("fused_step", _SIGNATURES)
+    err = lib.crowdmod_ancestral_update(
+        x.data_ptr(), eps.data_ptr(), z.data_ptr(), out.data_ptr(),
+        x.numel(), channels, rho_channel, float(inv_sqrt_alpha),
+        float(beta_over_somab), sigma, float(lambda_guidance) * sigma,
+        int(sparsity), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"ancestral-update kernel launch failed: CUDA error {err}"
+        )
+    fused_ancestral_update.launches += 1
+    return out
+
+
+fused_ancestral_update.launches = 0
