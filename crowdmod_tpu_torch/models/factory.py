@@ -1,5 +1,6 @@
 """Architecture registry: config node → backbone module (port of the JAX
-package's ``models/factory.py``, ``DDPM-DiT`` branch).
+package's ``models/factory.py``: the ``DDPM-DiT`` and ``DDPM-UNet``
+branches).
 
 Arch strings ``DDPM-UNet | DDPM-DiT | FM-UNet | FM-DiT | ConvRNN`` select
 both the generative family and the backbone, with hyperparameters read from
@@ -18,8 +19,7 @@ ARCHS = ("DDPM-UNet", "DDPM-DiT", "FM-UNet", "FM-DiT", "ConvRNN")
 
 # Arch → the ROADMAP.md Queue 1 item that ports its backbone.
 _NOT_PORTED = {
-    "DDPM-UNet": "Queue 1 item 9 (UNet3D slice)",
-    "FM-UNet": "Queue 1 items 9 and 12 (UNet3D slice, flow matching)",
+    "FM-UNet": "Queue 1 item 12 (flow matching)",
     "FM-DiT": "Queue 1 items 10 and 12 (DiT2D, flow matching)",
     "ConvRNN": "Queue 1 item 13 (ConvRNN)",
 }
@@ -37,9 +37,26 @@ def build_backbone(
     mprops_count: int = 3,
     *,
     dtype: torch.dtype = torch.float32,
+    conv_impl: str = "im2col",
 ) -> nn.Module:
     """Instantiate the denoiser backbone for ``arch`` (on the CPU; the
-    caller moves it)."""
+    caller moves it).  ``conv_impl`` picks the UNet's conv kernel."""
+    if arch == "DDPM-UNet":
+        from crowdmod_tpu_torch.models.backbones.unet3d import UNet3D
+
+        node = backbone_cfg(cfg, arch)
+        return UNet3D(
+            out_channels=mprops_count,
+            num_res_blocks=node.NUM_RES_BLOCKS,
+            base_channels=node.BASE_CH,
+            base_channels_multiples=tuple(node.BASE_CH_MULT),
+            apply_attention=tuple(node.APPLY_ATTENTION),
+            dropout_rate=node.DROPOUT_RATE,
+            time_multiple=node.TIME_EMB_MULT,
+            condition=node.CONDITION,
+            dtype=dtype,
+            conv_impl=conv_impl,
+        )
     if arch == "DDPM-DiT":
         from crowdmod_tpu_torch.models.backbones.dit import DiT4DFactorized
 

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one module each, with their twins.
 
 Each wrapper runs its plain PyTorch twin on CPU tensors and its kernel on
-CUDA tensors (or raises); ``<wrapper>.launches`` counts the kernel launches.
-Kernels build from ``crowdmod_tpu_torch/csrc`` at first use
+CUDA tensors (or raises); ``<wrapper>.launches`` counts the wrapper's kernel
+calls.  Kernels build from ``crowdmod_tpu_torch/csrc`` at first use
 (:mod:`.build`).
 """
 
@@ -10,12 +10,28 @@ from crowdmod_tpu_torch.ops.kernels.attention import (
     attention_reference,
     fused_attention,
 )
+from crowdmod_tpu_torch.ops.kernels.conv3d import (
+    conv3d_same_im2col,
+    conv3d_same_reference,
+    conv3d_same_tapgemm,
+)
 from crowdmod_tpu_torch.ops.kernels.fused_step import (
     ancestral_update_reference,
     fused_ancestral_update,
 )
+from crowdmod_tpu_torch.ops.kernels.groupnorm import (
+    fused_group_norm,
+    group_norm_reference,
+)
+from crowdmod_tpu_torch.ops.kernels.resblock import (
+    fused_resblock,
+    resblock_reference,
+)
 
-KERNELS = (fused_attention, fused_ancestral_update)
+KERNELS = (
+    fused_attention, fused_ancestral_update, fused_group_norm,
+    conv3d_same_im2col, conv3d_same_tapgemm, fused_resblock,
+)
 
 
 def reset_launch_counts() -> None:
@@ -30,5 +46,12 @@ __all__ = [
     "fused_attention",
     "ancestral_update_reference",
     "fused_ancestral_update",
+    "group_norm_reference",
+    "fused_group_norm",
+    "conv3d_same_reference",
+    "conv3d_same_im2col",
+    "conv3d_same_tapgemm",
+    "resblock_reference",
+    "fused_resblock",
     "reset_launch_counts",
 ]

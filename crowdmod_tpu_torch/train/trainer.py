@@ -1,6 +1,6 @@
 """Trainer, inference part (port of the JAX package's ``train/trainer.py``:
 construction, ``load``/``save``, ``_sample_params``, ``_denoise_fn`` and
-``sample`` for the DDPM family).
+``sample`` for the DDPM family, with the DiT or UNet3D backbone).
 
 ``fit`` and the optimizer come with the training slice.  The weights are
 held as state_dicts (``params`` and, with EMA on, ``ema_params``) in the
@@ -55,6 +55,7 @@ class Trainer:
         device="cuda",
         compute_dtype: torch.dtype | None = None,
         seed: int = 42,
+        conv_impl: str = "im2col",
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -77,7 +78,8 @@ class Trainer:
             )
         self.compute_dtype = compute_dtype
         self.model = factory.build_backbone(
-            cfg, arch, self.mprops_count, dtype=compute_dtype
+            cfg, arch, self.mprops_count, dtype=compute_dtype,
+            conv_impl=conv_impl,
         )
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()

@@ -54,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import crowdmod_tpu_torch.serving, crowdmod_tpu_torch.ops.kernels\n"
         "import crowdmod_tpu_torch.models.diffusion.ddpm\n"
+        "import crowdmod_tpu_torch.models.backbones.unet3d\n"
         "import crowdmod_tpu_torch.compat.jax_params\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
@@ -77,10 +78,11 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config("4test/ATC.yml")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Predictor(cfg, "DDPM-DiT", str(tmp_path))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Trainer(cfg, "DDPM-DiT")
+    for arch in ("DDPM-DiT", "DDPM-UNet"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Predictor(cfg, arch, str(tmp_path))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(cfg, arch)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -89,7 +91,7 @@ def test_unported_archs_name_their_roadmap_item():
     from crowdmod_tpu_torch.models.factory import build_backbone
 
     cfg = load_config("4test/ATC.yml")
-    for arch in ("DDPM-UNet", "FM-DiT", "ConvRNN"):
+    for arch in ("FM-UNet", "FM-DiT", "ConvRNN"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             build_backbone(cfg, arch)
     with pytest.raises(ValueError, match="unknown arch"):
