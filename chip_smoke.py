@@ -2,6 +2,10 @@
 """Drive the PyTorch port (``crowdmod_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with CUDA
+    python3 chip_smoke.py --conv-baseline DIR   # phase 1, then this tree's conv
+                                   # kernels against DIR/conv3d.cu (the e95bbf9 C interface)
+    python3 chip_smoke.py --conv-tiles          # phase 1, then every bf16 conv
+                                   # tile at every path shape (the plans' data)
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
@@ -24,7 +28,8 @@ non-zero without a result line:
      ResnetBlock and attention kernels;
   7. UNet ancestral: phase 4 with DDPM-UNet;
   8. UNet end to end in f32: kernels with ``conv_impl="im2col"``, kernels
-     with ``conv_impl="tapgemm"`` (the tap-GEMM kernel's path) and twins.
+     with ``conv_impl="tapgemm"`` (the tap-GEMM kernel's path) and twins;
+     the chain held step by step from the twins' states.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after: phases 3-4 (DiT), phases 6-7 (UNet) and the tap-GEMM run of
@@ -36,6 +41,7 @@ two lines are a JSON object with every kernel's numbers and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -354,7 +360,16 @@ def check_group_norm(level, c, act, dtype, gen, timing):
     return res
 
 
-def check_conv(level, cin, cout, impl, dtype, gen, timing):
+def _conv_inputs(level, cin, cout, dtype, gen, batch=UNET_BATCH):
+    """x, the (3, 3, 3, Cin, Cout) kernel (both in ``dtype``) and an f32
+    bias for a conv at ``level``."""
+    t, h, w = LEVELS[level]
+    x = _randn((batch, t, h, w, cin), gen, dtype)
+    kernel = (_randn((3, 3, 3, cin, cout), gen) / (27 * cin) ** 0.5).to(dtype)
+    return x, kernel, 0.1 * _randn((cout,), gen)
+
+
+def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH):
     import torch.nn.functional as F
 
     from crowdmod_tpu_torch.ops.kernels import (
@@ -362,34 +377,81 @@ def check_conv(level, cin, cout, impl, dtype, gen, timing):
         conv3d_same_reference,
         conv3d_same_tapgemm,
     )
-    from crowdmod_tpu_torch.ops.kernels.conv3d import pack_im2col, pack_tapgemm
+    from crowdmod_tpu_torch.ops.kernels.conv3d import (
+        im2col_plan,
+        pack_im2col,
+        pack_tapgemm,
+        smem_bytes,
+        tapgemm_plan,
+    )
 
     t, h, w = LEVELS[level]
-    x = _randn((UNET_BATCH, t, h, w, cin), gen, dtype)
-    kernel = (_randn((3, 3, 3, cin, cout), gen) / (27 * cin) ** 0.5).to(dtype)
-    bias = 0.1 * _randn((cout,), gen)
-    conv, pack = ((conv3d_same_im2col, pack_im2col) if impl == "im2col"
-                  else (conv3d_same_tapgemm, pack_tapgemm))
+    x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen, batch)
+    conv, pack, planner = ((conv3d_same_im2col, pack_im2col, im2col_plan)
+                           if impl == "im2col"
+                           else (conv3d_same_tapgemm, pack_tapgemm, tapgemm_plan))
+    plan = planner(tuple(x.shape), cout, dtype)
     wp = pack(kernel)
     out = conv(x, wp, bias)
     torch.cuda.synchronize()
+    label = (f"conv3d {impl} L{level} {cin}->{cout} {_dn(dtype)}"
+             + ("" if batch == UNET_BATCH else f" b{batch}"))
     ref = conv3d_same_reference(x.float(), kernel.float(), bias)
     tol = TOL["conv_f32" if dtype == torch.float32 else "bf16"]
-    err = _rel_check(f"conv {impl} L{level} {cin}->{cout} {_dn(dtype)}", out, ref, tol)
-    res = dict(shape=[UNET_BATCH, t, h, w, cin, cout], impl=impl,
-               dtype=_dn(dtype), max_abs_err=err, tolerance=f"{tol} x max|ref|")
+    err = _rel_check(label, out, ref, tol)
+    # Same inputs, same bits: split-K sums its partials in a fixed order.
+    again = conv(x, wp, bias)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: a second call gave other bits ({plan})")
+    res = dict(shape=[batch, t, h, w, cin, cout], impl=impl,
+               dtype=_dn(dtype), max_abs_err=err, tolerance=f"{tol} x max|ref|",
+               bitwise_repeat=True,
+               plan={**dataclasses.asdict(plan), "smem_bytes": (
+                   smem_bytes(impl, plan) if dtype == torch.bfloat16 else 0)})
     if timing:
         # F.conv3d over the same channels-last memory (NDHWC, cuDNN).
         xc = x.permute(0, 4, 1, 2, 3)
         wc = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
         bc = bias.to(dtype)
-        flops = 2 * UNET_BATCH * t * h * w * 27 * cin * cout
-        nbytes = (x.numel() + kernel.numel() + UNET_BATCH * t * h * w * cout) \
+        flops = 2 * batch * t * h * w * 27 * cin * cout
+        nbytes = (x.numel() + kernel.numel() + batch * t * h * w * cout) \
             * x.element_size() + 4 * cout
         _timings(res, lambda: conv(x, wp, bias),
                  lambda: conv3d_same_reference(x, kernel, bias),
                  lambda: F.conv3d(xc, wc, bc, padding=1), nbytes, flops, dtype)
-    log(f"kernel conv3d {impl} L{level} {cin}->{cout} {_dn(dtype)}", **res)
+        res.update(tflops=flops / res["ms"] / 1e9,
+                   bound_share=res["bound_ms"] / res["ms"],
+                   vs_cudnn=res["ms"] / res["library_ms"])
+    log(f"kernel {label}", **res)
+    return res
+
+
+def check_bucket_plans(gen, timing) -> dict:
+    """The im2col plans of the other serving buckets: the plan depends on
+    the batch (split-K at levels 0-1 for small batches, a last row tile
+    only partly live), so one shape per plan that batch 64 does not check
+    (tile, K chunk, splits, partial tile; bf16, the final conv f32, as
+    served) is checked, for bitwise repeats too, and timed."""
+    from crowdmod_tpu_torch.ops.kernels.conv3d import im2col_plan
+    from crowdmod_tpu_torch.serving import BATCH_BUCKETS
+
+    def key(batch, level, cin, cout):
+        dtype = torch.float32 if cout == 3 else torch.bfloat16
+        positions = batch * int(np.prod(LEVELS[level]))
+        p = im2col_plan((batch, *LEVELS[level], cin), cout, dtype)
+        return dtype, p.bm, p.bn, p.bk, p.kc, p.splits, positions % p.bm == 0
+
+    seen = {key(UNET_BATCH, *shape) for shape in CONV_SHAPES}
+    res = {}
+    for batch in BATCH_BUCKETS:
+        for level, cin, cout in CONV_SHAPES:
+            k = key(batch, level, cin, cout)
+            if k in seen:
+                continue
+            seen.add(k)
+            res[f"im2col_b{batch}_L{level}_{cin}_{cout}_{_dn(k[0])}"] = check_conv(
+                level, cin, cout, "im2col", k[0], gen, timing, batch=batch)
     return res
 
 
@@ -458,21 +520,130 @@ def phase_unet_kernels(timing: bool = True) -> dict:
         for cin, cout in RESBLOCK_SHAPES:
             res["resblock"][f"{cin}_{cout}_{dn}"] = check_resblock(
                 cin, cout, dtype, gen, timing)
+    res["conv"].update(check_bucket_plans(gen, timing))
     if timing:
         # Device ms of the kernels of one bf16 forward at batch 64 (the
         # served dtype; the final conv counted in f32, as it runs).
         per_fwd = {
             "group_norm": sum(res["gn"][f"L{l}_C{c}_{a}_bfloat16"]["ms"] * n
                               for (l, c, a), n in GN_SHAPES.items()),
-            "conv3d_im2col": sum(
-                res["conv"][f"im2col_L{l}_{i}_{o}_{'float32' if o == 3 else 'bfloat16'}"]["ms"]
-                * n for (l, i, o), n in CONV_SHAPES.items()),
+            **{f"conv3d_{impl}": sum(
+                res["conv"][f"{impl}_L{l}_{i}_{o}_{'float32' if o == 3 else 'bfloat16'}"]["ms"]
+                * n for (l, i, o), n in CONV_SHAPES.items()) for impl in ("im2col", "tapgemm")},
             "resblock": sum(res["resblock"][f"{i}_{o}_bfloat16"]["ms"]
                             for i, o in RESBLOCK_SHAPES),
         }
         log("UNet kernels per bf16 forward at batch 64 (device ms)", **per_fwd)
+        table = [[k] + [round(c[f], 5) for f in ("ms", "bound_ms", "library_ms", "tflops")]
+                 + [c["plan"][f] for f in ("bm", "bn", "bk", "kc", "splits", "blocks",
+                                           "smem_bytes")]
+                 for k, c in res["conv"].items()]
+        log("conv table [shape, ms, bound_ms, cudnn_ms, tflops, bm, bn, bk, kc, splits, "
+            "blocks, smem_bytes]", rows=table)
     return res
 
+
+
+def phase_conv_baseline(src_dir: Path) -> dict:
+    """Both conv kernels of this tree against an earlier ``conv3d.cu`` (with
+    its ``common.cuh``, in ``src_dir``, with the 12-argument C interface of
+    commit e95bbf9, the CUDA-core kernels) at every ``CONV_SHAPES`` shape,
+    f32 and bf16, on this card: each output checked against this tree's,
+    each timed in turns (earlier, this, this, earlier)."""
+    import ctypes
+
+    from crowdmod_tpu_torch.ops.kernels import build, conv3d_same_im2col, conv3d_same_tapgemm
+    from crowdmod_tpu_torch.ops.kernels.conv3d import pack_im2col, pack_tapgemm
+
+    lib_path = src_dir / "libconv3d_baseline.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(src_dir / "conv3d.cu")], check=True, capture_output=True,
+                   timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in ("crowdmod_conv3d_im2col", "crowdmod_conv3d_tapgemm"):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for impl in ("im2col", "tapgemm"):
+            conv, pack = ((conv3d_same_im2col, pack_im2col) if impl == "im2col"
+                          else (conv3d_same_tapgemm, pack_tapgemm))
+            old_fn = getattr(lib, f"crowdmod_conv3d_{impl}")
+            for level, cin, cout in CONV_SHAPES:
+                x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
+                wp = pack(kernel)
+                out_old = torch.empty((*x.shape[:-1], cout), dtype=dtype, device="cuda")
+                b, t, h, w, _ = x.shape
+
+                def old():
+                    err = old_fn(1 if dtype == torch.bfloat16 else 0, x.data_ptr(),
+                                 wp.data_ptr(), bias.data_ptr(), out_old.data_ptr(),
+                                 b, t, h, w, cin, cout,
+                                 torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"baseline {impl} launch failed: {err}")
+
+                old()
+                new = conv(x, wp, bias)
+                torch.cuda.synchronize()
+                key = f"{impl}_L{level}_{cin}_{cout}_{_dn(dtype)}"
+                tol = TOL["conv_f32" if dtype == torch.float32 else "bf16"]
+                _rel_check(f"baseline {key}", out_old, new.float(), tol)
+                o1, n1 = cuda_ms_budget(old)[0], cuda_ms_budget(lambda: conv(x, wp, bias))[0]
+                n2, o2 = cuda_ms_budget(lambda: conv(x, wp, bias))[0], cuda_ms_budget(old)[0]
+                rows[key] = dict(baseline_ms=[o1, o2], ms=[n1, n2],
+                                 speedup=(o1 + o2) / (n1 + n2))
+                log(f"conv baseline {key}", **rows[key])
+    return rows
+
+
+def phase_conv_tiles() -> dict:
+    """Every bf16 tile the conv kernels are built with (``IM2COL_TILES`` with
+    1 or 9 splits, ``TAPGEMM_TILES``) at every ``CONV_SHAPES`` shape,
+    each checked against the twin and timed; ``chosen`` marks the wrappers'
+    plan.  The data behind the plan functions' choices."""
+    from crowdmod_tpu_torch.ops.kernels import conv3d_same_reference
+    from crowdmod_tpu_torch.ops.kernels import conv3d as conv_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dtype = torch.bfloat16
+    rows = {}
+    for level, cin, cout in CONV_SHAPES:
+        x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
+        ref = conv3d_same_reference(x.float(), kernel.float(), bias)
+        positions = x.numel() // cin
+        flops = 2 * positions * 27 * cin * cout
+        w_mat, w_taps = conv_mod.pack_im2col(kernel), conv_mod.pack_tapgemm(kernel)
+        chosen = {"im2col": conv_mod.im2col_plan(tuple(x.shape), cout, dtype),
+                  "tapgemm": conv_mod.tapgemm_plan(tuple(x.shape), cout, dtype)}
+        cases = [("im2col", tile, s) for tile in sorted(conv_mod.IM2COL_TILES)
+                 for s in ((1, 9) if cin % 8 == 0 else (1,))]
+        cases += [("tapgemm", tile, 1) for tile in sorted(conv_mod.TAPGEMM_TILES)]
+        for impl, tile, splits in cases:
+            plan = conv_mod.mma_plan(tile, cin, splits, 0)
+            ws = (torch.empty(plan.workspace_elems(positions, cout), dtype=torch.float32,
+                              device="cuda") if splits > 1 else None)
+            if impl == "im2col":
+                def fn():
+                    return conv_mod._launch(
+                        "crowdmod_conv3d_im2col", x, w_mat, bias, cout,
+                        (plan.bm, plan.bn, plan.bk, plan.kc, plan.splits),
+                        (None if ws is None else ws.data_ptr(),))
+            else:
+                def fn():
+                    return conv_mod._launch("crowdmod_conv3d_tapgemm", x, w_taps, bias,
+                                            cout, (plan.bk, plan.kc))
+            key = f"{impl}_L{level}_{cin}_{cout}_{tile[0]}x{tile[1]}x{tile[2]}_s{splits}"
+            _rel_check(key, fn(), ref, TOL["bf16"])
+            ms = cuda_ms_budget(fn, budget_ms=20.0)[0]
+            c = chosen[impl]
+            rows[key] = dict(ms=ms, tflops=flops / ms / 1e9, chosen=(
+                (c.bm, c.bn, c.bk, c.splits) == (*tile, splits)))
+    log("conv tiles [key, ms, tflops, chosen]",
+        rows=[[k, round(r["ms"], 5), round(r["tflops"], 1), r["chosen"]]
+              for k, r in rows.items()])
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -672,12 +843,13 @@ def twins_on_the_card():
 
 def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
     """One f32 batch-64 forward and one DDIM-eta chain, with the kernels
-    (each conv kernel, for the UNet) and with the twins, on the card; the
-    tap-GEMM run is that kernel's path and its launches are returned."""
+    (each conv kernel, for the UNet) and with the twins, on the card.  The
+    UNet's chain is held step by step (see ``run``).  The tap-GEMM run is
+    that kernel's path and its launches are returned."""
     from crowdmod_tpu_torch.core import layout
     from crowdmod_tpu_torch.core.schedule import respaced_taus
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
-    from crowdmod_tpu_torch.models.diffusion import ddim_eta_sample
+    from crowdmod_tpu_torch.models.diffusion import ddim_eta_sample, ddim_eta_step
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
     from crowdmod_tpu_torch.train.trainer import Trainer
 
@@ -693,33 +865,47 @@ def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
     x = torch.randn((64, f, h, w, 3), generator=gen, device=DEVICE)
     t = torch.randint(0, node.TIMESTEPS, (64,), generator=gen, device=DEVICE)
     taus = respaced_taus(node.TIMESTEPS, node.ETA_STEPS)
+    ts = [int(s) for s in taus[::-1]]
     draws = {None: x}
     draws.update({int(s): torch.randn(x.shape, generator=gen, device=DEVICE)
                   for s in taus})
+    guide = dict(noise=draws.__getitem__, eta=node.ETA, guidance=node.GUIDANCE,
+                 lambda_guidance=node.LAMBDA_GUIDANCE)
 
-    def run(conv_impl):
+    def run(conv_impl, states=None):
+        """The forward and the chain's states (x_T first).  With ``states``
+        (the twins' chain) each step starts from the twins' state before it:
+        the fused resblock sums GN2's moments by atomics, so its f32 output
+        varies between runs at the 1e-5 level, and Sparsity's sign term
+        turns such a difference at a rho near 0 into a flip that a
+        free-running chain carries into every channel (ROADMAP Queue 3).
+        Held step by step, every kernel stays in the chain."""
         trainer = Trainer(cfg, arch, device=DEVICE, compute_dtype=torch.float32,
                           conv_impl=conv_impl)
         trainer.load(ckpt_path)
         denoise = trainer._denoise_fn()  # binds the checkpoint's EMA weights
         with torch.no_grad():
             fwd = trainer.model(x, t, past)
-            chain = ddim_eta_sample(
-                denoise, trainer.sched, past, tuple(x.shape),
-                taus, noise=draws.__getitem__, eta=node.ETA,
-                guidance=node.GUIDANCE, lambda_guidance=node.LAMBDA_GUIDANCE,
-            )
+            if states is None:
+                chain = ddim_eta_sample(denoise, trainer.sched, past, tuple(x.shape),
+                                        taus, history=True, **guide)[1]
+            else:
+                chain = torch.stack([states[0]] + [
+                    ddim_eta_step(denoise, trainer.sched, past, states[i], ti, tp, **guide)
+                    for i, (ti, tp) in enumerate(zip(ts, ts[1:] + [-1]))])
         torch.cuda.synchronize()
         return fwd, chain
 
     with twins_on_the_card():
         fwd_t, chain_t = run("im2col")
+    stepwise = arch == "DDPM-UNet"
     impls = ("im2col", "tapgemm") if arch == "DDPM-UNet" else ("im2col",)
-    res, tap_launches = {"arch": arch}, None
+    res, tap_launches = {"arch": arch, "chain": "step by step" if stepwise
+                         else "free-running"}, None
     for impl in impls:
         if impl == "tapgemm":
             reset_launch_counts()  # the tap-GEMM kernel's path
-        fwd_k, chain_k = run(impl)
+        fwd_k, chain_k = run(impl, chain_t if stepwise else None)
         if impl == "tapgemm":
             tap_launches = launch_counts()["conv3d_same_tapgemm"]
             want = PER_FORWARD[arch](cfg)["conv3d_same_im2col"] * (1 + len(taus))
@@ -735,18 +921,21 @@ def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
             raise AssertionError(f"{arch} {impl} forward kernels vs twins: {fwd_err}")
         if not torch.isfinite(chain_k).all():
             raise AssertionError("chain output is not finite")
-        off = (chain_k - chain_t).abs() > TOL["chain"]
-        flips = int(off[..., layout.RHO].sum())
-        off_other = int(off.sum()) - flips
-        if off_other or flips > TOL["max_flip_share"] * off.numel():
-            raise AssertionError(
-                f"{arch} {impl} chain kernels vs twins: {off_other} non-rho "
-                f"elements and {flips} rho flips beyond {TOL['chain']}"
-            )
+        flips = 0
+        for step in range(1, len(chain_k)):  # each state after x_T
+            off = (chain_k[step] - chain_t[step]).abs() > TOL["chain"]
+            step_flips = int(off[..., layout.RHO].sum())
+            off_other = int(off.sum()) - step_flips
+            if off_other or step_flips > TOL["max_flip_share"] * off.numel():
+                raise AssertionError(
+                    f"{arch} {impl} chain kernels vs twins, step {step}: {off_other} "
+                    f"non-rho elements and {step_flips} rho flips beyond {TOL['chain']}")
+            flips += step_flips
         res[impl] = dict(forward_max_abs_diff=fwd_err,
                          forward_abs_max=fwd_k.abs().max().item(),
                          chain_max_abs_diff=(chain_k - chain_t).abs().max().item(),
-                         chain_rho_flips=flips, chain_elements=off.numel())
+                         chain_rho_flips=flips, chain_steps=len(chain_k) - 1,
+                         state_elements=chain_k[0].numel())
     res["tapgemm_path_launches"] = tap_launches
     log(f"end to end {arch} kernels vs twins (f32)", **res)
     return res
@@ -770,6 +959,14 @@ def main() -> int:
 
     t_start = time.perf_counter()
     device = phase_device()
+    if len(sys.argv) == 3 and sys.argv[1] == "--conv-baseline":
+        rows = phase_conv_baseline(Path(sys.argv[2]).resolve())
+        log("conv baseline done", seconds=time.perf_counter() - t_start, shapes=len(rows))
+        return 0
+    if sys.argv[1:] == ["--conv-tiles"]:
+        rows = phase_conv_tiles()
+        log("conv tiles done", seconds=time.perf_counter() - t_start, cases=len(rows))
+        return 0
     kernels = phase_kernels()
     unet = phase_unet_kernels()
 

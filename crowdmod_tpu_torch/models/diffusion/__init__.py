@@ -1,6 +1,7 @@
 from crowdmod_tpu_torch.models.diffusion.ddpm import (
     as_eps_fn,
     ddim_eta_sample,
+    ddim_eta_step,
     ddim_sample,
     ddpm_sample,
     gaussian_noise,
@@ -14,4 +15,5 @@ __all__ = [
     "ddpm_sample",
     "ddim_sample",
     "ddim_eta_sample",
+    "ddim_eta_step",
 ]

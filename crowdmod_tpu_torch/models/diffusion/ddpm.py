@@ -259,31 +259,50 @@ def ddim_eta_sample(
     noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
     x = noise(None)
     traj = [x] if history else None
-    b = sample_shape[0]
     ts = [int(t) for t in np.asarray(taus)[::-1]]
-    one, zero = _f32(1.0), _f32(0.0)
     for t, tp in zip(ts, ts[1:] + [-1]):
-        eps = denoise_fn(x, _t_vec(t, b, device), past)
-        ab_t = sched.alpha_bar[t]
-        ab_p = sched.alpha_bar[tp] if tp >= 0 else one
-        sigma = (
-            _f32(eta) * np.sqrt(np.maximum((one - ab_p) / (one - ab_t), zero))
-            * np.sqrt(np.maximum(one - ab_t / ab_p, zero))
-        )
-        pred_x0 = (x - float(np.sqrt(one - ab_t)) * eps) / float(np.sqrt(ab_t))
-        direction = float(
-            np.sqrt(np.maximum(one - ab_p - sigma**2, zero))
-        ) * eps
-        x = float(np.sqrt(ab_p)) * pred_x0 + direction
-        if tp >= 0:
-            x = x + float(sigma) * noise(t)
-        if guidance == "Sparsity":
-            c = _f32(lambda_guidance) * np.sqrt(sched.beta[t])
-            x = x - float(c) * sparsity_gradient(x)
-        elif guidance == "mass_preservation":
-            x = x - float(one - ab_t / ab_p) * mass_preservation_gradient(
-                x, 1.0, 1.0
-            )
+        x = ddim_eta_step(denoise_fn, sched, past, x, t, tp, noise=noise, eta=eta,
+                          guidance=guidance, lambda_guidance=lambda_guidance)
         if history:
             traj.append(x)
     return _finish(x, traj, history)
+
+
+def ddim_eta_step(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    past: torch.Tensor | None,
+    x: torch.Tensor,
+    t: int,
+    tp: int,
+    *,
+    noise: Noise,
+    eta: float = 1.0,
+    guidance: str = "None",
+    lambda_guidance: float = 0.0,
+) -> torch.Tensor:
+    """One transition of :func:`ddim_eta_sample`, from ``x`` at level ``t``
+    to level ``tp`` (−1: the clean x0 prediction, with no noise drawn)."""
+    one, zero = _f32(1.0), _f32(0.0)
+    eps = denoise_fn(x, _t_vec(t, x.shape[0], x.device), past)
+    ab_t = sched.alpha_bar[t]
+    ab_p = sched.alpha_bar[tp] if tp >= 0 else one
+    sigma = (
+        _f32(eta) * np.sqrt(np.maximum((one - ab_p) / (one - ab_t), zero))
+        * np.sqrt(np.maximum(one - ab_t / ab_p, zero))
+    )
+    pred_x0 = (x - float(np.sqrt(one - ab_t)) * eps) / float(np.sqrt(ab_t))
+    direction = float(
+        np.sqrt(np.maximum(one - ab_p - sigma**2, zero))
+    ) * eps
+    x = float(np.sqrt(ab_p)) * pred_x0 + direction
+    if tp >= 0:
+        x = x + float(sigma) * noise(t)
+    if guidance == "Sparsity":
+        c = _f32(lambda_guidance) * np.sqrt(sched.beta[t])
+        x = x - float(c) * sparsity_gradient(x)
+    elif guidance == "mass_preservation":
+        x = x - float(one - ab_t / ab_p) * mass_preservation_gradient(
+            x, 1.0, 1.0
+        )
+    return x

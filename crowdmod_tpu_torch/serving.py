@@ -39,6 +39,9 @@ class PredictorStats:
         self.total_latency_s += dt
 
 
+BATCH_BUCKETS = (1, 8, 64, 256)  # the batch sizes a predictor compiles for
+
+
 class Predictor:
     """Serves ``predict(past) -> future`` for a trained model.
 
@@ -54,7 +57,7 @@ class Predictor:
         checkpoint_path: str,
         *,
         device="cuda",
-        batch_buckets: tuple[int, ...] = (1, 8, 64, 256),
+        batch_buckets: tuple[int, ...] = BATCH_BUCKETS,
         seed: int = 0,
     ):
         from crowdmod_tpu_torch.train.trainer import Trainer

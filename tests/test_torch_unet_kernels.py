@@ -82,8 +82,10 @@ def test_group_norm_raises_on_indivisible_channels():
     [((2, 4, 6, 8, 3), 8),     # Cin = 3, the first conv
      ((2, 4, 6, 8, 16), 3),    # Cout = 3, the final conv
      ((1, 2, 3, 9, 24), 16),   # the smallest UNet level
-     ((2, 4, 6, 8, 16), 16)],
-    ids=["cin3", "cout3", "level2", "square"],
+     ((2, 4, 6, 8, 16), 16),
+     ((1, 2, 3, 9, 64), 32),   # 16-byte channel runs, two 32-wide chunks a tap
+     ((1, 2, 2, 3, 256), 8)],  # the widest Cin, eight chunks a tap
+    ids=["cin3", "cout3", "level2", "square", "cin64", "cin256"],
 )
 def test_conv3d_twin_matches_jax(shape, cout):
     cin = shape[-1]
