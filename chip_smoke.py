@@ -12,9 +12,11 @@ non-zero without a result line:
 
   1. device: the card's name and power limit (nvidia-smi), kernel build time;
   2. kernels: each CUDA kernel against its plain twin on the card, at the
-     serving paths' shapes, in f32 and bf16, with device times (CUDA
-     events), the host's time to issue a call, bounds and the library
-     yardstick;
+     serving paths' shapes, in f32 and bf16, with its plan (route, tiles),
+     a second call held bitwise equal to the first (attention, convs,
+     resblock), device times (CUDA events), the host's time to issue a
+     call, bounds and the library yardstick (for the resblock, which no
+     single library call computes, the unfused PyTorch sequence);
   3. DiT serving: ``configs/serving/ATC.yml`` with DDPM-DiT (hidden 256,
      depth 6, DDIM-eta 25 steps + Sparsity) and seeded random weights,
      through ``load_predictor``/``warmup``/``BatchingQueue``, with p50
@@ -28,8 +30,8 @@ non-zero without a result line:
      ResnetBlock and attention kernels;
   7. UNet ancestral: phase 4 with DDPM-UNet;
   8. UNet end to end in f32: kernels with ``conv_impl="im2col"``, kernels
-     with ``conv_impl="tapgemm"`` (the tap-GEMM kernel's path) and twins;
-     the chain held step by step from the twins' states.
+     with ``conv_impl="tapgemm"`` (the tap-GEMM kernel's path) and twins,
+     each chain free-running.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after: phases 3-4 (DiT), phases 6-7 (UNet) and the tap-GEMM run of
@@ -164,7 +166,7 @@ def phase_device() -> dict:
     seconds = build.build_all()
     regs = {
         n: [ln.strip() for ln in build.library_path(n).with_suffix(".log")
-            .read_text().splitlines() if "registers" in ln]
+            .read_text().splitlines() if "registers" in ln or "spill" in ln]
         for n in build.SOURCES
     }
     log("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
@@ -182,10 +184,12 @@ def _randn(shape, gen, dtype=torch.float32):
 
 
 def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False):
-    """Kernel vs twin at one shape; times kernel, twin and SDPA."""
+    """Kernel vs twin at one shape, and a second call bitwise equal to the
+    first; times kernel, twin and SDPA."""
     import torch.nn.functional as F
 
     from crowdmod_tpu_torch.ops.kernels import attention_reference, fused_attention
+    from crowdmod_tpu_torch.ops.kernels.attention import attention_plan
 
     if packed:  # strided views of one (B, S, 3, H, Dh) buffer, as MHA gives
         qkv = _randn((b, sq, 3, h, dh), gen, dtype)
@@ -201,13 +205,19 @@ def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False):
     tol = TOL["attention_f32" if dtype == torch.float32 else "attention_bf16"]
     if not err <= tol:
         raise AssertionError(f"attention {label}: max abs err {err} > {tol}")
+    plan = attention_plan(b, h, sq, sk, dh, dtype)
+    again = fused_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"attention {label}: a second call gave other bits ({plan})")
     elsize = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * elsize
     b_ms, b_by = bound(nbytes, 4 * b * h * sq * sk * dh, dtype)
     ms, host_ms = cuda_ms(lambda: fused_attention(q, k, v, scale=scale))
     res = dict(
         shape=[b, h, sq, sk, dh], dtype=str(dtype).split(".")[1],
-        max_abs_err=err, tolerance=tol, ms=ms, host_ms=host_ms,
+        max_abs_err=err, tolerance=tol, bitwise_repeat=True,
+        plan=dataclasses.asdict(plan), ms=ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: attention_reference(q, k, v, scale))[0],
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(
@@ -272,6 +282,9 @@ def phase_kernels() -> dict:
         # The UNet's level-2 attention: 54 positions, 4 heads of 32.
         attn[f"unet_b64_{dn}"] = check_attention(
             f"unet level-2 b64 {dn}", 64, 4, 54, 54, 32, dtype, gen, packed=True)
+    for key in ("spatial_b64_bfloat16", "unet_b64_bfloat16", "edge_s216_bfloat16"):
+        if attn[key]["plan"]["route"] != "mma":
+            raise AssertionError(f"attention {key}: route {attn[key]['plan']['route']}")
     step = {
         f"b64_{'sparsity' if sp else 'none'}": check_step(
             f"b64 {'sparsity' if sp else 'none'}", (64, 3, 12, 36, 3), sp, gen)
@@ -472,9 +485,39 @@ def _resblock_weights(cin, cout, gen, dtype):
     return w
 
 
+def resblock_sequence(x, temb, w):
+    """The unfused PyTorch sequence of one ResnetBlock3D on ``x``'s memory
+    (``F.group_norm``, ``F.silu``, cuDNN ``F.conv3d`` on the NDHWC view
+    twice, the skip ``F.linear``), in x's dtype: a yardstick of time for the
+    fused kernel, which no single library call computes.  Never on the
+    path."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    cast = lambda k: w[k].to(dt)  # noqa: E731
+    conv_w = lambda k: w[k].permute(4, 3, 0, 1, 2).contiguous(  # noqa: E731
+        memory_format=torch.channels_last_3d).to(dt)
+    w1, w2 = conv_w("w1"), conv_w("w2")
+    tb = temb.to(dt)[:, :, None, None, None]
+    xc = x.permute(0, 4, 1, 2, 3)
+    skip_w = (w["w_skip"].reshape(w["w_skip"].shape[-2:]).t().to(dt)
+              if "w_skip" in w else None)
+
+    def run():
+        h = F.silu(F.group_norm(xc, 8, cast("gn1_scale"), cast("gn1_bias")))
+        h = F.conv3d(h, w1, cast("b1"), padding=1) + tb
+        h = F.silu(F.group_norm(h, 8, cast("gn2_scale"), cast("gn2_bias")))
+        h = F.conv3d(h, w2, cast("b2"), padding=1)
+        if skip_w is None:
+            return h + xc
+        return h + F.linear(x, skip_w, cast("b_skip")).permute(0, 4, 1, 2, 3)
+
+    return run
+
+
 def check_resblock(cin, cout, dtype, gen, timing):
     from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
-    from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock
+    from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock, resblock_plan
 
     t, h, wd = LEVELS[0]
     x = _randn((UNET_BATCH, t, h, wd, cin), gen, dtype)
@@ -483,11 +526,19 @@ def check_resblock(cin, cout, dtype, gen, timing):
     packed = pack_resblock(w, dtype)
     out = fused_resblock(x, temb, w, packed=packed)
     torch.cuda.synchronize()
+    label = f"resblock {cin}->{cout} {_dn(dtype)}"
     ref = resblock_reference(x.float(), temb.float(), w)
     tol = TOL["resblock_f32" if dtype == torch.float32 else "bf16"]
-    err = _rel_check(f"resblock {cin}->{cout} {_dn(dtype)}", out, ref, tol)
+    err = _rel_check(label, out, ref, tol)
+    plan = resblock_plan(UNET_BATCH, t, h, wd, cin, cout, 8, dtype)
+    # Same inputs, same bits: every sum, GN2's moments too, in a fixed order.
+    again = fused_resblock(x, temb, w, packed=packed)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: a second call gave other bits ({plan})")
     res = dict(shape=[UNET_BATCH, t, h, wd, cin, cout], dtype=_dn(dtype),
-               max_abs_err=err, tolerance=f"{tol} x max|ref|", launches_per_call=3)
+               max_abs_err=err, tolerance=f"{tol} x max|ref|", bitwise_repeat=True,
+               launches_per_call=plan.launches, plan=dataclasses.asdict(plan))
     if timing:
         pos = UNET_BATCH * t * h * wd
         flops = 2 * pos * (27 * cin * cout + 27 * cout * cout
@@ -497,7 +548,9 @@ def check_resblock(cin, cout, dtype, gen, timing):
             + 4 * (temb.numel() + 2 * cin + 4 * cout)
         _timings(res, lambda: fused_resblock(x, temb, w, packed=packed),
                  lambda: resblock_reference(x, temb, w), None, nbytes, flops, dtype)
-    log(f"kernel resblock {cin}->{cout} {_dn(dtype)}", **res)
+        res.update(tflops=flops / res["ms"] / 1e9,
+                   sequence_ms=cuda_ms_budget(resblock_sequence(x, temb, w))[0])
+    log(f"kernel {label}", **res)
     return res
 
 
@@ -842,14 +895,14 @@ def twins_on_the_card():
 
 
 def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
-    """One f32 batch-64 forward and one DDIM-eta chain, with the kernels
-    (each conv kernel, for the UNet) and with the twins, on the card.  The
-    UNet's chain is held step by step (see ``run``).  The tap-GEMM run is
-    that kernel's path and its launches are returned."""
+    """One f32 batch-64 forward and one free-running DDIM-eta chain, with
+    the kernels (each conv kernel, for the UNet) and with the twins, on the
+    card.  The tap-GEMM run is that kernel's path and its launches are
+    returned."""
     from crowdmod_tpu_torch.core import layout
     from crowdmod_tpu_torch.core.schedule import respaced_taus
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
-    from crowdmod_tpu_torch.models.diffusion import ddim_eta_sample, ddim_eta_step
+    from crowdmod_tpu_torch.models.diffusion import ddim_eta_sample
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
     from crowdmod_tpu_torch.train.trainer import Trainer
 
@@ -865,47 +918,33 @@ def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
     x = torch.randn((64, f, h, w, 3), generator=gen, device=DEVICE)
     t = torch.randint(0, node.TIMESTEPS, (64,), generator=gen, device=DEVICE)
     taus = respaced_taus(node.TIMESTEPS, node.ETA_STEPS)
-    ts = [int(s) for s in taus[::-1]]
     draws = {None: x}
     draws.update({int(s): torch.randn(x.shape, generator=gen, device=DEVICE)
                   for s in taus})
     guide = dict(noise=draws.__getitem__, eta=node.ETA, guidance=node.GUIDANCE,
                  lambda_guidance=node.LAMBDA_GUIDANCE)
 
-    def run(conv_impl, states=None):
-        """The forward and the chain's states (x_T first).  With ``states``
-        (the twins' chain) each step starts from the twins' state before it:
-        the fused resblock sums GN2's moments by atomics, so its f32 output
-        varies between runs at the 1e-5 level, and Sparsity's sign term
-        turns such a difference at a rho near 0 into a flip that a
-        free-running chain carries into every channel (ROADMAP Queue 3).
-        Held step by step, every kernel stays in the chain."""
+    def run(conv_impl):
+        """The forward and the chain's states, x_T first."""
         trainer = Trainer(cfg, arch, device=DEVICE, compute_dtype=torch.float32,
                           conv_impl=conv_impl)
         trainer.load(ckpt_path)
         denoise = trainer._denoise_fn()  # binds the checkpoint's EMA weights
         with torch.no_grad():
             fwd = trainer.model(x, t, past)
-            if states is None:
-                chain = ddim_eta_sample(denoise, trainer.sched, past, tuple(x.shape),
-                                        taus, history=True, **guide)[1]
-            else:
-                chain = torch.stack([states[0]] + [
-                    ddim_eta_step(denoise, trainer.sched, past, states[i], ti, tp, **guide)
-                    for i, (ti, tp) in enumerate(zip(ts, ts[1:] + [-1]))])
+            chain = ddim_eta_sample(denoise, trainer.sched, past, tuple(x.shape),
+                                    taus, history=True, **guide)[1]
         torch.cuda.synchronize()
         return fwd, chain
 
     with twins_on_the_card():
         fwd_t, chain_t = run("im2col")
-    stepwise = arch == "DDPM-UNet"
     impls = ("im2col", "tapgemm") if arch == "DDPM-UNet" else ("im2col",)
-    res, tap_launches = {"arch": arch, "chain": "step by step" if stepwise
-                         else "free-running"}, None
+    res, tap_launches = {"arch": arch, "chain": "free-running"}, None
     for impl in impls:
         if impl == "tapgemm":
             reset_launch_counts()  # the tap-GEMM kernel's path
-        fwd_k, chain_k = run(impl, chain_t if stepwise else None)
+        fwd_k, chain_k = run(impl)
         if impl == "tapgemm":
             tap_launches = launch_counts()["conv3d_same_tapgemm"]
             want = PER_FORWARD[arch](cfg)["conv3d_same_im2col"] * (1 + len(taus))

@@ -247,12 +247,4 @@ __device__ __forceinline__ void gemm_mainloop(
   }
 }
 
-// Output tile width for Cout channels over `mtiles` row tiles: wide tiles
-// where the grid still fills the card twice over, narrower ones otherwise.
-inline int pick_bn(int cout, long long mtiles) {
-  if (cout >= 64 && mtiles * ((cout + 63) / 64) >= 2 * 132) return 64;
-  if (cout >= 32) return 32;
-  return 16;
-}
-
 }  // namespace crowdmod

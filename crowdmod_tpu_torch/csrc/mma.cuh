@@ -1,6 +1,7 @@
 // bf16 tensor-core building blocks for sm_90a: 16-byte cp.async copies into
 // a ring of shared-memory stages, ldmatrix fragment loads and the warp-level
-// mma.sync.m16n8k16 product with f32 accumulators.  Used by conv3d.cu.
+// mma.sync.m16n8k16 product with f32 accumulators.  Used by conv3d.cu and
+// resblock.cu (the MmaTile main loop) and attention.cu (the primitives).
 //
 // A block of kThreads (8 warps) computes a BM x BN tile over K in chunks of
 // BK (32 or 64).  A stage holds the A chunk as BM rows of BK bf16 (row-

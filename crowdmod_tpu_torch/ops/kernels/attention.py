@@ -2,7 +2,11 @@
 
 Replaces ``crowdmod_tpu/ops/pallas/attention.py`` (``_attention_pallas``,
 kernel ``_attn_kernel``).  The CUDA source, ``csrc/attention.cu``, notes what
-bounds the kernel on the H100 (bytes) and how its design answers that.
+bounds the kernel on the H100 (bytes) and how its two routes answer that:
+``"mma"``, bf16 tiles of 16 query rows on the tensor cores, for bf16 with at
+least 16 queries; ``"simt"``, a warp a query row in f32, for f32 and for the
+DiT's one-query temporal attention.  :func:`attention_plan` picks the route
+and the block shape from the call's shape and dtype.
 
 :func:`fused_attention` takes ``(B, H, S, Dh)`` tensors.  On CPU tensors it
 runs :func:`attention_reference`; on CUDA tensors it launches the kernel or
@@ -16,23 +20,94 @@ caller's move back to ``(B, S, H·Dh)`` is a free reshape, not a copy.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from crowdmod_tpu_torch.ops.kernels import build
 
-# Limits of the kernel (csrc/attention.cu): the head dims it is compiled for
-# and the most keys whose K and V it can hold in shared memory.
+# Limits of the kernel (csrc/attention.cu): the head dims it is compiled for,
+# the most keys a block holds, and the shared memory a block can have.
 HEAD_DIMS = (32, 64)
 MAX_KEYS = 256
+MAX_SMEM = 232448  # 227 KB
+MMA_MIN_QUERIES = 16  # one 16-row query tile; fewer take the SIMT route
+_ROUTES = {"simt": 0, "mma": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "crowdmod_attention": (
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
+        + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     ),
 }
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """How one attention call is cut into blocks.
+
+    ``route``: ``"mma"`` (bf16 tensor cores, a warp a 16-row query tile) or
+    ``"simt"`` (a warp a query row, f32 arithmetic); ``problems_per_block``
+    (b, h) problems a block holds; ``warps`` a block; ``keys_padded``: Sk
+    rounded up to the route's multiple (16 or 4); ``smem_bytes``: dynamic
+    shared memory a block; ``blocks`` of the grid."""
+
+    route: str
+    problems_per_block: int
+    warps: int
+    keys_padded: int
+    smem_bytes: int
+    blocks: int
+
+
+def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> AttentionPlan:
+    """The block shape of :func:`fused_attention` for ``b·h`` problems of
+    ``sq`` queries against ``sk`` keys of width ``dh``.
+
+    bf16 with ``sq ≥ 16``: the mma route, ⌈sq/16⌉ query tiles a problem and
+    8 // tiles problems a block, a warp a tile up to 16 warps (the DiT's
+    spatial 27 queries: 4 problems on 8 warps; the UNet's 54: 2 on 8); Q (in
+    whole tiles), K and V (keys padded to 16) in shared memory as bf16 rows
+    of Dh + 8.  Otherwise the SIMT route: 8 warps and 8 // sq problems a
+    block, K and V as f32 rows plus a query row and a logit row a warp.
+    Either takes fewer problems a block where their keys would overflow
+    shared memory, and at least one."""
+    mma = dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES
+    if mma:
+        tiles = -(-sq // 16)
+        keys = -(-sk // 16) * 16
+        smem = lambda n: 2 * (dh + 8) * n * (tiles * 16 + 2 * keys)  # noqa: E731
+        per_block = max(1, 8 // tiles)
+    else:
+        keys = -(-sk // 4) * 4
+        smem = lambda n: 4 * (n * sk * (2 * dh + 4) + 8 * (dh + keys))  # noqa: E731
+        per_block = max(1, 8 // max(sq, 1))
+    while per_block > 1 and smem(per_block) > MAX_SMEM:
+        per_block -= 1
+    warps = min(per_block * tiles, 16) if mma else 8
+    return AttentionPlan("mma" if mma else "simt", per_block, warps, keys, smem(per_block),
+                         -(-b * h // per_block))
+
+
+def rows_aligned(ptr: int, strides, elsize: int) -> bool:
+    """Whether every (b, h, s) row of a tensor at ``ptr`` with element
+    ``strides`` starts on a 16-byte boundary: the kernel's 16-byte copies."""
+    return ptr % 16 == 0 and all(s * elsize % 16 == 0 for s in strides)
+
+
+def check_rows(route: str, rows: dict, elsize: int) -> bool:
+    """``rows``: name → (data pointer, (b, h, s) strides).  Whether all of
+    them are 16-byte aligned; raises where the ``"mma"`` route needs it."""
+    bad = [n for n, (ptr, strides) in rows.items() if not rows_aligned(ptr, strides, elsize)]
+    if bad and route == "mma":
+        raise ValueError(
+            f"fused_attention: rows of {', '.join(bad)} are not 16-byte aligned "
+            f"({ {n: rows[n] for n in bad} }); the tensor-core route copies "
+            "16-byte pieces"
+        )
+    return not bad
 
 
 def attention_reference(q, k, v, scale: float) -> torch.Tensor:
@@ -97,14 +172,25 @@ def fused_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
     ).transpose(1, 2)
     if out.numel() == 0:
         return out
+    plan = attention_plan(b, h, sq, sk, dh, q.dtype)
+    if plan.smem_bytes > MAX_SMEM:
+        raise ValueError(
+            f"fused_attention: {plan.smem_bytes} bytes of shared memory for "
+            f"{sq} queries × {sk} keys (route {plan.route}); a block has "
+            f"{MAX_SMEM}"
+        )
+    vec = check_rows(plan.route, {n: (t.data_ptr(), t.stride()[:3])
+                                  for n, t in (("q", q), ("k", k), ("v", v))},
+                     q.element_size())
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
     lib = build.load("attention", _SIGNATURES)
     err = lib.crowdmod_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, h, sq, sk, dh, scale, strides,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), b, h, sq, sk, dh, scale, strides, _ROUTES[plan.route],
+        plan.problems_per_block, plan.warps, plan.keys_padded, plan.smem_bytes,
+        int(vec), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")

@@ -2,9 +2,13 @@
 
 Replaces ``crowdmod_tpu/ops/pallas/resblock.py`` (``_fused_pallas``, kernel
 ``_resblock_kernel``).  The CUDA source, ``csrc/resblock.cu``, notes what
-bounds it on the H100 and how its design (three launches a call: GN1
-moments, conv1 with GN1+SiLU on load, conv2 with GN2+SiLU on load and the
-skip folded in) answers that.
+bounds it on the H100 and how its design answers that: in bf16 five
+launches a call (GN1 moments; GN1+SiLU once into ``a1``; conv1 on the tensor
+cores, h1 stored in bf16 with per-tile GN2 partial sums; GN2+SiLU over h1;
+conv2 with the skip folded in), in f32 four on the CUDA cores (GN2's
+moments in two passes over h1).  Every sum runs in a fixed order, so a
+call's output is the same bits every run.  :func:`resblock_plan` sizes the tiles
+and the scratch; the wrapper allocates the scratch.
 
 The weight dict is the JAX package's contract (``resblock.py:62-94``), as
 torch tensors: ``gn1_scale``/``gn1_bias (Cin,)``, ``w1 (3,3,3,Cin,Cout)``,
@@ -20,6 +24,7 @@ the kernel on CUDA tensors, or raises; it never falls back to the twin.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -30,18 +35,63 @@ from crowdmod_tpu_torch.ops.kernels.conv3d import (
 )
 from crowdmod_tpu_torch.ops.kernels.groupnorm import group_norm_reference
 
-# Limits of the kernel (csrc/resblock.cu): a block's 128 output positions
-# may span two samples, never more, and GN2's per-block sums hold 32 groups.
+# Limits of the kernel (csrc/resblock.cu): a tile's 128 output positions
+# may span two samples, never more, and GN2's partials hold 32 groups.
 MIN_VOLUME = 128
 MAX_GROUPS = 32
+SIMT_BM, SIMT_BK = 128, 16  # csrc/common.cuh, kBM and kBK: the f32 loops' tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "crowdmod_resblock": (
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
 }
+
+
+@dataclass(frozen=True)
+class ResblockPlan:
+    """How one fused-resblock call is cut, and the scratch it needs.
+
+    ``bm`` × ``bn``: a conv block's output positions × channels, K in
+    chunks of ``bk`` (bf16: 32 channels of one tap on the tensor cores;
+    f32: the CUDA-core loop's 16); ``m_tiles`` × ``n_tiles`` blocks a conv;
+    ``launches`` a call (bf16 5, f32 4).  Scratch: ``a1_elems`` bf16 for
+    GN1+SiLU of x (bf16 only), ``h1_elems`` in x's dtype for conv1's output,
+    ``workspace_floats`` f32: GN1's (mean, rstd), (B, G, 2), then in f32
+    GN2's, the same shape, and in bf16 the GN2 partials, (m_tiles, n_tiles,
+    2 sample slots, G, 2)."""
+
+    bm: int
+    bn: int
+    bk: int
+    m_tiles: int
+    n_tiles: int
+    launches: int
+    a1_elems: int
+    h1_elems: int
+    workspace_floats: int
+
+
+def resblock_plan(batch: int, t: int, h: int, w: int, cin: int, cout: int,
+                  groups: int, dtype) -> ResblockPlan:
+    """The tiles and scratch of :func:`fused_resblock` at one shape.
+
+    bf16: 128 × 32 tiles of 32-deep K chunks (the mma tile ``ResTile``).  f32: 128-row tiles of the CUDA-core loop,
+    64 channels wide where that still makes two waves on 132 SMs, else 32
+    or 16."""
+    positions = batch * t * h * w
+    if dtype == torch.bfloat16:
+        bm, bn, bk, launches, a1 = 128, 32, 32, 5, positions * cin
+    else:
+        wide = -(-positions // SIMT_BM) * -(-cout // 64) >= 2 * 132
+        bn = 64 if cout >= 64 and wide else 32 if cout >= 32 else 16
+        bm, bk, launches, a1 = SIMT_BM, SIMT_BK, 4, 0
+    m_tiles, n_tiles = -(-positions // bm), -(-cout // bn)
+    gn2 = m_tiles * n_tiles * 4 * groups if a1 else 2 * batch * groups
+    return ResblockPlan(bm, bn, bk, m_tiles, n_tiles, launches, a1, positions * cout,
+                        2 * batch * groups + gn2)
 
 
 def resblock_reference(x, temb_proj, w, *, num_groups: int = 8, eps: float = 1e-5):
@@ -116,6 +166,11 @@ def _check(x, temb_proj, p, num_groups) -> None:
             f"fused_resblock: volume {t}·{h}·{w} < {MIN_VOLUME}, the least "
             "the kernel takes"
         )
+    if x.dtype == torch.bfloat16 and (cin % 8 or cout % 8 or x.data_ptr() % 16):
+        raise ValueError(
+            f"fused_resblock: bf16 takes 16-byte channel rows: channels {cin} → "
+            f"{cout} must be multiples of 8 and x 16-byte aligned"
+        )
     if tuple(temb_proj.shape) != (b, cout) or temb_proj.device != x.device:
         raise ValueError(
             f"fused_resblock: temb_proj must be ({b}, {cout}) on {x.device}, "
@@ -149,20 +204,24 @@ def fused_resblock(
     _check(x, temb_proj, p, num_groups)
     b, t, h, wd, cin = x.shape
     cout = p["cout"]
-    tvec = (temb_proj.float() + p["b1"]).contiguous()
-    h1 = torch.empty((b, t, h, wd, cout), dtype=torch.float32, device=x.device)
-    stats = torch.empty((2, b, num_groups, 2), dtype=torch.float32, device=x.device)
     out = torch.empty((b, t, h, wd, cout), dtype=x.dtype, device=x.device)
     if b == 0:
         return out
+    plan = resblock_plan(b, t, h, wd, cin, cout, num_groups, x.dtype)
+    tvec = (temb_proj.float() + p["b1"]).contiguous()
+    # Scratch, freed on return: the allocator orders its reuse on the stream.
+    empty = lambda n, dt: torch.empty(n, dtype=dt, device=x.device)  # noqa: E731
+    a1 = empty(plan.a1_elems, torch.bfloat16) if plan.a1_elems else None
+    h1 = empty(plan.h1_elems, x.dtype)
+    ws = empty(plan.workspace_floats, torch.float32)
     lib = build.load("resblock", _SIGNATURES)
     err = lib.crowdmod_resblock(
         _DTYPE_CODES[x.dtype], x.data_ptr(), tvec.data_ptr(),
         p["w1"].data_ptr(), p["w2"].data_ptr(), p["gamma1"].data_ptr(),
         p["beta1"].data_ptr(), p["gamma2"].data_ptr(), p["beta2"].data_ptr(),
-        p["bias2"].data_ptr(), h1.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), out.data_ptr(), b, t, h, wd, cin, cout,
-        num_groups, float(eps), int(p["has_skip"]),
+        p["bias2"].data_ptr(), None if a1 is None else a1.data_ptr(), h1.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), b, t, h, wd, cin, cout, num_groups, float(eps),
+        int(p["has_skip"]), plan.bm, plan.bn, plan.bk,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
