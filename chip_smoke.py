@@ -6,17 +6,21 @@
                                    # kernels against DIR/conv3d.cu (the e95bbf9 C interface)
     python3 chip_smoke.py --conv-tiles          # phase 1, then every bf16 conv
                                    # tile at every path shape (the plans' data)
+    python3 chip_smoke.py --gn-plans            # phase 1, then every bf16 GroupNorm
+                                   # route and cluster size at every path shape
+                                   # and serving bucket (the plan's data)
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
 
   1. device: the card's name and power limit (nvidia-smi), kernel build time;
   2. kernels: each CUDA kernel against its plain twin on the card, at the
-     serving paths' shapes, in f32 and bf16, with its plan (route, tiles),
-     a second call held bitwise equal to the first (attention, convs,
-     resblock), device times (CUDA events), the host's time to issue a
-     call, bounds and the library yardstick (for the resblock, which no
-     single library call computes, the unfused PyTorch sequence);
+     serving paths' shapes, in f32 and bf16, with its plan (route, tiles,
+     cluster size), a second call held bitwise equal to the first, device
+     times (CUDA events), the host's time to issue a call, bounds and the
+     library yardstick (for the resblock, which no single library call
+     computes, the unfused PyTorch sequence; for the ancestral step, which
+     has none, the launch floor of a one-element elementwise op);
   3. DiT serving: ``configs/serving/ATC.yml`` with DDPM-DiT (hidden 256,
      depth 6, DDIM-eta 25 steps + Sparsity) and seeded random weights,
      through ``load_predictor``/``warmup``/``BatchingQueue``, with p50
@@ -228,36 +232,54 @@ def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False):
     return res
 
 
-def check_step(label, shape, sparsity, gen):
+def launch_floor_ms() -> float:
+    """Device time of a one-element PyTorch elementwise op timed as the
+    kernels are (back to back behind the spin kernel): the launch floor a
+    small kernel cannot go under.  A yardstick only, never on the path."""
+    one = torch.zeros(1, device="cuda")
+    return cuda_ms(lambda: one.add_(1.0))[0]
+
+
+def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_ms=None):
+    """Kernel vs twin at one shape (x, ε̂ and z views ``offsets`` floats into
+    their buffers), a second call bitwise equal to the first; times kernel
+    and twin beside the launch floor."""
+    from crowdmod_tpu_torch.core.schedule import linear_schedule
     from crowdmod_tpu_torch.ops.kernels import (
         ancestral_update_reference,
         fused_ancestral_update,
     )
+    from crowdmod_tpu_torch.ops.kernels.build import sm_count
+    from crowdmod_tpu_torch.ops.kernels.fused_step import ancestral_update_plan
 
-    x, eps, z = (_randn(shape, gen) for _ in range(3))
+    n = int(np.prod(shape))
+    x, eps, z = (_randn((n + off,), gen)[off:].view(shape) for off in offsets)
     # Coefficients of step t = 500 of the ATC schedule (T = 1000, scale 0.5).
-    from crowdmod_tpu_torch.core.schedule import linear_schedule
-
     s = linear_schedule(1000, scale=0.5)
     kw = dict(
         inv_sqrt_alpha=float(s.one_by_sqrt_alpha[500]),
         beta_over_somab=float(s.beta[500] / s.sqrt_one_minus_alpha_bar[500]),
         sigma=float(np.sqrt(s.beta[500])), lambda_guidance=0.6,
-        sparsity=sparsity,
+        sparsity=sparsity, rho_channel=rho,
     )
     out = fused_ancestral_update(x, eps, z, **kw)
+    again = fused_ancestral_update(x, eps, z, **kw)
     torch.cuda.synchronize()
     err = (out - ancestral_update_reference(x, eps, z, **kw)).abs().max().item()
     if not err <= TOL["step"]:
         raise AssertionError(f"ancestral step {label}: max abs err {err}")
-    n = x.numel()
+    plan = ancestral_update_plan(n, shape[-1], sm_count(x.device),
+                                 (x.data_ptr(), eps.data_ptr(), z.data_ptr(), out.data_ptr()))
+    if not torch.equal(out, again):
+        raise AssertionError(f"ancestral step {label}: a second call gave other bits ({plan})")
     b_ms, b_by = bound(16 * n, (7 if sparsity else 5) * n, torch.float32)
     ms, host_ms = cuda_ms(lambda: fused_ancestral_update(x, eps, z, **kw))
     res = dict(
-        shape=list(shape), dtype="float32", sparsity=sparsity,
-        max_abs_err=err, tolerance=TOL["step"], ms=ms, host_ms=host_ms,
+        shape=list(shape), dtype="float32", sparsity=sparsity, offsets=list(offsets),
+        plan=dataclasses.asdict(plan), max_abs_err=err, tolerance=TOL["step"],
+        bitwise_repeat=True, ms=ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: ancestral_update_reference(x, eps, z, **kw))[0],
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, floor_ms=floor_ms,
     )
     log(f"kernel ancestral_update {label}", **res)
     return res
@@ -285,11 +307,22 @@ def phase_kernels() -> dict:
     for key in ("spatial_b64_bfloat16", "unet_b64_bfloat16", "edge_s216_bfloat16"):
         if attn[key]["plan"]["route"] != "mma":
             raise AssertionError(f"attention {key}: route {attn[key]['plan']['route']}")
-    step = {
-        f"b64_{'sparsity' if sp else 'none'}": check_step(
-            f"b64 {'sparsity' if sp else 'none'}", (64, 3, 12, 36, 3), sp, gen)
-        for sp in (False, True)
-    }
+    floor = launch_floor_ms()
+    log("launch floor (one-element add_, back to back)", ms=floor)
+    step = {}
+    for batch in (1, 8, 64, 256):
+        for sp in (False, True):
+            key = f"b{batch}_{'sparsity' if sp else 'none'}"
+            step[key] = check_step(key.replace("_", " "), (batch, 3, 12, 36, 3), sp, gen,
+                                   floor_ms=floor)
+    # n % 4 = 1 and views one float past a 16-byte boundary: a scalar head
+    # and tail around the vectors; then ε̂ at another offset than x: scalars.
+    step["ragged_offset"] = check_step("ragged offset", (7, 3, 11, 5, 3), True, gen,
+                                       offsets=(1, 1, 1), rho=2, floor_ms=floor)
+    step["mixed_offsets"] = check_step("mixed offsets", (7, 3, 11, 5, 3), True, gen,
+                                       offsets=(1, 2, 1), rho=1, floor_ms=floor)
+    if step["ragged_offset"]["plan"]["vec"] != 4 or step["mixed_offsets"]["plan"]["vec"] != 1:
+        raise AssertionError("ancestral step: the offset views did not take their paths")
     return {"attention": attn, "step": step}
 
 
@@ -337,31 +370,44 @@ def _timings(res, kernel, plain, library, nbytes, flops, dtype):
                library_ms=None if library is None else cuda_ms_budget(library)[0])
 
 
-def check_group_norm(level, c, act, dtype, gen, timing):
+def check_group_norm(level, c, act, dtype, gen, timing, *, batch=UNET_BATCH, volume=None):
+    """Kernel vs twin at one shape (``volume`` positions, by default the
+    level's), a second call bitwise equal to the first, the plan; times
+    kernel, twin and ``F.group_norm``."""
     import torch.nn.functional as F
 
     from crowdmod_tpu_torch.ops.kernels import fused_group_norm, group_norm_reference
+    from crowdmod_tpu_torch.ops.kernels.build import sm_count
+    from crowdmod_tpu_torch.ops.kernels.groupnorm import group_norm_plan
 
-    t, h, w = LEVELS[level]
-    x = _randn((UNET_BATCH, t, h, w, c), gen, dtype)
+    positions = volume or int(np.prod(LEVELS[level]))
+    x = _randn((batch, positions, c), gen, dtype)
     gamma = 1.0 + 0.1 * _randn((c,), gen)
     beta = 0.1 * _randn((c,), gen)
     out = fused_group_norm(x, gamma, beta, silu=act)
+    again = fused_group_norm(x, gamma, beta, silu=act)
     torch.cuda.synchronize()
+    plan = group_norm_plan(batch, positions, c, 8, dtype, sm_count(x.device))
+    label = (f"group norm S{positions} C{c}{' silu' if act else ''} {_dn(dtype)} b{batch} "
+             f"{plan.route} k{plan.cluster}")
     ref = group_norm_reference(x.float(), gamma, beta, 8, 1e-5, act)
     err = (out.float() - ref).abs().max().item()
     if dtype == torch.float32:
         tol = TOL["gn_f32"]
         if not err <= tol:
-            raise AssertionError(f"group norm {level} {c}: max abs err {err}")
+            raise AssertionError(f"{label}: max abs err {err}")
     else:
         tol = TOL["bf16"]
-        _rel_check(f"group norm {level} {c} bf16", out, ref, tol)
-    res = dict(shape=[UNET_BATCH, t * h * w, c], silu=act, dtype=_dn(dtype),
-               max_abs_err=err, tolerance=tol)
+        _rel_check(label, out, ref, tol)
+    # Same inputs, same bits: every sum in a fixed order, no atomics.
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: a second call gave other bits ({plan})")
+    res = dict(shape=[batch, positions, c], silu=act, dtype=_dn(dtype),
+               max_abs_err=err, tolerance=tol, bitwise_repeat=True,
+               plan=dataclasses.asdict(plan))
     if timing:
         # F.group_norm over the (B, C, S) view of the same memory, no SiLU.
-        xs = x.reshape(UNET_BATCH, t * h * w, c).transpose(1, 2)
+        xs = x.transpose(1, 2)
         g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
         _timings(
             res, lambda: fused_group_norm(x, gamma, beta, silu=act),
@@ -369,7 +415,25 @@ def check_group_norm(level, c, act, dtype, gen, timing):
             lambda: F.group_norm(xs, 8, g_lib, b_lib),
             2 * x.numel() * x.element_size() + 8 * c,
             x.numel() * (11 if act else 7), dtype)
-    log(f"kernel group_norm L{level} C{c}{' silu' if act else ''} {_dn(dtype)}", **res)
+    log(f"kernel {label}", **res)
+    return res
+
+
+def check_group_norm_extras(gen, timing) -> dict:
+    """GroupNorm shapes beyond the batch-64 forward, bf16 as served: the
+    final norm at the other serving buckets, a level-1 shape at 256, and a
+    sample past a cluster's shared memory (``configs/ATC_medium.yml``'s
+    level-0 volume, 16 × 12 × 36, at 192 channels: the stream route), in
+    both dtypes."""
+    bf16 = torch.bfloat16
+    res = {f"final_b{b}": check_group_norm(0, 32, True, bf16, gen, timing, batch=b)
+           for b in (1, 8, 256)}
+    res["L1_C192_b256"] = check_group_norm(1, 192, True, bf16, gen, timing, batch=256)
+    for dtype in (torch.float32, bf16):
+        res[f"stream_{_dn(dtype)}"] = check_group_norm(
+            0, 192, True, dtype, gen, timing, batch=2, volume=16 * 12 * 36)
+        if res[f"stream_{_dn(dtype)}"]["plan"]["route"] != "stream":
+            raise AssertionError("group norm: the large sample did not take the stream route")
     return res
 
 
@@ -560,12 +624,14 @@ def phase_unet_kernels(timing: bool = True) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    res = {"gn": {}, "conv": {}, "resblock": {}}
+    res = {"gn": {}, "gn_extra": {}, "conv": {}, "resblock": {}}
     for dtype in (torch.float32, torch.bfloat16):
         dn = _dn(dtype)
         for level, c, act in GN_SHAPES:
             res["gn"][f"L{level}_C{c}_{act}_{dn}"] = check_group_norm(
                 level, c, act, dtype, gen, timing)
+        if dtype == torch.bfloat16:
+            res["gn_extra"] = check_group_norm_extras(gen, timing)
         for impl in ("im2col", "tapgemm"):
             for level, cin, cout in CONV_SHAPES:
                 res["conv"][f"{impl}_L{level}_{cin}_{cout}_{dn}"] = check_conv(
@@ -586,7 +652,16 @@ def phase_unet_kernels(timing: bool = True) -> dict:
             "resblock": sum(res["resblock"][f"{i}_{o}_bfloat16"]["ms"]
                             for i, o in RESBLOCK_SHAPES),
         }
-        log("UNet kernels per bf16 forward at batch 64 (device ms)", **per_fwd)
+        log("UNet kernels per bf16 forward at batch 64 (device ms)", **per_fwd,
+            group_norm_bound=sum(res["gn"][f"L{l}_C{c}_{a}_bfloat16"]["bound_ms"] * n
+                                 for (l, c, a), n in GN_SHAPES.items()))
+        gn_rows = [[f"L{l} C{c}{' silu' if a else ''}", n]
+                   + [round(g[f], 6) for f in ("ms", "bound_ms", "library_ms")]
+                   + [g["plan"]["route"], g["plan"]["cluster"], g["plan"]["threads"]]
+                   for (l, c, a), n in GN_SHAPES.items()
+                   for g in [res["gn"][f"L{l}_C{c}_{a}_bfloat16"]]]
+        log("group norm table, bf16 b64 [shape, calls a forward, ms, bound_ms, "
+            "F.group_norm ms, route, k, threads]", rows=gn_rows)
         table = [[k] + [round(c[f], 5) for f in ("ms", "bound_ms", "library_ms", "tflops")]
                  + [c["plan"][f] for f in ("bm", "bn", "bk", "kc", "splits", "blocks",
                                            "smem_bytes")]
@@ -697,6 +772,54 @@ def phase_conv_tiles() -> dict:
         rows=[[k, round(r["ms"], 5), round(r["tflops"], 1), r["chosen"]]
               for k, r in rows.items()])
     return rows
+
+
+def phase_gn_plans() -> dict:
+    """Every GroupNorm plan the kernel takes at every ``GN_SHAPES`` shape
+    and serving bucket in bf16 (float32 has the stream route only): the
+    stream route and the cluster route at each cluster size with the plan's
+    thread count and twice it, each checked against the twin and timed;
+    ``chosen`` is the wrapper's plan.  The data behind ``group_norm_plan``'s
+    choices."""
+    from crowdmod_tpu_torch.ops.kernels import group_norm_reference
+    from crowdmod_tpu_torch.ops.kernels.groupnorm import (
+        CLUSTER_SIZES,
+        GroupNormPlan,
+        cluster_plan,
+        group_norm_plan,
+        launch,
+    )
+    from crowdmod_tpu_torch.serving import BATCH_BUCKETS
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    dtype = torch.bfloat16
+    for batch in BATCH_BUCKETS:
+        for level, c, act in GN_SHAPES:
+            s = int(np.prod(LEVELS[level]))
+            x = _randn((batch, s, c), gen, dtype)
+            gamma, beta = 1.0 + 0.1 * _randn((c,), gen), 0.1 * _randn((c,), gen)
+            ref = group_norm_reference(x.float(), gamma, beta, 8, 1e-5, act)
+            out = torch.empty_like(x)
+            base = cluster_plan(batch, s, c, 8, dtype, CLUSTER_SIZES[-1])
+            plans = [GroupNormPlan("stream", 1, 256, s, 0, 1, batch * 8)] + [
+                p for k in CLUSTER_SIZES for t in (base.threads, 2 * base.threads)
+                for p in [cluster_plan(batch, s, c, 8, dtype, k, t)] if p]
+            times = {}
+            for p in plans:
+                fn = lambda: launch(x, gamma, beta, out, 8, 1e-5, act, p)  # noqa: E731
+                fn()
+                _rel_check(f"group norm plan {p}", out, ref, TOL["bf16"])
+                times[f"{p.route}{p.cluster}x{p.threads}"] = cuda_ms(fn, iters=20, reps=5)[0]
+            chosen = group_norm_plan(batch, s, c, 8, dtype)
+            key = f"{chosen.route}{chosen.cluster}x{chosen.threads}"
+            best = min(times, key=times.get)
+            rows.append([_dn(dtype), batch, f"L{level} C{c}{' silu' if act else ''}", key,
+                         round(times[key] * 1e3, 2), best, round(times[best] * 1e3, 2),
+                         {k: round(v * 1e3, 2) for k, v in times.items()}])
+    log("group norm plans [dtype, batch, shape, chosen, chosen_us, best, best_us, us by plan]",
+        rows=rows)
+    return {"rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -985,7 +1108,8 @@ def kernel_entry(name, route, measured, launches) -> dict:
                 replaces=REPLACES[name], launches=launches,
                 **{k: measured[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "host_ms", "shape", "dtype")})
+                    "library_ms", "host_ms", "shape", "dtype")},
+                **{k: measured[k] for k in ("floor_ms", "plan") if k in measured})
 
 
 def main() -> int:
@@ -1005,6 +1129,10 @@ def main() -> int:
     if sys.argv[1:] == ["--conv-tiles"]:
         rows = phase_conv_tiles()
         log("conv tiles done", seconds=time.perf_counter() - t_start, cases=len(rows))
+        return 0
+    if sys.argv[1:] == ["--gn-plans"]:
+        rows = phase_gn_plans()["rows"]
+        log("group norm plans done", seconds=time.perf_counter() - t_start, cases=len(rows))
         return 0
     kernels = phase_kernels()
     unet = phase_unet_kernels()

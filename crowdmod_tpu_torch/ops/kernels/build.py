@@ -15,6 +15,7 @@ at import time, so the package imports on a machine without CUDA.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,6 +24,7 @@ import threading
 import time
 from pathlib import Path
 
+SMS = 132  # streaming multiprocessors of an H100 SXM, the plans' default card
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -105,3 +107,11 @@ def load(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _libraries[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernel plans' input)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

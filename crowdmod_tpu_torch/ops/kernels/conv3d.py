@@ -37,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels.build import SMS, sm_count
 
-SMS = 132  # streaming multiprocessors of an H100 SXM, the plans' default card
 SIMT_BK = 16  # csrc/common.cuh, kBK: the f32 kernels' K chunk
 NARROW_WEIGHTS = 6144  # csrc/conv3d.cu, kNarrowWeights: f32 weight floats in shared memory
 # A bf16 tap-GEMM block holds R whole rows of W + 2 padded columns in its
@@ -112,12 +112,6 @@ def smem_bytes(impl: str, plan: ConvPlan) -> int:
     lib = build.load("conv3d", _SIGNATURES)
     return lib.crowdmod_conv3d_smem_bytes(
         ("im2col", "tapgemm").index(impl), plan.bm, plan.bn, plan.bk)
-
-
-@functools.lru_cache(maxsize=16)
-def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=256)

@@ -8,7 +8,9 @@ the elementwise chain
     x' = x' − λ·√β_t·sign(x')          [Sparsity guidance, ρ channel only]
 
 run in one pass by ``csrc/fused_step.cu``, whose note says what bounds it on
-the H100 (bytes) and how its design answers that.  The noise ``z`` is an
+the H100 (bytes) and how its design answers that: 16-byte vectors, one wave
+of blocks, a scalar head and tail; :func:`ancestral_update_plan` cuts the
+call from its size and the four pointers' alignment.  The noise ``z`` is an
 input, so the kernel and the twin agree bit for bit on the same draws.  The
 three per-step scalars are host floats from the numpy schedule: no device
 round trip per step.  float32 only: ε̂ comes out of the DiT's f32 final
@@ -18,18 +20,68 @@ layer and the sampler state stays f32.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels.build import SMS, sm_count
 
+THREADS = 256
+BLOCKS_PER_SM = 2048 // THREADS  # resident blocks a multiprocessor: one wave
 _SIGNATURES = {
     "crowdmod_ancestral_update": (
         ctypes.c_int,
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
 }
+
+
+@dataclass(frozen=True)
+class StepPlan:
+    """How one ancestral step over ``n`` elements is cut.
+
+    ``vec``: 4 (float4 vectors) or 1 (every element scalar, when the four
+    pointers do not share one offset modulo 16); ``head`` scalar elements
+    before the first 16-byte boundary, then ``vectors`` float4 vectors,
+    then ``tail`` scalar elements; ``blocks`` of ``threads`` (one wave at
+    most, grid-stride beyond it); ``index64`` when n ≥ 2³¹."""
+
+    vec: int
+    head: int
+    vectors: int
+    tail: int
+    threads: int
+    blocks: int
+    index64: bool
+
+
+def ancestral_update_plan(n: int, channels: int, sm_count: int = SMS,
+                          pointers=(0, 0, 0, 0)) -> StepPlan:
+    """The plan of :func:`fused_ancestral_update` for ``n`` elements of
+    ``channels`` channels, from the byte addresses of x, ε̂, z and the
+    output (``pointers``).  Raises on an address that is not 4-byte
+    aligned: the kernel reads whole floats."""
+    if channels < 1:
+        raise ValueError(f"ancestral_update_plan: {channels} channels")
+    bad = [p for p in pointers if p % 4]
+    if bad:
+        raise ValueError(
+            f"fused_ancestral_update: addresses {bad} are not 4-byte aligned; "
+            "the kernel reads whole float32 elements"
+        )
+    if len({p % 16 for p in pointers}) == 1:
+        head = min(n, (16 - pointers[0] % 16) % 16 // 4)
+        vectors = (n - head) // 4
+        vec = 4
+    else:
+        head, vectors, vec = n, 0, 1
+    work = max(vectors, n - 4 * vectors)  # a thread a vector, then a scalar
+    blocks = max(1, min(-(-work // THREADS), BLOCKS_PER_SM * sm_count))
+    return StepPlan(vec, head, vectors, n - head - 4 * vectors, THREADS, blocks,
+                    n >= 2**31)
 
 
 def ancestral_update_reference(
@@ -89,16 +141,23 @@ def fused_ancestral_update(
             f"fused_ancestral_update: rho_channel {rho_channel} outside "
             f"{channels} channels"
         )
-    out = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    # The output shares x's offset modulo 16, so both take the vector path.
+    phase = x.data_ptr() % 16 // 4
+    out = torch.empty(n + phase, dtype=x.dtype, device=x.device)[phase:].view(x.shape)
+    if n == 0:
         return out
+    plan = ancestral_update_plan(
+        n, channels, sm_count(x.device),
+        (x.data_ptr(), eps.data_ptr(), z.data_ptr(), out.data_ptr()))
     sigma = float(sigma)
     lib = build.load("fused_step", _SIGNATURES)
     err = lib.crowdmod_ancestral_update(
         x.data_ptr(), eps.data_ptr(), z.data_ptr(), out.data_ptr(),
-        x.numel(), channels, rho_channel, float(inv_sqrt_alpha),
+        n, channels, rho_channel, float(inv_sqrt_alpha),
         float(beta_over_somab), sigma, float(lambda_guidance) * sigma,
-        int(sparsity), torch.cuda.current_stream(x.device).cuda_stream,
+        int(sparsity), plan.head, plan.vectors, plan.blocks, plan.threads,
+        int(plan.index64), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -2,7 +2,14 @@
 
 Replaces ``crowdmod_tpu/ops/pallas/groupnorm.py`` (``_gn_pallas``, kernel
 ``_gn_kernel``).  The CUDA source, ``csrc/groupnorm.cu``, notes what bounds
-the kernel on the H100 (bytes) and how its design answers that.
+the kernel on the H100 (bytes) and how its two routes answer that:
+``"cluster"`` (bf16), a sample held in the shared memory of a thread-block
+cluster and read from device memory once; ``"stream"``, a block per
+(sample, group) that streams its slice three times, for float32, for
+samples no cluster holds and for calls small enough to stay latency-bound.
+:func:`group_norm_plan` picks the route, the cluster size and the CTA shape
+from the call's shape and dtype; the wrapper passes the plan to the kernel,
+which rejects a plan whose shared memory is not its own.
 
 :func:`fused_group_norm` takes channels-last ``(B, ..., C)``.  On CPU
 tensors it runs :func:`group_norm_reference`; on CUDA tensors it launches
@@ -12,19 +19,140 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
 from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels.build import SMS, sm_count
 
+# Limits of the cluster route (csrc/groupnorm.cu): cluster sizes, groups,
+# threads a CTA, and a CTA's dynamic shared memory for gamma, beta and its
+# run of positions (227 KB less the 3 KB kept for the kernel's static
+# reduction scratch).
+CLUSTER_SIZES = (1, 2, 4, 8)
+MAX_GROUPS = 8
+MAX_THREADS = 1024
+MAX_CHUNK = 232448 - 3072
+STREAM_THREADS = 256  # csrc/common.cuh, kThreads
+# The plan's thresholds, set from `chip_smoke.py --gn-plans` on an H100
+# (every route and cluster size at every UNet GroupNorm shape and serving
+# bucket; PERF.md).  The stream route wins where its three passes stay
+# latency-bound: a block's pass reads at most STREAM_BLOCK_BYTES (counting
+# each row's group slice as at least one 32-byte sector), the grid is one
+# wave of STREAM_BLOCKS_PER_SM blocks a multiprocessor, and the passes read
+# at most STREAM_TOTAL_BYTES in all.
+STREAM_BLOCK_BYTES = 16 << 10
+STREAM_BLOCKS_PER_SM = 4
+STREAM_TOTAL_BYTES = 4 << 20
+# A sample of at least SPLIT_BYTES is split over more CTAs while the grid
+# keeps under one CTA a multiprocessor; a CTA doubles its threads in that
+# case when its run gives each thread at least WIDE_VECTORS 16-byte vectors.
+SPLIT_BYTES = 32 << 10
+WIDE_VECTORS = 16
+_ROUTES = {"stream": 0, "cluster": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "crowdmod_group_norm": (
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
 }
+
+
+@dataclass(frozen=True)
+class GroupNormPlan:
+    """How one GroupNorm call is cut into CTAs.
+
+    ``route``: ``"cluster"`` (k CTAs a sample, each holding ``rows_per_cta``
+    positions in ``smem_bytes`` of shared memory) or ``"stream"`` (a block of
+    256 threads per (sample, group), no dynamic shared memory);
+    ``cluster``: k; ``threads`` a CTA; ``vec``: channels a 16-byte vector
+    (cluster route); ``blocks`` of the grid; ``launches`` a call (always 1)."""
+
+    route: str
+    cluster: int
+    threads: int
+    rows_per_cta: int
+    smem_bytes: int
+    vec: int
+    blocks: int
+    launches: int = 1
+
+
+def cluster_plan(batch: int, S: int, C: int, G: int, dtype, k: int,
+                 threads: int | None = None) -> GroupNormPlan | None:
+    """The cluster route's plan at cluster size ``k``, or None where the
+    kernel cannot take it: float32 (which keeps the stream route: its
+    free-running sampler chains are held against the twin with that
+    kernel's rounding), channels not whole 16-byte vectors, more than 8
+    groups, a row wider than a CTA's threads, or a CTA's run of ⌈S/k⌉
+    positions past its shared memory.  Threads: by default the least
+    multiple of lcm(32, C/vec) from 256 up, so a thread always sees one
+    channel window."""
+    if dtype != torch.bfloat16:
+        return None
+    elsize, vec = 2, 8
+    if C % vec or G > MAX_GROUPS:
+        return None
+    step = math.lcm(32, C // vec)
+    if threads is None:
+        threads = step * -(-256 // step)
+    elif threads % step:
+        return None
+    rows = -(-S // k)
+    smem = 8 * C + rows * C * elsize  # gamma and beta, then the run
+    if threads > MAX_THREADS or smem > MAX_CHUNK:
+        return None
+    return GroupNormPlan("cluster", k, threads, rows, smem, vec, batch * k)
+
+
+def stream_pass_bytes(S: int, C: int, G: int, elsize: int) -> int:
+    """Bytes one block of the stream route reads a pass: S rows of its
+    group's channels, each at least a 32-byte sector."""
+    return S * max(C // G * elsize, 32)
+
+
+@functools.lru_cache(maxsize=512)
+def group_norm_plan(batch: int, S: int, C: int, G: int, dtype,
+                    sm_count: int = SMS) -> GroupNormPlan:
+    """The plan of :func:`fused_group_norm` over ``(batch, S, C)`` with
+    ``G`` groups, from the shape alone.
+
+    The stream route for float32, for samples no cluster holds (past 8 CTAs
+    of 224 KB, channels that are not whole 16-byte vectors, more than 8
+    groups) and
+    for calls small enough that its three passes stay latency-bound (the
+    STREAM_* thresholds); the cluster route otherwise, at the least cluster
+    size that holds the sample (where the grid has more CTAs than
+    multiprocessors, the least whose CTA run fits twice in one), raised for
+    a sample of at least SPLIT_BYTES while batch·2k CTAs fit one a
+    multiprocessor, at most 8; its threads doubled while batch·k CTAs fit
+    one a multiprocessor and each thread keeps WIDE_VECTORS vectors."""
+    elsize = torch.empty((), dtype=dtype).element_size()
+    stream = GroupNormPlan("stream", 1, STREAM_THREADS, S, 0, 1, batch * G)
+    fits = [k for k in CLUSTER_SIZES if cluster_plan(batch, S, C, G, dtype, k)]
+    block_bytes = stream_pass_bytes(S, C, G, elsize)
+    if not fits or (batch * G <= STREAM_BLOCKS_PER_SM * sm_count
+                    and block_bytes <= STREAM_BLOCK_BYTES
+                    and batch * G * block_bytes <= STREAM_TOTAL_BYTES):
+        return stream
+    run = lambda k: -(-S // k) * C * elsize  # noqa: E731
+    k = fits[0]
+    if batch * k > sm_count:  # more CTAs than multiprocessors: two fit in one
+        k = next((k for k in fits if 2 * run(k) <= MAX_CHUNK), fits[-1])
+    while (k < CLUSTER_SIZES[-1] and S * C * elsize >= SPLIT_BYTES
+           and batch * 2 * k <= sm_count):
+        k *= 2
+    plan = cluster_plan(batch, S, C, G, dtype, k)
+    wide = 2 * plan.threads
+    if (batch * k <= sm_count and wide <= MAX_THREADS
+            and run(k) >= WIDE_VECTORS * 16 * plan.threads):
+        plan = cluster_plan(batch, S, C, G, dtype, k, wide)
+    return plan
 
 
 def group_norm_reference(x, gamma, beta, num_groups: int, eps: float, silu: bool):
@@ -59,12 +187,30 @@ def _check(x, gamma, beta) -> None:
     c = x.shape[-1]
     for name, t in (("gamma", gamma), ("beta", beta)):
         if (t.device != x.device or t.dtype != torch.float32
-                or t.shape != (c,) or not t.is_contiguous()):
+                or t.shape != (c,) or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
-                f"fused_group_norm: {name} must be a contiguous float32 "
-                f"({c},) tensor on {x.device}, got {t.dtype} "
+                f"fused_group_norm: {name} must be a contiguous, 16-byte aligned "
+                f"float32 ({c},) tensor on {x.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}"
             )
+
+
+def launch(x, gamma, beta, out, num_groups: int, eps: float, silu: bool,
+           plan: GroupNormPlan) -> None:
+    """Run the kernel on x's stream with ``plan`` (checked inputs); raises
+    if CUDA refuses the launch."""
+    b, c = x.shape[0], x.shape[-1]
+    lib = build.load("groupnorm", _SIGNATURES)
+    err = lib.crowdmod_group_norm(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), b, x.numel() // (b * c), c, num_groups, float(eps),
+        int(silu), _ROUTES[plan.route], plan.cluster, plan.threads,
+        plan.smem_bytes, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"group-norm kernel launch failed: CUDA error {err} ({plan})"
+        )
 
 
 def fused_group_norm(
@@ -90,14 +236,9 @@ def fused_group_norm(
     if x.numel() == 0:
         return out
     b, c = x.shape[0], x.shape[-1]
-    lib = build.load("groupnorm", _SIGNATURES)
-    err = lib.crowdmod_group_norm(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), b, x.numel() // (b * c), c, num_groups, float(eps),
-        int(silu), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"group-norm kernel launch failed: CUDA error {err}")
+    plan = group_norm_plan(b, x.numel() // (b * c), c, num_groups, x.dtype,
+                           sm_count(x.device))
+    launch(x, gamma, beta, out, num_groups, eps, silu, plan)
     fused_group_norm.launches += 1
     return out
 
