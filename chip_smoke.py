@@ -9,6 +9,9 @@
     python3 chip_smoke.py --gn-plans            # phase 1, then every bf16 GroupNorm
                                    # route and cluster size at every path shape
                                    # and serving bucket (the plan's data)
+    python3 chip_smoke.py --serving [DIR]       # phases 1, 3-4 and 6-7 only, with
+                                   # the port package of checkout DIR (default:
+                                   # this one): serving paths of two trees, A/B
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
@@ -35,13 +38,22 @@ non-zero without a result line:
   7. UNet ancestral: phase 4 with DDPM-UNet;
   8. UNet end to end in f32: kernels with ``conv_impl="im2col"``, kernels
      with ``conv_impl="tapgemm"`` (the tap-GEMM kernel's path) and twins,
-     each chain free-running.
+     each chain free-running;
+  9. training, each model: ``configs/ATC.yml`` at full width (batch 64,
+     bf16, EMA 0.999) through ``Trainer.fit`` for one short epoch of
+     synthetic walker windows, then ``evaluate``: losses, ms per step,
+     launches per step, the device busy share of one profiled step; the
+     UNet also one step with ``conv_impl="tapgemm"``; and the gradient
+     check: one batch through the kernels against the same batch under the
+     twins, in f32 (TF32 off, deterministic algorithms: every parameter
+     within 1e-4·max|g| of the twins') and in bf16 (each parameter's
+     gradient at cosine ≥ 0.99 with the f32 twins', the loss within 2e-2).
 
 Each path is driven with the launch counts set to 0 just before it and read
-just after: phases 3-4 (DiT), phases 6-7 (UNet) and the tap-GEMM run of
-phase 8; the counts are held to the launches each forward makes.  The last
-two lines are a JSON object with every kernel's numbers and
-``{"ok": true, "device": ...}``.
+just after: phases 3-4 (DiT), phases 6-7 (UNet), the tap-GEMM run of
+phase 8 and each model's training (phase 9); the counts are held to the
+launches each forward or training step makes.  The last two lines are a
+JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -70,7 +82,14 @@ TOL = {"attention_f32": 1e-5, "attention_bf16": 2e-2, "step": 1e-6,
        # GroupNorm: absolute; conv and resblock: times max|ref| (K up to
        # 27·256 terms summed in another order); bf16: any kernel's bf16
        # output against the f32 twin on the same bf16 inputs, times max|ref|.
-       "gn_f32": 1e-5, "conv_f32": 1e-4, "resblock_f32": 1e-4, "bf16": 2e-2}
+       "gn_f32": 1e-5, "conv_f32": 1e-4, "resblock_f32": 1e-4, "bf16": 2e-2,
+       # Training gradients, kernels vs twins: f32 times max|g_ref| (the
+       # tensor's own where it is at least grad_own_scale of the model's);
+       # bf16 kernels vs the f32 twins: cosine per parameter, loss relative
+       # (a tensor under grad_own_scale, a gradient that is 0 up to float
+       # noise, within bf16 times the model's max|g_ref| instead).
+       "grad_f32": 1e-4, "grad_own_scale": 1e-3, "grad_bf16_cos": 0.99,
+       "loss_bf16": 2e-2}
 REPLACES = {
     "fused_attention": "crowdmod_tpu/ops/pallas/attention.py:53",
     "fused_ancestral_update": "crowdmod_tpu/ops/pallas/fused_step.py:59",
@@ -86,6 +105,19 @@ SOURCES = {
     "conv3d_same_im2col": "crowdmod_tpu_torch/csrc/conv3d.cu",
     "conv3d_same_tapgemm": "crowdmod_tpu_torch/csrc/conv3d.cu",
     "fused_resblock": "crowdmod_tpu_torch/csrc/resblock.cu",
+}
+# Kernel launches of one training step at ATC width: every standalone
+# forward kernel call of the UNet, with the level-0 blocks unfused (the fused
+# resblock is forward only: 2 GroupNorms and 2 convs each); the DiT trains
+# with dropout 0.1, so its attention takes the plain path.  The backward is
+# PyTorch ops (the kernels' VJPs) and launches none of them.
+TRAIN_PER_STEP = {
+    "DDPM-DiT": lambda cfg: {},
+    "DDPM-UNet": lambda cfg: {
+        "conv3d_same_im2col": sum(CONV_SHAPES.values()) + 2 * len(RESBLOCK_SHAPES),
+        "fused_group_norm": sum(GN_SHAPES.values()) + 2 * len(RESBLOCK_SHAPES),
+        "fused_attention": 4,
+    },
 }
 # Kernel launches of one denoiser forward at the serving config's width:
 # the DiT's two attentions a block; the UNet's fused level-0 blocks, its
@@ -866,17 +898,26 @@ def check_launches(label, before, per_forward, forwards, extra=None) -> dict:
 
 
 def profile_request(pred, past, arch) -> dict:
-    """Device busy share of one serving request, from a torch.profiler trace
-    (kernel time on the card over the request's wall time)."""
+    """Device busy share of one serving request."""
+    pred.predict(past)
+    return profile_busy(lambda: pred.predict(past), f"profile serving {arch} b64")
+
+
+def profile_busy(fn, label) -> dict:
+    """Device busy share of one call of ``fn`` (which ends synchronised),
+    from a torch.profiler trace: kernel time on the card over the call's
+    wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pred.predict(past)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict(past)
+        fn()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # Device events, less the ranges that user annotations (the optimizer's
+    # step) mirror onto the card's timeline: those overlap the kernels.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -885,7 +926,7 @@ def profile_request(pred, past, arch) -> dict:
     res = dict(wall_ms_profiled=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                busy_share=busy_us / wall_us, kernel_launches=len(kernels),
                top_kernels_ms=[[n[:80], t / 1e3] for n, t in top])
-    log(f"profile serving {arch} b64", **res)
+    log(label, **res)
     return res
 
 
@@ -991,18 +1032,18 @@ def twins_on_the_card():
         group_norm_reference,
         resblock_reference,
     )
-    from crowdmod_tpu_torch.ops.kernels.conv3d import unpack_im2col, unpack_tapgemm
 
+    # Each twin is plain PyTorch, so autograd differentiates it directly:
+    # under this context a backward pass runs the twins' own VJPs.
     twins = [
         (attn_mod, "fused_attention",
          lambda q, k, v, *, scale: attention_reference(q, k, v, scale)),
         (norm_mod, "fused_group_norm",
          lambda x, g, b, *, num_groups, eps, silu: group_norm_reference(
              x, g, b, num_groups, eps, silu)),
-        (conv_mod, "conv3d_same_im2col",
-         lambda x, w, b=None: conv3d_same_reference(x, unpack_im2col(w), b)),
-        (conv_mod, "conv3d_same_tapgemm",
-         lambda x, w, b=None: conv3d_same_reference(x, unpack_tapgemm(w), b)),
+        (conv_mod, "conv3d_same",
+         lambda x, weight, bias, packed, impl: conv3d_same_reference(
+             x, conv_mod.jax_kernel(weight).to(x.dtype), bias)),
         (fused_mod, "fused_resblock",
          lambda x, temb, w, *, num_groups, eps, packed=None: resblock_reference(
              x, temb, w, num_groups=num_groups, eps=eps)),
@@ -1103,6 +1144,208 @@ def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6  # one epoch of 6 batches
+
+
+def training_config(workdir: Path):
+    """``configs/ATC.yml`` (batch 64, bf16 compute) with EMA 0.999, one
+    epoch, no late checkpoints, files under ``workdir``."""
+    from crowdmod_tpu_torch.config import load_config
+
+    train = {"TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.999}}
+    return load_config("ATC.yml", overrides={
+        "DATA_FS": {"SAVE_DIR": str(workdir / "ckpts"), "OUTPUT_DIR": str(workdir / "out")},
+        "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train}},
+    })
+
+
+def walker_windows(cfg, n_windows: int, seed: int):
+    """``n_windows`` synthetic walker windows (two a 16-frame sequence, plus
+    N(0, 0.05²) so the rows differ) on the card."""
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.data.windows import WindowDataset
+
+    h, w = cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS
+    raw = synthetic_walkers(n_windows // 2, h, w, 16)
+    raw = raw + np.random.default_rng(seed).normal(0, 0.05, raw.shape).astype(np.float32)
+    return WindowDataset(torch.from_numpy(raw).to(DEVICE), past_len=cfg.DATASET.PAST_LEN,
+                         future_len=cfg.DATASET.FUTURE_LEN, stride=8)
+
+
+def perturb_(model, seed: int) -> None:
+    """Every parameter + N(0, 0.02²): the zero-init AdaLN and final layer
+    would otherwise give most DiT parameters a zero gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
+
+
+def batch_gradients(trainer, batch, t, eps) -> tuple[float, dict]:
+    """Loss and every parameter's gradient (None where it got none) for one
+    batch with fixed t, ε and dropout masks (a generator of fixed seed)."""
+    from crowdmod_tpu_torch.train.trainer import StepDraws
+
+    trainer.model.zero_grad(set_to_none=True)
+    draws = StepDraws(t=t, eps=eps,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+    loss = trainer._loss_fn()(batch, draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {n: None if p.grad is None else p.grad.detach().clone()
+                         for n, p in trainer.model.named_parameters()}
+
+
+def check_gradients(cfg, arch: str, workdir: Path) -> dict:
+    """One batch of 64 through the kernels against the same batch under the
+    twins: f32 (TF32 off, deterministic algorithms, for this check only) and
+    bf16 kernels against the f32 twins.  The DiT runs at dropout 0, so its
+    spatial and temporal (Sq ≠ Sk) attention take the kernel."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    if arch == "DDPM-DiT":
+        cfg = cfg.updated({"MODEL": {"DDPM": {"DIT": {"DROPOUT_RATE": 0.0}}}})
+    ds = walker_windows(cfg, 64, SEED + 5)
+    batch = next(ds.batches(64, shuffle=False))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    t = torch.randint(0, cfg.MODEL.DDPM.TIMESTEPS, (64,), generator=gen, device=DEVICE)
+    eps = torch.randn(batch[1].shape, generator=gen, device=DEVICE)
+
+    def grads(dtype, twins):
+        tr = Trainer(cfg, arch, device=DEVICE, compute_dtype=dtype, seed=SEED,
+                     run_dir=str(workdir / "grad_run"))
+        perturb_(tr.model, SEED + 8)
+        reset_launch_counts()
+        with twins_on_the_card() if twins else contextlib.nullcontext():
+            out = batch_gradients(tr, batch, t, eps)
+        return out, launch_counts()
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (loss_k, g_k), launches = grads(torch.float32, False)
+        (loss_t, g_t), twin_launches = grads(torch.float32, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (loss_b, g_b), _ = grads(torch.bfloat16, False)
+
+    want = {"DDPM-DiT": ("fused_attention",),
+            "DDPM-UNet": ("fused_attention", "fused_group_norm", "conv3d_same_im2col")}[arch]
+    if not all(launches[k] for k in want) or any(twin_launches.values()):
+        raise AssertionError(f"{arch} gradient check: kernels {launches}, twins {twin_launches}")
+    missing = [n for n, g in {**g_k, **g_b}.items() if g is None]
+    if missing:
+        raise AssertionError(f"{arch}: no gradient for {missing}")
+    g_max = max(g.abs().max().item() for g in g_t.values())
+    worst_f32, worst_cos, noise = (0.0, ""), (1.0, ""), 0
+    for name, ref in g_t.items():
+        own = ref.abs().max().item()
+        at_noise = own < TOL["grad_own_scale"] * g_max  # 0 up to float noise
+        scale = g_max if at_noise else own
+        err = (g_k[name] - ref).abs().max().item()
+        if not err <= TOL["grad_f32"] * scale:
+            raise AssertionError(f"{arch} f32 gradient {name}: {err} > "
+                                 f"{TOL['grad_f32']} x {scale}")
+        worst_f32 = max(worst_f32, (err / scale, name))
+        if at_noise:  # no direction to compare
+            noise += 1
+            err = (g_b[name].float() - ref).abs().max().item()
+            if not err <= TOL["bf16"] * g_max:
+                raise AssertionError(f"{arch} bf16 gradient {name}: {err} > "
+                                     f"{TOL['bf16']} x {g_max}")
+            continue
+        cos = torch.nn.functional.cosine_similarity(
+            g_b[name].float().flatten(), ref.flatten(), dim=0).item()
+        if not cos >= TOL["grad_bf16_cos"]:
+            raise AssertionError(f"{arch} bf16 gradient {name}: cosine {cos}")
+        worst_cos = min(worst_cos, (cos, name))
+    loss_rel = abs(loss_b - loss_t) / abs(loss_t)
+    if not (abs(loss_k - loss_t) <= 1e-5 * abs(loss_t) and loss_rel <= TOL["loss_bf16"]):
+        raise AssertionError(f"{arch} losses: kernels f32 {loss_k}, bf16 {loss_b}, "
+                             f"twins {loss_t}")
+    res = dict(arch=arch, params=len(g_t), loss_f32=loss_k, loss_twins=loss_t,
+               loss_bf16=loss_b, loss_bf16_rel=loss_rel, grad_max=g_max,
+               worst_f32_err_over_scale=worst_f32, worst_bf16_cosine=worst_cos,
+               params_at_noise=noise,
+               kernel_launches=launches)
+    log(f"gradient check {arch} kernels vs twins", **res)
+    return res
+
+
+def phase_training(arch: str, workdir: Path) -> dict:
+    """``Trainer.fit`` for one epoch and ``evaluate`` at full width, batch
+    64, bf16, with the launch counts set to 0 just before and read just
+    after; then one profiled step, the UNet's tap-GEMM step, and the
+    gradient check."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train.trainer import StepDraws, Trainer
+
+    cfg = training_config(workdir)
+    batch = cfg.DATASET.BATCH_SIZE
+    train_ds = walker_windows(cfg, TRAIN_STEPS * batch, SEED + 3)
+    val_ds = walker_windows(cfg, batch, SEED + 4)
+    tr = Trainer(cfg, arch, device=DEVICE, seed=SEED, run_dir=str(workdir / "run"))
+    step, step_ms = tr._train_step, []
+
+    def timed_step(b, draws):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(b, draws)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return loss
+
+    tr._train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # this arch's training path: fit + evaluate
+    before = launch_counts()
+    hist = tr.fit(train_ds, epochs=1)
+    per_step = TRAIN_PER_STEP[arch](cfg)
+    train_launches = check_launches(f"{arch} training", before, per_step, TRAIN_STEPS)
+    before = launch_counts()
+    val = tr.evaluate(val_ds)  # one batch: one forward, the fused blocks included
+    eval_launches = check_launches(f"{arch} evaluate", before, PER_FORWARD[arch](cfg), 1)
+    path = launch_counts()
+    losses = hist["train_loss"]
+    if not (np.isfinite(losses).all() and np.isfinite(val) and tr.state.step == TRAIN_STEPS):
+        raise AssertionError(f"{arch} training: losses {losses}, val {val}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    b = next(train_ds.batches(batch, seed=SEED))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    profile = profile_busy(lambda: (step(b, StepDraws(generator=gen)), torch.cuda.synchronize()),
+                           f"profile training step {arch} b64")
+    res = dict(arch=arch, batch=batch, dtype=str(tr.compute_dtype), steps=TRAIN_STEPS,
+               train_loss=losses, val_loss=val, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms[1:]),
+               launches_per_step={k: v // TRAIN_STEPS for k, v in train_launches.items()},
+               eval_launches=eval_launches, peak_memory_gb=peak_gb,
+               busy_share=profile["busy_share"], device_busy_ms=profile["device_busy_ms"],
+               kernel_launches_profiled=profile["kernel_launches"])
+    if arch == "DDPM-UNet":
+        tap = Trainer(cfg, arch, device=DEVICE, seed=SEED, conv_impl="tapgemm",
+                      run_dir=str(workdir / "tap_run")).setup()
+        before = launch_counts()  # the tap-GEMM kernel's training step
+        loss = tap._train_step(b, StepDraws(generator=gen)).item()
+        want = dict(per_step)
+        want["conv3d_same_tapgemm"] = want.pop("conv3d_same_im2col")
+        tap_launches = check_launches("UNet tap-GEMM training step", before, want, 1)
+        if not np.isfinite(loss):
+            raise AssertionError(f"tap-GEMM training step loss {loss}")
+        res.update(tapgemm_step_loss=loss, tapgemm_step_launches=tap_launches)
+        path = {k: path[k] + tap_launches[k] for k in path}
+    log(f"training {arch} ATC b{batch}", **res)
+    res["gradients"] = check_gradients(cfg, arch, workdir)
+    res["path_launches"] = path
+    return res
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -1112,13 +1355,35 @@ def kernel_entry(name, route, measured, launches) -> dict:
                 **{k: measured[k] for k in ("floor_ms", "plan") if k in measured})
 
 
+def serving_paths(tmp: Path, cfg, end_to_end: bool) -> dict:
+    """Phases 3-4 and 6-7 (and 5, 8 with ``end_to_end``) for both models;
+    → each model's main-path launch counts (and ``"e2e"``, the UNet's
+    phase 8)."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    paths = {}
+    for arch in ("DDPM-DiT", "DDPM-UNet"):
+        cfg_path, ckpt_path = write_checkpoint(cfg, arch, tmp)
+        per_forward = PER_FORWARD[arch](cfg)
+        reset_launch_counts()  # this arch's main path: serving + ancestral
+        phase_serving(cfg_path, arch, f_shape, per_forward)
+        phase_ancestral(cfg, arch, ckpt_path, f_shape, per_forward)
+        paths[arch] = launch_counts()
+        log("main path launches", arch=arch, **paths[arch])
+        if end_to_end:
+            paths["e2e"] = phase_end_to_end(cfg, arch, ckpt_path)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--serving"] and len(sys.argv) == 3:
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # that tree's port
     from crowdmod_tpu_torch.config import load_config
-    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
 
     t_start = time.perf_counter()
     device = phase_device()
@@ -1134,32 +1399,25 @@ def main() -> int:
         rows = phase_gn_plans()["rows"]
         log("group norm plans done", seconds=time.perf_counter() - t_start, cases=len(rows))
         return 0
+    cfg = load_config("serving/ATC.yml")
+    if sys.argv[1:2] == ["--serving"]:
+        import crowdmod_tpu_torch
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving_paths(Path(tmp), cfg, end_to_end=False)
+        log("serving done", seconds=time.perf_counter() - t_start,
+            package=str(Path(crowdmod_tpu_torch.__file__).parent))
+        return 0
     kernels = phase_kernels()
     unet = phase_unet_kernels()
 
-    cfg = load_config("serving/ATC.yml")
-    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
-    paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        paths = serving_paths(Path(tmp), cfg, end_to_end=True)
+        e2e = paths.pop("e2e")
         for arch in ("DDPM-DiT", "DDPM-UNet"):
-            cfg_path, ckpt_path = write_checkpoint(cfg, arch, Path(tmp))
-            per_forward = PER_FORWARD[arch](cfg)
-            reset_launch_counts()  # this arch's main path: serving + ancestral
-            phase_serving(cfg_path, arch, f_shape, per_forward)
-            phase_ancestral(cfg, arch, ckpt_path, f_shape, per_forward)
-            paths[arch] = launch_counts()
-            log("main path launches", arch=arch, **paths[arch])
-            e2e = phase_end_to_end(cfg, arch, ckpt_path)
-    dit, unet_path = paths["DDPM-DiT"], paths["DDPM-UNet"]
-    launches = {
-        "fused_attention": dit["fused_attention"] + unet_path["fused_attention"],
-        "fused_ancestral_update": dit["fused_ancestral_update"]
-        + unet_path["fused_ancestral_update"],
-        "fused_group_norm": unet_path["fused_group_norm"],
-        "conv3d_same_im2col": unet_path["conv3d_same_im2col"],
-        "conv3d_same_tapgemm": e2e["tapgemm_path_launches"],
-        "fused_resblock": unet_path["fused_resblock"],
-    }
+            paths[f"train {arch}"] = phase_training(arch, Path(tmp) / arch)["path_launches"]
+    launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
+    launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)
     if not all(launches.values()):
         raise AssertionError(f"a kernel was not launched: {launches}")

@@ -71,6 +71,27 @@ def linear_schedule(
     )
 
 
+def q_sample(
+    sched: DiffusionSchedule,
+    x0: torch.Tensor,
+    t: torch.Tensor,
+    eps: torch.Tensor | None = None,
+    *,
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sample from q(x_t | x_0); returns ``(x_t, eps)``.  ``eps`` is drawn
+    from ``generator`` on x0's device unless given."""
+    if eps is None:
+        if generator is None:
+            raise ValueError("q_sample needs eps or an explicit generator")
+        eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    buf = sched.on(x0.device)
+    shape = t.shape + (1,) * (x0.ndim - t.ndim)
+    mean = buf["sqrt_alpha_bar"][t].reshape(shape) * x0
+    std = buf["sqrt_one_minus_alpha_bar"][t].reshape(shape)
+    return mean + std * eps, eps
+
+
 def ddim_tau_schedule(timesteps: int, divider: int) -> np.ndarray:
     """The reference's DDIM tau subset: ``arange(0, T-1, divider)``."""
     return np.arange(0, timesteps - 1, divider, dtype=np.int32)

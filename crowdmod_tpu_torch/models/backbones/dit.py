@@ -17,6 +17,11 @@ this model is a reference checkpoint.
 
 ``dtype`` is the compute dtype: weights stay float32 and are cast at use, and
 the final projection runs in float32, as in the JAX package.
+
+Dropout (training mode) draws its masks from the ``generator`` passed to
+the forward, before each block runs, and hands them to the block; with
+``remat`` each block runs under ``torch.utils.checkpoint`` (the JAX
+package's ``TPU.REMAT``), and its recompute applies the same masks.
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ import os
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from crowdmod_tpu_torch.models.backbones.embeddings import TimestepEmbedding
 from crowdmod_tpu_torch.ops.attention import MultiHeadAttention, dense
+from crowdmod_tpu_torch.ops.dropout import dropout, keep_mask
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -72,7 +79,10 @@ def _ada_ln(hidden: int, n: int) -> nn.Sequential:
 
 
 class Mlp(nn.Sequential):
-    """Linear → GELU → Dropout → Linear → Dropout (keys ``0`` and ``3``)."""
+    """Linear → GELU → Dropout → Linear → Dropout (keys ``0`` and ``3``).
+
+    The two dropouts apply the keep masks passed in (:meth:`keep_masks`);
+    their ``nn.Dropout`` entries hold the rate and the reference's keys."""
 
     def __init__(self, dim: int, hidden: int, dropout_rate: float, dtype):
         super().__init__(
@@ -81,10 +91,21 @@ class Mlp(nn.Sequential):
         )
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def keep_masks(self, lead: tuple, generator) -> tuple | None:
+        """Keep masks of the hidden and the output activations of tokens
+        ``lead + (D,)``, or None when dropout is off."""
+        rate = self[2].p
+        if not (self.training and rate > 0.0):
+            return None
+        device = self[0].weight.device
+        return (keep_mask(tuple(lead) + (self[0].out_features,), rate, generator, device),
+                keep_mask(tuple(lead) + (self[3].out_features,), rate, generator, device))
+
+    def forward(self, x: torch.Tensor, keep: tuple | None = None) -> torch.Tensor:
+        k1, k2 = keep if keep is not None else (None, None)
         h = dense(x, self[0], self.dtype)
-        h = self[2](F.gelu(h, approximate=gelu_approximate(h.device)))
-        return self[4](dense(h, self[3], self.dtype))
+        h = dropout(F.gelu(h, approximate=gelu_approximate(h.device)), k1, self[2].p)
+        return dropout(dense(h, self[3], self.dtype), k2, self[4].p)
 
 
 class DiTBlockFactorized(nn.Module):
@@ -108,25 +129,35 @@ class DiTBlockFactorized(nn.Module):
         self.temporal_attn = attn()
         self.mlp = Mlp(hidden, int(hidden * mlp_ratio), dropout_rate, dtype)
 
-    def forward(self, x, c, query_slot_start: int) -> torch.Tensor:
+    def keep_masks(self, tokens_shape, query_slot_start: int, generator) -> tuple:
+        """The dropout keep masks of one forward over ``tokens_shape`` (B,
+        T_p, N_s, D): spatial and temporal attention weights, then the MLP's
+        two; each None when dropout is off."""
+        b, tp, ns, _ = tokens_shape
+        return (self.spatial_attn.keep_mask((b, tp), ns, ns, generator),
+                self.temporal_attn.keep_mask((b, ns), tp - query_slot_start, tp, generator),
+                self.mlp.keep_masks((b, tp, ns), generator))
+
+    def forward(self, x, c, query_slot_start: int, keep: tuple = (None,) * 3) -> torch.Tensor:
         qs, dt = query_slot_start, self.dtype
+        keep_s, keep_t, keep_mlp = keep
         (sh1, sc1, g1, sh2, sc2, g2, sh3, sc3, g3) = _modulation(
             self.adaLN_modulation, c, 9, dt
         )
 
         # 1. Spatial self-attention: (B, T_p, N_s, D), attention over N_s.
-        h = self.spatial_attn(modulate(_layer_norm(x, dt), sh1, sc1))
+        h = self.spatial_attn(modulate(_layer_norm(x, dt), sh1, sc1), keep=keep_s)
         x = x + _gate(h, g1)
 
         # 2. Temporal cross-attention: (B, N_s, T_p, D), future slots query all.
         xt = x.transpose(1, 2)
         kv = modulate(_layer_norm(xt, dt), sh2, sc2)
-        attn = self.temporal_attn(kv[:, :, qs:, :], kv)
+        attn = self.temporal_attn(kv[:, :, qs:, :], kv, keep=keep_t)
         future = xt[:, :, qs:, :] + _gate(attn, g2)
         x = torch.cat([xt[:, :, :qs, :], future], dim=2).transpose(1, 2)
 
         # 3. MLP over all tokens.
-        h = self.mlp(modulate(_layer_norm(x, dt), sh3, sc3))
+        h = self.mlp(modulate(_layer_norm(x, dt), sh3, sc3), keep=keep_mlp)
         return x + _gate(h, g3)
 
 
@@ -220,8 +251,10 @@ class DiT4DFactorized(nn.Module):
         condition: str = "Past",
         t_max: int = 32,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.out_channels = out_channels
         self.grid_rows, self.grid_cols = grid_rows, grid_cols
         self.past_len, self.future_len = past_len, future_len
@@ -277,7 +310,8 @@ class DiT4DFactorized(nn.Module):
             return torch.cat([past, future], dim=1), past.shape[1]
         return future, 0
 
-    def forward(self, future, t, past=None) -> torch.Tensor:
+    def forward(self, future, t, past=None, *, generator=None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
         x, past_len = self._concat_input(future, past)
         dt = self.dtype
         x = x.to(dt)
@@ -291,8 +325,14 @@ class DiT4DFactorized(nn.Module):
 
         # First future temporal slot, from the runtime past length.
         query_slot_start = past_len // self.t_patch_size
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            tokens = block(tokens, c, query_slot_start)
+            keep = block.keep_masks(tokens.shape, query_slot_start, generator)
+            if remat:
+                tokens = checkpoint(block, tokens, c, query_slot_start, keep,
+                                    use_reentrant=False)
+            else:
+                tokens = block(tokens, c, query_slot_start, keep)
 
         tokens = self.final_layer(tokens, c)
         out = unpatch4d(

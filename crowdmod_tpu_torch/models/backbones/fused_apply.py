@@ -8,7 +8,10 @@ then calls :func:`fused_forward`, on the card (the kernel) and on the CPU
 
 Eligibility is the JAX package's: deterministic (not training), no
 attention epilogue, Cin and Cout multiples of 8, and a volume of at least
-:data:`MIN_FUSED_VOLUME` positions — the UNet's level-0 blocks.
+:data:`MIN_FUSED_VOLUME` positions — the UNet's level-0 blocks.  The kernel
+is forward only, so a block whose parameters require grad while grad is
+enabled is not eligible either: it runs unfused, through the kernels that
+have a gradient.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ MIN_FUSED_VOLUME = 1024
 
 def eligible(block, x: torch.Tensor, training: bool) -> bool:
     if training or block.attention is not None:
+        return False
+    if torch.is_grad_enabled() and any(p.requires_grad for p in block.parameters()):
         return False
     cin, cout = x.shape[-1], block.out_channels
     if cin % 8 or cout % 8 or x.dim() != 5:

@@ -22,6 +22,12 @@ GroupNorms (:class:`GroupNormSiLU`), the attention and, at the level-0
 blocks, the whole ResnetBlock (:mod:`.fused_apply`).  The stride-2
 downsample and the unfused 1×1 skip stay library calls, as they were XLA's
 in the JAX package.  ``dtype`` is the compute dtype: weights stay float32.
+
+Dropout (training mode) draws each ResnetBlock's channel mask from the
+``generator`` passed to the forward, before the block runs, and hands it to
+the block; with ``remat`` each ResnetBlock runs under
+``torch.utils.checkpoint`` (the JAX package's ``TPU.REMAT``), and its
+recompute applies the same mask.
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from crowdmod_tpu_torch.models.backbones import fused_apply
 from crowdmod_tpu_torch.models.backbones.embeddings import TimestepEmbedding
 from crowdmod_tpu_torch.ops.attention import MultiHeadAttention, dense
 from crowdmod_tpu_torch.ops.conv3d import Conv3DSame, lecun_normal_
+from crowdmod_tpu_torch.ops.dropout import dropout, keep_mask
 from crowdmod_tpu_torch.ops.norm import GroupNormSiLU
 
 
@@ -79,20 +87,23 @@ class ResnetBlock3D(nn.Module):
             SpatialAttentionBlock(out_channels, dtype=dtype) if apply_attention else None
         )
 
-    def _channel_dropout(self, h: torch.Tensor) -> torch.Tensor:
+    def keep_mask(self, batch: int, generator) -> torch.Tensor | None:
+        """The channel dropout's ``(B, 1, 1, 1, Cout)`` keep mask (Dropout3d:
+        whole channels of a sample, the JAX package's ``broadcast_dims=(1,
+        2, 3)``), or None when dropout is off."""
         if not self.training or self.dropout_rate == 0.0:
-            return h
-        keep = 1.0 - self.dropout_rate
-        mask = torch.rand((h.shape[0], 1, 1, 1, h.shape[-1]), device=h.device) < keep
-        return h * mask.to(h.dtype) / keep
+            return None
+        return keep_mask((batch, 1, 1, 1, self.out_channels), self.dropout_rate,
+                         generator, self.dense_1.weight.device)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         if fused_apply.eligible(self, x, self.training):
             return fused_apply.fused_forward(self, x, temb)
         dt = self.dtype
         h = self.conv_1(self.normalize_1(x))
         h = h + dense(F.silu(temb.to(dt)), self.dense_1, dt)[:, None, None, None, :]
-        h = self.conv_2(self._channel_dropout(self.normalize_2(h)))
+        h = self.conv_2(dropout(self.normalize_2(h), keep, self.dropout_rate))
         if self.match_input is not None:
             m = self.match_input
             x = F.linear(x.to(dt), m.weight.flatten(1).to(dt), m.bias.to(dt))
@@ -161,10 +172,12 @@ class UNet3D(nn.Module):
         condition: str = "Past",
         dtype: torch.dtype = torch.float32,
         conv_impl: str = "im2col",
+        remat: bool = False,
     ):
         super().__init__()
         self.condition = condition
         self.dtype = dtype
+        self.remat = remat
         temb_dim = base_channels * time_multiple
         self.time_embeddings = TimestepEmbedding(base_channels, temb_dim, dtype)
 
@@ -212,7 +225,14 @@ class UNet3D(nn.Module):
                 lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 nn.init.zeros_(m.bias)
 
-    def forward(self, future, t, past=None) -> torch.Tensor:
+    def _block(self, blk, h, temb, generator) -> torch.Tensor:
+        keep = blk.keep_mask(h.shape[0], generator)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, h, temb, keep, use_reentrant=False)
+        return blk(h, temb, keep)
+
+    def forward(self, future, t, past=None, *, generator=None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
         if self.condition == "Past":
             if past is None:
                 raise ValueError(
@@ -230,13 +250,14 @@ class UNet3D(nn.Module):
         h = self.first(x)
         skips = [h]
         for blk in self.encoder_blocks:
-            h = blk(h, temb) if isinstance(blk, ResnetBlock3D) else blk(h)
+            h = (self._block(blk, h, temb, generator) if isinstance(blk, ResnetBlock3D)
+                 else blk(h))
             skips.append(h)
         for blk in self.bottleneck_blocks:
-            h = blk(h, temb)
+            h = self._block(blk, h, temb, generator)
         for blk in self.decoder_blocks:
             if isinstance(blk, ResnetBlock3D):
-                h = blk(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = self._block(blk, torch.cat([h, skips.pop()], dim=-1), temb, generator)
             else:
                 h = blk(h)
         h = self.final[2](self.final[0](h))

@@ -3,6 +3,7 @@ from crowdmod_tpu_torch.models.diffusion.ddpm import (
     ddim_eta_sample,
     ddim_eta_step,
     ddim_sample,
+    ddpm_loss,
     ddpm_sample,
     gaussian_noise,
     prediction_target,
@@ -10,6 +11,7 @@ from crowdmod_tpu_torch.models.diffusion.ddpm import (
 
 __all__ = [
     "as_eps_fn",
+    "ddpm_loss",
     "prediction_target",
     "gaussian_noise",
     "ddpm_sample",

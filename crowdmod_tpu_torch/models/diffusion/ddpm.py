@@ -1,15 +1,16 @@
-"""DDPM reverse samplers (port of the JAX package's
-``models/diffusion/ddpm.py``: ``as_eps_fn``, ``prediction_target`` and the
-``ddpm``/``ddim``/``ddim_eta`` samplers).
+"""DDPM loss and reverse samplers (port of the JAX package's
+``models/diffusion/ddpm.py``: ``ddpm_loss``, ``as_eps_fn``,
+``prediction_target`` and the ``ddpm``/``ddim``/``ddim_eta`` samplers).
 
 Each sampler is a Python loop over timesteps calling ``denoise_fn``, any
 callable ``(x, t_vec, past) -> eps_hat`` on native-layout ``(B, F, H, W, C)``
 tensors.  The per-step coefficients are read from the host copy of the
 schedule as floats, so a step never waits on the device.
 
-Randomness: a sampler takes ``noise``, a callable ``noise(t)`` that returns
-x_T for ``t=None`` and the step-``t`` Gaussian draw otherwise, with the
-sample's shape.  By default the draws come from ``torch.randn`` with the
+Randomness: :func:`ddpm_loss` takes its timesteps and noise, or draws
+them from an explicit generator.  A sampler takes ``noise``, a callable
+``noise(t)`` that returns x_T for ``t=None`` and the step-``t`` Gaussian
+draw otherwise, with the sample's shape.  By default the draws come from ``torch.randn`` with the
 given ``generator`` on the sample's device; tests inject the JAX package's
 exact draws instead.
 """
@@ -21,7 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from crowdmod_tpu_torch.core.schedule import DiffusionSchedule
+from crowdmod_tpu_torch.core.schedule import DiffusionSchedule, q_sample
 from crowdmod_tpu_torch.models.guidance import (
     mass_preservation_gradient,
     sparsity_gradient,
@@ -78,6 +79,31 @@ def prediction_target(
     if pred_type == "x0":
         return x0
     raise ValueError(f"unknown PRED_TYPE {pred_type!r}; expected {PRED_TYPES}")
+
+
+def ddpm_loss(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    future: torch.Tensor,
+    past: torch.Tensor | None,
+    *,
+    t: torch.Tensor | None = None,
+    eps: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    pred_type: str = "eps",
+) -> torch.Tensor:
+    """Simple-DDPM MSE loss: uniform t, q-sample the future, predict the
+    ``pred_type`` target.  ``t`` ``(B,)`` and ``eps`` are drawn from
+    ``generator`` on the future's device (t first) unless given."""
+    if t is None:
+        if generator is None:
+            raise ValueError("ddpm_loss needs t or an explicit generator")
+        t = torch.randint(0, sched.timesteps, (future.shape[0],),
+                          generator=generator, device=future.device)
+    noisy, eps = q_sample(sched, future, t, eps, generator=generator)
+    pred = denoise_fn(noisy, t, past)
+    target = prediction_target(sched, pred_type, future, eps, t)
+    return torch.mean(torch.square(pred - target))
 
 
 def as_eps_fn(fn: DenoiseFn, sched: DiffusionSchedule, pred_type: str) -> DenoiseFn:

@@ -40,7 +40,9 @@ def build_backbone(
     conv_impl: str = "im2col",
 ) -> nn.Module:
     """Instantiate the denoiser backbone for ``arch`` (on the CPU; the
-    caller moves it).  ``conv_impl`` picks the UNet's conv kernel."""
+    caller moves it).  ``conv_impl`` picks the UNet's conv kernel;
+    ``TPU.REMAT`` recomputes each block in the backward pass."""
+    remat = bool(cfg.get_path("TPU.REMAT", False))
     if arch == "DDPM-UNet":
         from crowdmod_tpu_torch.models.backbones.unet3d import UNet3D
 
@@ -56,6 +58,7 @@ def build_backbone(
             condition=node.CONDITION,
             dtype=dtype,
             conv_impl=conv_impl,
+            remat=remat,
         )
     if arch == "DDPM-DiT":
         from crowdmod_tpu_torch.models.backbones.dit import DiT4DFactorized
@@ -78,6 +81,7 @@ def build_backbone(
             time_multiple=node.TIME_EMB_MULT,
             condition=node.CONDITION,
             dtype=dtype,
+            remat=remat,
         )
     if arch in _NOT_PORTED:
         raise NotImplementedError(

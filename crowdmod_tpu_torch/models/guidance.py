@@ -1,6 +1,6 @@
-"""Sampling-time guidance: sparsity, mass-preservation, classifier-free
-(port of the JAX package's ``models/guidance.py``, native
-``(B, T, H, W, C)`` layout).
+"""Sampling-time guidance: sparsity, mass-preservation, classifier-free,
+and the condition dropout that trains for it (port of the JAX package's
+``models/guidance.py``, native ``(B, T, H, W, C)`` layout).
 
 The mass-preservation gradient is the exact ``torch.autograd.grad`` of the
 closed-form continuity-equation energy, as the JAX package takes its
@@ -59,6 +59,28 @@ def mass_preservation_gradient(
         energy = continuity_energy(xg, delta_t, delta_l).sum()
         (grad,) = torch.autograd.grad(energy, xg)
     return grad
+
+
+def drop_condition(
+    past: torch.Tensor,
+    prob: float,
+    *,
+    keep: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Per-example condition dropout for classifier-free-guidance training:
+    each row's ``past`` is zeroed (the null condition) with probability
+    ``prob``.  ``keep`` ``(B,)`` bool is drawn from ``generator`` on past's
+    device unless given; ``prob == 0`` returns ``past`` unchanged."""
+    if not 0.0 <= prob < 1.0:
+        raise ValueError(f"CFG drop probability must be in [0, 1), got {prob}")
+    if prob == 0.0:
+        return past
+    if keep is None:
+        if generator is None:
+            raise ValueError("drop_condition needs keep or an explicit generator")
+        keep = torch.rand((past.shape[0],), generator=generator, device=past.device) < 1.0 - prob
+    return past * keep.reshape((-1,) + (1,) * (past.ndim - 1)).to(past.dtype)
 
 
 def cfg_denoise_fn(denoise_fn, scale: float):

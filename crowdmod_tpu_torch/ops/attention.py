@@ -8,7 +8,10 @@ state_dict keys are that layer's (``in_proj_weight``, ``in_proj_bias``,
 
 With dropout off (always, at inference) attention runs through the fused
 kernel wrapper :func:`~crowdmod_tpu_torch.ops.kernels.fused_attention`, as
-the JAX package routes its Pallas kernel only when dropout is off.
+the JAX package routes its Pallas kernel only when dropout is off.  With
+dropout on (training), the attention weights' keep mask is drawn by the
+caller (:meth:`MultiHeadAttention.keep_mask`, from an explicit generator)
+and passed in.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from crowdmod_tpu_torch.ops.dropout import keep_mask
 from crowdmod_tpu_torch.ops.kernels import fused_attention
 
 
@@ -36,13 +40,13 @@ def dot_product_attention(
     *,
     dropout_rate: float = 0.0,
     training: bool = False,
-    generator: torch.Generator | None = None,
+    keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention over ``(..., S, H, Dh)`` tensors.
 
     Logits and softmax in float32 whatever the input dtype; returns the
-    input dtype.
-    """
+    input dtype.  With dropout on, ``keep`` is the weights' ``(..., H, Sq,
+    Sk)`` keep mask."""
     dtype = q.dtype
     dh = q.shape[-1]
     scale = 1.0 / dh**0.5
@@ -57,11 +61,10 @@ def dot_product_attention(
         )
         return out.transpose(1, 2).reshape(lead + (sq, h, dh))
     # Dropout path (training only): plain torch.
+    if keep is None:
+        raise ValueError("attention dropout in training mode needs its keep mask")
     logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
     weights = torch.softmax(logits * scale, dim=-1)
-    keep = torch.rand(
-        weights.shape, generator=generator, device=weights.device
-    ) < 1.0 - dropout_rate
     weights = weights * keep / (1.0 - dropout_rate)
     out = torch.einsum(
         "...hqk,...khd->...qhd", weights.to(dtype).float(), v.float()
@@ -103,8 +106,17 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.in_proj_bias)
         nn.init.zeros_(self.out_proj.bias)
 
+    def keep_mask(self, q_lead: tuple, sq: int, sk: int, generator) -> torch.Tensor | None:
+        """The attention weights' keep mask for queries ``q_lead + (sq, D)``
+        against ``sk`` keys, or None when dropout is off."""
+        if not (self.training and self.dropout_rate > 0.0):
+            return None
+        shape = tuple(q_lead) + (self.num_heads, sq, sk)
+        return keep_mask(shape, self.dropout_rate, generator, self.in_proj_bias.device)
+
     def forward(
-        self, q_in: torch.Tensor, kv_in: torch.Tensor | None = None
+        self, q_in: torch.Tensor, kv_in: torch.Tensor | None = None,
+        keep: torch.Tensor | None = None,
     ) -> torch.Tensor:
         d = q_in.shape[-1]
         w = self.in_proj_weight.to(self.dtype)
@@ -117,6 +129,6 @@ class MultiHeadAttention(nn.Module):
         split = lambda x: x.unflatten(-1, (self.num_heads, d // self.num_heads))
         out = dot_product_attention(
             split(q), split(k), split(v),
-            dropout_rate=self.dropout_rate, training=self.training,
+            dropout_rate=self.dropout_rate, training=self.training, keep=keep,
         )
         return dense(out.flatten(-2), self.out_proj, self.dtype)

@@ -13,8 +13,13 @@ same function and are not carried over.
 The kernel's weight layout is packed once per weight load (in the compute
 dtype), not per call: the pack is cached and rebuilt only when the weight
 tensor changes (a new tensor, or an in-place write such as
-``load_state_dict``).  The pack is made without autograd: the kernels are
-forward only.
+``load_state_dict`` or an optimizer step).  The pack is made without
+autograd: the kernels are forward only.  :func:`conv3d_same` gives the
+conv its gradient (:class:`Conv3DSameFunction`): the kernel forward on the
+pack, and the VJP of the plain conv (:func:`conv3d_same_vjp`, the library's
+convolution backward) with respect to the input, the reference-layout
+weight and the bias, as the JAX package's ``custom_vjp`` differentiates
+its direct conv.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import math
 
 import torch
 from torch import nn
+from torch.nn.grad import conv3d_input, conv3d_weight
 
 from crowdmod_tpu_torch.ops.kernels import conv3d_same_im2col, conv3d_same_tapgemm
 from crowdmod_tpu_torch.ops.kernels.conv3d import pack_im2col, pack_tapgemm
@@ -47,6 +53,54 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:
     variance is 1 / fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def conv3d_same_vjp(x, weight, bias, g, needs=(True, True, True)):
+    """``(dx, dweight, dbias)`` of the stride-1 SAME conv of ``x (B, T, H,
+    W, Cin)`` with the reference-layout ``weight (O, I, kh, kw, kl)`` cast to
+    x's dtype, for the output cotangent ``g``: the library's convolution
+    backward on the ``(B, C, T, H, W)`` views, in x's dtype; each gradient
+    comes out in its input's dtype, None where ``needs`` says so."""
+    w = weight.to(x.dtype).permute(0, 1, 4, 2, 3)  # (O, I, kl, kh, kw)
+    x5, g5 = x.permute(0, 4, 1, 2, 3), g.to(x.dtype).permute(0, 4, 1, 2, 3)
+    dx = dw = db = None
+    if needs[0]:
+        dx = conv3d_input(x5.shape, w, g5, padding=1).permute(0, 2, 3, 4, 1)
+    if needs[1]:
+        dw = conv3d_weight(x5, w.shape, g5, padding=1).permute(0, 1, 3, 4, 2)
+        dw = dw.to(weight.dtype)
+    if needs[2] and bias is not None:
+        db = g.float().sum(dim=(0, 1, 2, 3)).to(bias.dtype)
+    return dx, dw, db
+
+
+class Conv3DSameFunction(torch.autograd.Function):
+    """The conv with a gradient: the ``impl`` kernel on the packed weight
+    forward (the twin on the CPU), :func:`conv3d_same_vjp` backward on
+    either device.  Inputs: ``x`` in the compute dtype, the reference-layout
+    ``weight`` and ``bias`` (float32), ``packed`` (the kernel's layout of
+    ``weight``, made without autograd) and ``impl``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, packed, impl):
+        ctx.save_for_backward(x, weight, bias)
+        conv = conv3d_same_im2col if impl == "im2col" else conv3d_same_tapgemm
+        return conv(x, packed, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*conv3d_same_vjp(*ctx.saved_tensors, g, ctx.needs_input_grad[:3]),
+                None, None)
+
+
+def conv3d_same(x, weight, bias, packed, impl: str) -> torch.Tensor:
+    """Stride-1 SAME 3×3×3 conv of channels-last ``x`` through the ``impl``
+    kernel on ``packed``; differentiable in ``x``, ``weight`` and ``bias``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return Conv3DSameFunction.apply(x, weight, bias, packed, impl)
+    conv = conv3d_same_im2col if impl == "im2col" else conv3d_same_tapgemm
+    return conv(x, packed, bias)
 
 
 class Conv3DSame(nn.Module):
@@ -79,5 +133,5 @@ class Conv3DSame(nn.Module):
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = conv3d_same_im2col if self.impl == "im2col" else conv3d_same_tapgemm
-        return conv(x.to(self.dtype).contiguous(), self.packed_weight(), self.bias)
+        return conv3d_same(x.to(self.dtype).contiguous(), self.weight, self.bias,
+                           self.packed_weight(), self.impl)

@@ -10,7 +10,10 @@ and the block shape from the call's shape and dtype.
 
 :func:`fused_attention` takes ``(B, H, S, Dh)`` tensors.  On CPU tensors it
 runs :func:`attention_reference`; on CUDA tensors it launches the kernel or
-raises.  The kernel reads each input through its strides (only the last
+raises.  Where a gradient is needed it runs as :class:`FusedAttention`,
+whose backward is :func:`attention_vjp`: the VJP of the plain math, as the
+JAX package's ``custom_vjp`` takes it (no TPU kernel has a backward
+kernel).  The kernel reads each input through its strides (only the last
 dimension must be contiguous), so the ``(B, S, H, Dh)`` views that
 ``MultiHeadAttention`` makes are read in place, and it writes its output in
 ``(B, S, H, Dh)`` memory order, returned as a ``(B, H, S, Dh)`` view: the
@@ -158,10 +161,47 @@ def _check(q, k, v) -> None:
         )
 
 
+def attention_vjp(q, k, v, g, scale: float):
+    """``(dq, dk, dv)`` of :func:`attention_reference` at ``(q, k, v)`` for
+    the output cotangent ``g``, in f32 from the recomputed weights
+    ``P = softmax(scale·q kᵀ)``: ``dv = Pᵀg``, ``dS = P ⊙ (g vᵀ −
+    rowsum(P ⊙ g vᵀ))``, ``dq = scale·dS k``, ``dk = scale·dSᵀq``; each in
+    its input's dtype."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FusedAttention(torch.autograd.Function):
+    """:func:`fused_attention` with a gradient: the kernel (the twin on the
+    CPU) forward, :func:`attention_vjp` backward on either device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_vjp(*ctx.saved_tensors, g, ctx.scale), None)
+
+
 def fused_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
     """softmax(scale · q kᵀ) v over ``(B, H, S, Dh)``; ``scale`` defaults to
     1/√Dh.  CPU tensors take the plain twin; CUDA tensors the kernel."""
     scale = float(scale if scale is not None else 1.0 / q.shape[-1] ** 0.5)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FusedAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
+def _forward(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     _check(q, k, v)

@@ -13,7 +13,10 @@ which rejects a plan whose shared memory is not its own.
 
 :func:`fused_group_norm` takes channels-last ``(B, ..., C)``.  On CPU
 tensors it runs :func:`group_norm_reference`; on CUDA tensors it launches
-the kernel or raises.
+the kernel or raises.  Where a gradient is needed it runs as
+:class:`FusedGroupNorm`, whose backward is :func:`group_norm_vjp`, the
+closed-form VJP of the plain math in f32 (the JAX package's ``custom_vjp``
+takes the oracle's VJP; no TPU kernel has a backward kernel).
 """
 
 from __future__ import annotations
@@ -213,6 +216,45 @@ def launch(x, gamma, beta, out, num_groups: int, eps: float, silu: bool,
         )
 
 
+def group_norm_vjp(x, gamma, beta, g, num_groups: int, eps: float, silu: bool):
+    """``(dx, dgamma, dbeta)`` of :func:`group_norm_reference` for the
+    output cotangent ``g``: the closed form in f32 from the recomputed
+    two-pass moments, each gradient in its input's dtype."""
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    xg = x.float().reshape(b, -1, num_groups, cg)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt((xg - mean).square().mean(dim=(1, 3), keepdim=True) + eps)
+    xhat = (xg - mean) * rstd
+    gamma_g = gamma.float().reshape(num_groups, cg)
+    gy = g.float().reshape(xg.shape)
+    if silu:
+        y = xhat * gamma_g + beta.float().reshape(num_groups, cg)
+        s = torch.sigmoid(y)
+        gy = gy * s * (1.0 + y * (1.0 - s))
+    dgamma = (gy * xhat).sum(dim=(0, 1)).reshape(c)
+    dbeta = gy.sum(dim=(0, 1)).reshape(c)
+    dxhat = gy * gamma_g
+    dx = rstd * (dxhat - dxhat.mean(dim=(1, 3), keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=(1, 3), keepdim=True))
+    return dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+class FusedGroupNorm(torch.autograd.Function):
+    """:func:`fused_group_norm` with a gradient: the kernel (the twin on the
+    CPU) forward, :func:`group_norm_vjp` backward on either device."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, silu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.args = (num_groups, eps, silu)
+        return _forward(x, gamma, beta, num_groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*group_norm_vjp(*ctx.saved_tensors, g, *ctx.args), None, None, None)
+
+
 def fused_group_norm(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -229,6 +271,13 @@ def fused_group_norm(
             f"channels ({x.shape[-1]}) must be divisible by "
             f"num_groups ({num_groups})"
         )
+    if torch.is_grad_enabled() and (
+            x.requires_grad or gamma.requires_grad or beta.requires_grad):
+        return FusedGroupNorm.apply(x, gamma, beta, num_groups, eps, silu)
+    return _forward(x, gamma, beta, num_groups, eps, silu)
+
+
+def _forward(x, gamma, beta, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return group_norm_reference(x, gamma, beta, num_groups, eps, silu)
     _check(x, gamma, beta)

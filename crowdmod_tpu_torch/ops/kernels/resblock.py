@@ -19,6 +19,9 @@ the weights passes the packed form as ``packed=`` so no call repacks.
 
 :func:`fused_resblock` runs :func:`resblock_reference` on CPU tensors and
 the kernel on CUDA tensors, or raises; it never falls back to the twin.
+The kernel is forward only, like the JAX package's inference path: on CUDA
+it raises where autograd would need a graph (an input that requires grad
+while grad is enabled) rather than return an output without one.
 """
 
 from __future__ import annotations
@@ -200,6 +203,13 @@ def fused_resblock(
     caller has it."""
     if x.device.type == "cpu":
         return resblock_reference(x, temb_proj, w, num_groups=num_groups, eps=eps)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, temb_proj, *w.values())):
+        raise ValueError(
+            "fused_resblock: the kernel is forward only and an input requires "
+            "grad; run the block unfused (fused_apply.eligible) or under "
+            "torch.no_grad()"
+        )
     p = packed if packed is not None else pack_resblock(w, x.dtype)
     _check(x, temb_proj, p, num_groups)
     b, t, h, wd, cin = x.shape

@@ -1,16 +1,28 @@
-"""Trainer, inference part (port of the JAX package's ``train/trainer.py``:
-construction, ``load``/``save``, ``_sample_params``, ``_denoise_fn`` and
-``sample`` for the DDPM family, with the DiT or UNet3D backbone).
+"""Trainer for the DDPM family, with the DiT or UNet3D backbone (port of the
+JAX package's ``train/trainer.py``: ``_loss_fn``, ``setup``, ``fit``,
+``evaluate``, ``resume_from_abort``, ``save``/``load`` and ``sample``).
 
-``fit`` and the optimizer come with the training slice.  The weights are
-held as state_dicts (``params`` and, with EMA on, ``ema_params``) in the
-reference torch layout; sampling binds EMA first, as the JAX package does.
+Weights: ``model`` holds the live training weights; with EMA on, the train
+state's second module (``ema_model``) holds their moving average, and
+sampling uses it (``sample_weights``) without touching the training
+weights.  ``params`` and ``ema_params`` read both as state_dicts in the
+reference torch layout.
+
+Randomness: every draw of a training step — t, ε, the CFG keep mask and the
+dropout masks — comes from the trainer's ``torch.Generator`` on its device,
+seeded from ``seed`` at the start of :meth:`Trainer.fit`.  :class:`StepDraws`
+carries the generator into the loss; a caller may inject any of the draws
+instead (``fit(draws=...)``, ``evaluate(draws=...)``).
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import signal
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from crowdmod_tpu_torch.config import FrozenConfig
@@ -19,15 +31,25 @@ from crowdmod_tpu_torch.core.schedule import (
     linear_schedule,
     respaced_taus,
 )
+from crowdmod_tpu_torch.data.windows import WindowDataset
 from crowdmod_tpu_torch.models import factory
 from crowdmod_tpu_torch.models.diffusion import (
     as_eps_fn,
     ddim_eta_sample,
     ddim_sample,
+    ddpm_loss,
     ddpm_sample,
 )
-from crowdmod_tpu_torch.models.guidance import cfg_denoise_fn
+from crowdmod_tpu_torch.models.guidance import cfg_denoise_fn, drop_condition
 from crowdmod_tpu_torch.train import checkpoint as ckpt
+from crowdmod_tpu_torch.train.optim import (
+    PlateauState,
+    adam,
+    get_learning_rate,
+    set_learning_rate,
+)
+from crowdmod_tpu_torch.train.state import TrainState, ema_copy, train_step
+from crowdmod_tpu_torch.utils.tracker import RunTracker
 
 
 def resolve_device(device) -> torch.device:
@@ -45,6 +67,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+@dataclass
+class StepDraws:
+    """The random draws of one loss evaluation.  Each of ``t`` (B,), ``eps``
+    (the future's shape) and ``keep`` (the CFG keep mask, (B,) bool) left
+    None is drawn from ``generator``, as are the dropout masks."""
+
+    generator: torch.Generator | None = None
+    t: torch.Tensor | None = None
+    eps: torch.Tensor | None = None
+    keep: torch.Tensor | None = None
+
+
 class Trainer:
     def __init__(
         self,
@@ -53,6 +87,7 @@ class Trainer:
         mprops_count: int | None = None,
         *,
         device="cuda",
+        run_dir: str | None = None,
         compute_dtype: torch.dtype | None = None,
         seed: int = 42,
         conv_impl: str = "im2col",
@@ -86,17 +121,42 @@ class Trainer:
         self.seed = seed
         # "ema" (EMA weights when present) or "raw" (the training weights).
         self.sample_weights = "ema"
-        node = factory.backbone_cfg(cfg, arch)
-        self.ema_decay = float(node.TRAIN.get("EMA_DECAY", 0.0))
+        self.run_dir = run_dir or os.path.join(cfg.DATA_FS.OUTPUT_DIR, "runs", arch)
+        train = factory.backbone_cfg(cfg, arch).TRAIN
+        self.total_epochs = train.EPOCHS
+        self.ema_decay = float(train.get("EMA_DECAY", 0.0))
+        solver = train.SOLVER
+        self.plateau = PlateauState(
+            lr=solver.LR,
+            factor=solver.SCHEDULER.FACTOR,
+            patience=solver.SCHEDULER.PATIENCE,
+            min_lr=solver.SCHEDULER.MIN_LR,
+        )
         self.sched = linear_schedule(
             cfg.MODEL.DDPM.TIMESTEPS, scale=cfg.MODEL.DDPM.SCALE
         )
-        self.params = self._copy(self.model.state_dict())
-        self.ema_params = self._copy(self.params) if self.ema_decay else None
-        self._bound = None
+        self.state = self._new_state()
+        self._ready = False
+        self._resumed = False
 
-    def _copy(self, sd: dict) -> dict:
-        return {k: v.detach().to(self.device, copy=True) for k, v in sd.items()}
+    def _new_state(self) -> TrainState:
+        solver = factory.backbone_cfg(self.cfg, self.arch).TRAIN.SOLVER
+        opt = adam(self.model.parameters(), self.plateau.lr, tuple(solver.BETAS),
+                   solver.WEIGHT_DECAY)
+        return TrainState(self.model, opt, ema_decay=self.ema_decay)
+
+    @property
+    def ema_model(self):
+        return self.state.ema_model
+
+    @property
+    def params(self) -> dict:
+        """The training weights as a state_dict (views of the model's)."""
+        return self.model.state_dict()
+
+    @property
+    def ema_params(self) -> dict | None:
+        return None if self.ema_model is None else self.ema_model.state_dict()
 
     def _grid_shapes(self):
         c = self.cfg
@@ -106,55 +166,290 @@ class Trainer:
         )
 
     # ------------------------------------------------------------------
+    # Setup
+    # ------------------------------------------------------------------
+    def _loss_fn(self, *, deterministic: bool = False):
+        """Loss closure ``(batch, draws) -> loss``; ``deterministic=True``
+        is the eval variant: dropout and the CFG condition drop off."""
+        model, sched, device = self.model, self.sched, self.device
+        node = self.cfg.MODEL.DDPM
+        cfg_drop = float(node.get("CFG_DROP_PROB", 0.0))
+        pred_type = node.get("PRED_TYPE", "eps")
+
+        def loss(batch, draws: StepDraws) -> torch.Tensor:
+            past, future = (x.to(device) for x in batch)
+            model.train(not deterministic)
+            if cfg_drop > 0.0 and not deterministic:
+                past = drop_condition(past, cfg_drop, keep=draws.keep,
+                                      generator=draws.generator)
+            gen = draws.generator
+            return ddpm_loss(
+                lambda x, t, c: model(x, t, c, generator=gen), sched, future, past,
+                t=draws.t, eps=draws.eps, generator=gen, pred_type=pred_type,
+            )
+
+        return loss
+
+    def resume_from_abort(self) -> bool:
+        """Restore the emergency 'abort' checkpoint when present; → True
+        when the state was restored."""
+        path = os.path.join(
+            self.cfg.DATA_FS.SAVE_DIR,
+            ckpt.checkpoint_name(self.cfg, self.arch, "abort"),
+        )
+        if not os.path.isdir(path):
+            return False
+        self.load(path)
+        self._resumed = True
+        logging.info("resumed from emergency checkpoint %s", path)
+        return True
+
+    def setup(self, baseline_ckpt: str | None = None):
+        """A fresh train state (step 0, new Adam moments, EMA copied from the
+        weights); ``baseline_ckpt`` warm-starts the weights only."""
+        if baseline_ckpt:
+            payload, _ = ckpt.load_checkpoint(baseline_ckpt)
+            self.model.load_state_dict(payload["params"])
+            logging.info("baseline checkpoint loaded from %s", baseline_ckpt)
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(
+                f"TRAIN.EMA_DECAY must be in [0, 1); got {self.ema_decay}"
+            )
+        self.state = self._new_state()
+        self._train_loss = self._loss_fn()
+        self._ready = True
+        return self
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def _train_step(self, batch, draws: StepDraws) -> torch.Tensor:
+        return train_step(self.state, self._train_loss, batch, draws)
+
+    def fit(
+        self,
+        train_ds: WindowDataset,
+        val_ds: WindowDataset | None = None,
+        *,
+        baseline_ckpt: str | None = None,
+        epochs: int | None = None,
+        tracker: RunTracker | None = None,
+        draws=None,
+    ) -> dict:
+        """Train for ``epochs`` (default ``TRAIN.EPOCHS``); → history.
+
+        ``draws``: a callable giving each step's :class:`StepDraws` (default:
+        the trainer's generator)."""
+        if not self._ready:
+            self.setup(baseline_ckpt)
+        epochs = epochs or self.total_epochs
+        cfg = self.cfg
+        batch_size = cfg.DATASET.BATCH_SIZE
+        if len(train_ds) < batch_size:
+            raise ValueError(
+                f"training dataset yields no full batches: {len(train_ds)} "
+                f"windows < DATASET.BATCH_SIZE={batch_size}; lower the batch "
+                "size or provide more data"
+            )
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        next_draws = draws or (lambda: StepDraws(generator=gen))
+
+        save_dir = cfg.DATA_FS.SAVE_DIR
+        keep = cfg.get_path(f"MODEL.{self.family.upper()}.CHECKPOINTS_TO_KEEP", 0)
+        rng = np.random.default_rng(self.seed)
+        late = []
+        if keep:
+            # Without replacement, from the last 25% of the epochs:
+            # duplicates would save fewer late checkpoints than configured.
+            lo = max(1, int(epochs * 0.75))
+            pool = np.arange(lo, epochs + 1)
+            late = rng.choice(pool, size=min(keep, len(pool)), replace=False)
+
+        own_tracker = tracker is None
+        if own_tracker:
+            tracker = RunTracker(self.run_dir, config=cfg)
+
+        best = float("inf")
+        if self._resumed:
+            # A resumed run must not overwrite '000' with a first epoch worse
+            # than the pre-crash best; a fresh run may replace a stale one.
+            prev = ckpt.read_metadata(os.path.join(
+                save_dir, ckpt.checkpoint_name(cfg, self.arch, "000")))
+            if prev and isinstance(prev.get("epoch_loss"), (int, float)):
+                best = float(prev["epoch_loss"])
+        nan_streak = 0
+        completed = aborted = False
+        history = {"train_loss": [], "val_loss": [], "lr": [], "aborted": False}
+
+        # SIGINT lands only at step boundaries, so the emergency save below
+        # sees a whole step's state; a second Ctrl-C interrupts at once.
+        deferred = {"sig": False}
+
+        def defer_sigint(signum, frame):
+            if deferred["sig"]:
+                raise KeyboardInterrupt
+            deferred["sig"] = True
+            logging.warning("SIGINT received; aborting at the next step boundary "
+                            "(press again to interrupt immediately)")
+
+        def boundary():
+            if deferred["sig"]:
+                raise KeyboardInterrupt
+
+        try:
+            prev_handler = signal.signal(signal.SIGINT, defer_sigint)
+        except ValueError:
+            prev_handler = None  # not the main thread; leave delivery as-is
+        try:
+            for epoch in range(1, epochs + 1):
+                losses = []
+                for batch in train_ds.batches(batch_size, shuffle=True,
+                                              seed=self.seed + epoch):
+                    losses.append(self._train_step(batch, next_draws()))
+                    boundary()
+                epoch_loss = float(torch.stack(losses).mean())
+                val_loss = None if val_ds is None else self.evaluate(val_ds)
+
+                self.plateau = self.plateau.step(epoch_loss)
+                set_learning_rate(self.state.optimizer, self.plateau.lr)
+                lr = get_learning_rate(self.state.optimizer)
+                history["train_loss"].append(epoch_loss)
+                history["val_loss"].append(val_loss)
+                history["lr"].append(lr)
+                log = {"train_loss": epoch_loss, "lr": lr}
+                if val_loss is not None:
+                    log["val_loss"] = val_loss
+                tracker.log(log, step=epoch)
+
+                # NaN watchdog: 3 consecutive NaN epochs abort the run.
+                if np.isnan(epoch_loss):
+                    nan_streak += 1
+                    logging.warning("epoch %d: NaN loss (%d consecutive)", epoch,
+                                    nan_streak)
+                    if nan_streak >= 3:
+                        # Not a completed run: the retention sweep below must
+                        # not delete earlier runs' checkpoints on its account.
+                        logging.error("3 consecutive NaN epochs; aborting")
+                        aborted = True
+                        break
+                else:
+                    nan_streak = 0
+
+                if epoch_loss < best:
+                    best = epoch_loss
+                    self.save(save_dir, "000", extra={"epoch_loss": epoch_loss})
+                if epoch in late:
+                    self.save(save_dir, epoch, extra={"epoch_loss": epoch_loss})
+                boundary()
+            completed = not aborted
+            history["aborted"] = aborted
+        except BaseException:
+            # Persist the in-flight state so a long run resumes
+            # (resume_from_abort) instead of restarting.
+            try:
+                self.save(save_dir, "abort")
+                logging.error("training aborted; emergency checkpoint saved")
+            except Exception:
+                logging.exception("emergency checkpoint failed")
+            raise
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGINT, prev_handler)
+            if own_tracker:
+                tracker.finish()
+            self.model.eval()
+        if completed:
+            # The crash-recovery point is obsolete and only the newest `keep`
+            # late checkpoints stay; with keep == 0 the sweep is skipped (it
+            # would delete numbered checkpoints of earlier runs).
+            ckpt.gc_checkpoints(save_dir, cfg, self.arch,
+                                keep_epochs=keep if keep else None, remove_abort=True)
+        return history
+
+    def evaluate(self, ds: WindowDataset, *, draws=None) -> float:
+        """Mean eval loss over ``ds`` with the training weights: dropout and
+        the CFG drop off, no gradient, draws from a generator seeded 0 each
+        call (``draws`` injects them instead).  Full batches only, as the
+        reference's val loader (a dataset under one batch keeps its one
+        partial batch)."""
+        if not hasattr(self, "_eval_loss"):
+            self._eval_loss = self._loss_fn(deterministic=True)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        next_draws = draws or (lambda: StepDraws(generator=gen))
+        batch_size = self.cfg.DATASET.BATCH_SIZE
+        losses = []
+        with torch.no_grad():
+            for batch in ds.batches(batch_size, shuffle=False,
+                                    drop_last=len(ds) >= batch_size):
+                losses.append(torch.as_tensor(self._eval_loss(batch, next_draws())))
+        self.model.eval()
+        return float(torch.stack(losses).mean())
+
+    # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
     def save(self, save_dir: str, epoch: int | str, extra: dict | None = None):
+        """The weights, EMA, step, Adam state and learning rate, with the
+        JAX package's metadata, under ``save_dir``."""
         name = ckpt.checkpoint_name(self.cfg, self.arch, epoch)
-        payload = {"params": self.params}
-        if self.ema_params is not None:
+        payload = {
+            "params": self.params,
+            "step": self.state.step,
+            "optimizer": self.state.optimizer.state_dict(),
+            "lr": get_learning_rate(self.state.optimizer),
+        }
+        if self.ema_model is not None:
             payload["ema_params"] = self.ema_params
         meta = ckpt.build_metadata(self.cfg, self.arch, epoch, extra)
         return ckpt.save_checkpoint(os.path.join(save_dir, name), payload, meta)
 
     def load(self, path: str):
-        """Load a port checkpoint directory; returns its metadata."""
+        """Load a port checkpoint directory — weights, EMA and, where it
+        holds them, the step, Adam state and learning rate; returns its
+        metadata."""
+        if not self._ready:
+            self.setup()
         payload, meta = ckpt.load_checkpoint(path)
         want = set(self.params)
-        for name, sd in payload.items():
-            if set(sd) != want:
+        for name in ("params", "ema_params"):
+            if name in payload and set(payload[name]) != want:
+                got = set(payload[name])
                 raise ValueError(
                     f"checkpoint {path} {name} does not fit the configured "
-                    f"model: missing {sorted(want - set(sd))}, unexpected "
-                    f"{sorted(set(sd) - want)}"
+                    f"model: missing {sorted(want - got)}, unexpected "
+                    f"{sorted(got - want)}"
                 )
-        self.params = self._copy(payload["params"])
-        if "ema_params" in payload:
-            self.ema_params = self._copy(payload["ema_params"])
-        elif self.ema_decay:
+        state = self.state
+        self.model.load_state_dict(payload["params"])
+        if "ema_params" in payload and state.ema_model is None:
+            state.ema_model = ema_copy(self.model)
+        if state.ema_model is not None:
             # EMA enabled but the checkpoint predates it: seed from weights.
-            self.ema_params = self._copy(self.params)
-        self._bound = None
+            state.ema_model.load_state_dict(payload.get("ema_params", payload["params"]))
+        if "step" in payload:
+            state.step = int(payload["step"])
+        if "optimizer" in payload:
+            state.optimizer.load_state_dict(payload["optimizer"])
+            self.plateau = self.plateau._replace(lr=get_learning_rate(state.optimizer))
         return meta
 
     # ------------------------------------------------------------------
     # Sampling
     # ------------------------------------------------------------------
-    def _sample_params(self) -> dict:
-        """EMA weights when enabled (smoother samples), else the raw
-        training weights."""
-        if self.sample_weights == "raw" or self.ema_params is None:
-            return self.params
-        return self.ema_params
+    def _sample_model(self):
+        """The EMA module when present (smoother samples), else the model
+        with the raw training weights."""
+        if self.sample_weights == "raw" or self.ema_model is None:
+            return self.model
+        return self.ema_model
 
-    def _denoise_fn(self, params: dict | None = None):
-        """The eps-space denoiser over ``params`` (default: the sampling
-        weights), with classifier-free guidance and the PRED_TYPE adapter."""
-        params = self._sample_params() if params is None else params
-        if params is not self._bound:
-            self.model.load_state_dict(params)
-            self._bound = params
+    def _denoise_fn(self, model=None):
+        """The eps-space denoiser over ``model`` (default: the sampling
+        weights' module, in eval mode), with classifier-free guidance and the
+        PRED_TYPE adapter."""
+        model = (self._sample_model() if model is None else model).eval()
         node = self.cfg.MODEL.DDPM
-        fn = cfg_denoise_fn(self.model, float(node.get("CFG_SCALE", 1.0)))
+        fn = cfg_denoise_fn(model, float(node.get("CFG_SCALE", 1.0)))
         return as_eps_fn(fn, self.sched, node.get("PRED_TYPE", "eps"))
 
     @torch.no_grad()
