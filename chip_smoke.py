@@ -47,11 +47,23 @@ non-zero without a result line:
      check: one batch through the kernels against the same batch under the
      twins, in f32 (TF32 off, deterministic algorithms: every parameter
      within 1e-4·max|g| of the twins') and in bf16 (each parameter's
-     gradient at cosine ≥ 0.99 with the f32 twins', the loss within 2e-2).
+     gradient at cosine ≥ 0.99 with the f32 twins', the loss within 2e-2);
+ 10. the main path through the command line: synthetic walker sequences
+     written as reference-layout pickles with a DATA_LIST and a copy of
+     ``configs/serving/ATC.yml``; ``python -m crowdmod_tpu_torch.cli train``
+     (DDPM-DiT, one epoch of 20 steps) then ``generate-metrics --metric ALL``
+     on its checkpoint (1280 samples, 64 pasts × 20, in one sample call):
+     every CSV and the manifest under the JAX package's names, finite, the
+     launches from the command's log line; DDPM-UNet's
+     ``Trainer.generate_metrics`` in this process, its metric suite on the
+     card held bitwise to a second run and to the CPU's within the CPU
+     tests' tolerances; each model's ``generate_metrics`` profiled (device
+     busy share) and one f32 forward at batch 1280, kernels vs twins.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after: phases 3-4 (DiT), phases 6-7 (UNet), the tap-GEMM run of
-phase 8 and each model's training (phase 9); the counts are held to the
+phase 8, each model's training (phase 9) and each model's protocol run
+(phase 10; the DiT's in its own process); the counts are held to the
 launches each forward or training step makes.  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
 """
@@ -89,7 +101,11 @@ TOL = {"attention_f32": 1e-5, "attention_bf16": 2e-2, "step": 1e-6,
        # (a tensor under grad_own_scale, a gradient that is 0 up to float
        # noise, within bf16 times the model's max|g_ref| instead).
        "grad_f32": 1e-4, "grad_own_scale": 1e-3, "grad_bf16_cos": 0.99,
-       "loss_bf16": 2e-2}
+       "loss_bf16": 2e-2,
+       # The metric suite, card vs CPU: the CPU parity tests' tolerances
+       # (tests/test_torch_metrics.py; metric_agreement says which is which).
+       "psnr_rel": 1e-4, "psnr_db": 1e-4, "ssim": 1e-5, "sum_rel": 1e-4, "hist1d_rel": 1e-5,
+       "bhatt": 1e-6, "max_moved_share": 1e-3}
 REPLACES = {
     "fused_attention": "crowdmod_tpu/ops/pallas/attention.py:53",
     "fused_ancestral_update": "crowdmod_tpu/ops/pallas/fused_step.py:59",
@@ -888,7 +904,13 @@ def check_launches(label, before, per_forward, forwards, extra=None) -> dict:
     """The launches since ``before`` against ``per_forward`` × ``forwards``
     (+ ``extra``), every kernel; raises on any difference."""
     after = launch_counts()
-    got = {k: after[k] - before[k] for k in after}
+    return hold_launches(label, {k: after[k] - before[k] for k in after},
+                         per_forward, forwards, extra)
+
+
+def hold_launches(label, got, per_forward, forwards, extra=None) -> dict:
+    """Launch counts ``got`` (every kernel) against ``per_forward`` ×
+    ``forwards`` (+ ``extra``); raises on any difference."""
     want = {k: v * forwards for k, v in per_forward.items()}
     want.update(extra or {})
     bad = {k: [got[k], want.get(k, 0)] for k in got if got[k] != want.get(k, 0)}
@@ -1346,6 +1368,332 @@ def phase_training(arch: str, workdir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the main path through the command line, and the metric suite
+# ---------------------------------------------------------------------------
+
+CLI_SEED = 42
+METRIC_CHUNK = 20  # samples a repeated past (the configs' CHUNK_REPD_PAST_SEQ)
+# Sequences a pickle: 16 frames, two 8-frame windows each at stride 8, so
+# 1280 windows a file: an epoch of 20 training steps of 64, and one protocol
+# batch of BATCH_SIZE × METRIC_CHUNK = 1280.
+CLI_SEQS = 640
+TWIN_CHUNK = 160  # rows a twin forward takes at once at batch 1280
+
+
+def write_pickle_workspace(workdir: Path):
+    """Three reference-layout ``(N, C, H, W, L)`` macroprop pickles of
+    synthetic walker sequences at the serving grid (+ N(0, 0.05²) noise,
+    its magnitude on ρ and σ²_v), one each for the train, val and test splits, their
+    DATA_LIST, and a copy of ``configs/serving/ATC.yml`` pointing at them →
+    (config path, list path, the loaded config)."""
+    import pickle
+
+    import yaml
+
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+
+    cfg = load_config("serving/ATC.yml")
+    h, w, seq_len = cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, cfg.DATASET.RAW_SEQ_LEN
+    pkl = workdir / "pickle"
+    pkl.mkdir(parents=True)
+    rng, n_seqs, entries = np.random.default_rng(SEED + 9), CLI_SEQS, []
+    for k in range(3):
+        native = np.concatenate([synthetic_walkers(n_seqs, h, w, seq_len),
+                                 np.zeros((n_seqs, seq_len, h, w, 1), np.float32)], -1)
+        noise = rng.normal(0, 0.05, native.shape).astype(np.float32)
+        noise[..., (0, 3)] = np.abs(noise[..., (0, 3)])  # ρ, σ²_v ≥ 0
+        native += noise
+        with open(pkl / f"walkers{k}.pkl", "wb") as f:
+            pickle.dump(np.ascontiguousarray(native.transpose(0, 4, 2, 3, 1)), f)
+        entries.append([f"walkers{k}.csv", n_seqs])
+    cfg = cfg.updated({
+        "DATA_FS": {"PICKLE_DIR": str(pkl), "SAVE_DIR": str(workdir / "ckpts"),
+                    "OUTPUT_DIR": str(workdir / "out")},
+        "DATASET": {"TRAIN_FILE_COUNT": 1, "VAL_FILE_COUNT": 1, "TEST_FILE_COUNT": 1},
+        "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0}},
+    })
+    cfg_path, list_path = workdir / "ATC.yml", workdir / "ATC_datafiles.yml"
+    cfg_path.write_text(yaml.safe_dump(cfg.to_dict()))
+    list_path.write_text(yaml.safe_dump({"DATA_LIST": entries}))
+    return cfg_path, list_path, load_config(str(cfg_path), str(list_path))
+
+
+def run_cli(*args) -> tuple[float, str]:
+    """``python -m crowdmod_tpu_torch.cli *args --device DEVICE`` from this
+    checkout → (wall seconds, its standard output); raises on a non-zero
+    exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "crowdmod_tpu_torch.cli", *args,
+                        "--device", DEVICE], capture_output=True, text=True,
+                       cwd=Path(__file__).resolve().parent, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        raise RuntimeError(f"cli {args[0]} exited {r.returncode}:\n"
+                           f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    return wall, r.stdout
+
+
+def logged(stdout: str, prefix: str) -> str:
+    """The rest of the last log line holding ``prefix``."""
+    lines = [ln.split(prefix, 1)[1] for ln in stdout.splitlines() if prefix in ln]
+    if not lines:
+        raise AssertionError(f"no {prefix!r} line in the command's log")
+    return lines[-1]
+
+
+def check_metric_files(out_dir: Path, cfg, arch: str, nsamples: int) -> int:
+    """Every CSV of the JAX package's ``HEADERS`` under its name
+    (``{metric}_NS{n}_{run_tag}.csv``), with its header, a row a sample (a
+    repeated past for the MAX/MIN files) and finite values, and
+    ``metrics_files.json`` naming them all; → how many.  The walker data
+    leave no frame without density, so no masked PSNR is NaN, on the JAX
+    package's side either."""
+    from crowdmod_tpu_torch.metrics import generator
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    manifest = json.loads((out_dir / "metrics_files.json").read_text())
+    if set(manifest) != {"title", *generator.HEADERS}:
+        raise AssertionError(f"{arch} manifest keys {sorted(manifest)}")
+    tag, frames = ckpt.run_tag(cfg, arch, "000"), cfg.DATASET.FUTURE_LEN
+    for name, fixed in generator.HEADERS.items():
+        path = out_dir / f"{name}_NS{nsamples}_{tag}.csv"
+        header = fixed or (generator._re_header if "RE_DENSITY" in name
+                           else generator._ot_header)(frames, cfg.DATASET.PAST_LEN)
+        with open(path) as f:
+            got_header = f.readline().strip()
+        values = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+        rows = nsamples // (METRIC_CHUNK if name.startswith(("MAX", "MIN")) else 1)
+        if (got_header != header or manifest[name] != str(path)
+                or values.shape != (rows, len(header.split(",")))
+                or not np.isfinite(values).all()):
+            raise AssertionError(f"{arch} {path.name}: header {got_header!r}, shape "
+                                 f"{values.shape}, all finite {np.isfinite(values).all()}")
+    return len(generator.HEADERS)
+
+
+def _moved_elements(seqs_card, seqs_cpu) -> np.ndarray:
+    """Per sequence, the elements whose 2-D or 1-D histogram bin differs
+    between the card's and the CPU's magnitude and angle (a value within
+    float error of a bin edge: ``log2``, ``atan2`` and ``sqrt`` differ in
+    the last bits)."""
+    from crowdmod_tpu_torch.metrics import functional as F
+
+    a = [b.cpu() for b in F.motion_bins(*F.motion_volumes(seqs_card))]
+    b = list(F.motion_bins(*F.motion_volumes(seqs_cpu)))
+    moved = 0
+    for bins, valid in ((0, 1), (2, 3)):
+        moved = moved + (((a[bins] != b[bins]) & (a[valid] | b[valid]))
+                         | (a[valid] != b[valid])).long()
+    return moved.flatten(1).sum(1).numpy()
+
+
+def metric_agreement(card: dict, cpu: dict, pred, gt) -> dict:
+    """The card's metric arrays against the CPU's from the same (pred, gt),
+    with the tolerances of the CPU parity tests
+    (``tests/test_torch_metrics.py``): PSNR 1e-4 relative + 1e-4 dB, SSIM 1e-5
+    absolute, TV and RE_DENSITY 1e-4 of the sums they compare, ENERGY and
+    MF_MSE 1e-4 relative, the Bhattacharyya numbers 1e-6 absolute + 1e-5
+    relative; NaNs in the same places; the MF rows of a sequence with an
+    element that moved a histogram bin excepted (counted: at most 1e-3 of
+    the elements)."""
+    moved = _moved_elements(pred, pred.cpu()) + _moved_elements(gt, gt.cpu())
+    if not moved.sum() <= TOL["max_moved_share"] * pred[..., 0].numel():
+        raise AssertionError(f"metric suite: {moved.sum()} elements moved bin")
+    # |Δ re| for re = |P − G| / (G + eps), P and G sums of ρ: the sums'
+    # errors over |G + eps|, times (1 + re).
+    p, g, sum_g = (x.double().sum((2, 3)).cpu().numpy()
+                   for x in (pred[..., 0].abs(), gt[..., 0].abs(), gt[..., 0]))
+    re = (p + g) / np.abs(sum_g + 1e-6) * (1 + cpu["RE_DENSITY"])
+
+    def tv(x):
+        x = x.double()
+        return (x.diff(dim=2).abs().sum((2, 3)) + x.diff(dim=3).abs().sum((2, 3))).cpu().numpy()
+
+    scales = {"TV_OVER_TIME": (tv(pred) + tv(gt)).reshape(len(p), -1), "RE_DENSITY": re,
+              "MIN_RE_DENSITY": re.reshape(-1, METRIC_CHUNK, re.shape[1]).max(1)}
+    if set(card) != set(cpu):
+        raise AssertionError(f"metric suite: arrays {sorted(card)} vs {sorted(cpu)}")
+    worst = {}
+    for name, want in cpu.items():
+        got = card[name]
+        if got.shape != want.shape or not np.array_equal(np.isnan(got), np.isnan(want)):
+            raise AssertionError(f"metric suite {name}: shapes or NaNs differ")
+        scale = scales.get(name)
+        if name.startswith("MF_"):
+            got, want = got[moved == 0], want[moved == 0]
+        ok = ~np.isnan(want)
+        err = np.abs(got - want)[ok]
+        if scale is not None:
+            bound = TOL["sum_rel"] * scale[ok]
+        elif "PSNR" in name:
+            bound = TOL["psnr_db"] + TOL["psnr_rel"] * np.abs(want[ok])
+        elif "SSIM" in name:
+            bound = np.full_like(err, TOL["ssim"])
+        elif name.startswith("MF_BHATT"):
+            bound = TOL["bhatt"] + TOL["hist1d_rel"] * np.abs(want[ok])
+        else:  # ENERGY, MIN-ENERGY, MF_MSE
+            bound = TOL["sum_rel"] * np.abs(want[ok])
+        if not (err <= bound).all():
+            raise AssertionError(f"metric suite {name}: card vs CPU {err.max()}")
+        worst[name] = float(err.max()) if err.size else 0.0
+    return dict(moved_elements=int(moved.sum()), moved_sequences=int((moved > 0).sum()),
+                max_abs_err=worst)
+
+
+def metric_suite(cfg, pred, gt) -> dict:
+    """The whole suite (``ALL``) on ``pred``/``gt``'s device, nothing
+    written."""
+    from crowdmod_tpu_torch.metrics.generator import MetricsEngine, compute_metrics
+
+    engine = MetricsEngine(pred, gt, cfg.METRICS, past_len=cfg.DATASET.PAST_LEN)
+    return compute_metrics(engine, "ALL", METRIC_CHUNK, eps=cfg.MACROPROPS.EPS,
+                           save=False)
+
+
+def check_forward_batch(cfg, arch: str, ckpt_path: str, past) -> dict:
+    """One f32 denoiser forward at the protocol batch with the kernels,
+    against the twins on the same inputs (TF32 off; the twins ``TWIN_CHUNK``
+    rows at a time: the conv twin's patch matrix of 1280 rows would not fit,
+    and every op is per sample, so a chunk's rows come out as in the whole
+    batch)."""
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = Trainer(cfg, arch, device=DEVICE, compute_dtype=torch.float32, seed=SEED)
+    tr.load(ckpt_path)
+    n = past.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    x = torch.randn((n, cfg.DATASET.FUTURE_LEN, *past.shape[2:4], 3), generator=gen,
+                    device=DEVICE)
+    t = torch.randint(0, cfg.MODEL.DDPM.TIMESTEPS, (n,), generator=gen, device=DEVICE)
+    before = launch_counts()
+    with torch.no_grad():
+        out = tr.model(x, t, past)
+        launches = check_launches(f"{arch} f32 forward b{n}", before,
+                                  PER_FORWARD[arch](cfg), 1)
+        with twins_on_the_card():
+            twin = torch.cat([tr.model(x[i:i + TWIN_CHUNK], t[i:i + TWIN_CHUNK],
+                                       past[i:i + TWIN_CHUNK])
+                              for i in range(0, n, TWIN_CHUNK)])
+    torch.cuda.synchronize()
+    err = (out - twin).abs().max().item()
+    if not out.abs().max().item() > 1e-3:
+        raise AssertionError(f"{arch} b{n}: the denoiser output is all but zero")
+    if not err <= TOL["forward_f32"]:
+        raise AssertionError(f"{arch} f32 forward b{n} kernels vs twins: {err}")
+    res = dict(arch=arch, batch=n, max_abs_err=err, tolerance=TOL["forward_f32"],
+               out_abs_max=out.abs().max().item(), launches=launches)
+    log(f"forward {arch} b{n} kernels vs twins (f32)", **res)
+    return res
+
+
+def phase_cli(workdir: Path) -> dict:
+    """Phase 10.  The DiT through ``train`` and ``generate-metrics``, each a
+    subprocess whose launches come from the command's log line; the UNet's
+    ``generate_metrics`` in this process, its launches held per forward;
+    the metric suite of the UNet's samples on the card against the CPU and
+    against itself; the batch-1280 f32 forwards against the twins; the
+    device busy share of each model's ``generate_metrics``.  → the main
+    paths' launch counts."""
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    cfg_path, list_path, cfg = write_pickle_workspace(workdir)
+    common = ["--config-yml-file", str(cfg_path), "--configList-yml-file",
+              str(list_path), "--seed", str(CLI_SEED)]
+    nsamples = cfg.DATASET.BATCH_SIZE * METRIC_CHUNK
+    steps = cfg.MODEL.DDPM.ETA_STEPS
+    protocol = dict(metric="ALL", chunk=METRIC_CHUNK, batches_to_use=1, seed=CLI_SEED)
+    paths = {}
+
+    # The DiT: the user's two commands.
+    train_s, train_out = run_cli("train", "--arch", "DDPM-DiT", "--epochs", "1", *common)
+    gen_s, gen_out = run_cli(
+        "generate-metrics", "--arch", "DDPM-DiT", "--metric", "ALL",
+        "--chunk-repd-past-seq", str(METRIC_CHUNK), "--batches-to-use", "1",
+        "--output-dir", str(workdir / "metrics_dit"), *common)
+    files = check_metric_files(workdir / "metrics_dit", cfg, "DDPM-DiT", nsamples)
+    paths["cli DDPM-DiT"] = hold_launches(
+        "DiT generate-metrics", json.loads(logged(gen_out, "kernel launches: ")),
+        PER_FORWARD["DDPM-DiT"](cfg), steps)
+    events = [json.loads(ln) for ln in open(
+        Path(cfg.DATA_FS.OUTPUT_DIR) / "runs" / "DDPM-DiT" / "events.jsonl")]
+    if not (len(events) == 1 and np.isfinite([events[0]["train_loss"],
+                                              events[0]["val_loss"]]).all()):
+        raise AssertionError(f"DiT training events {events}")
+    log("cli DDPM-DiT: train -> generate-metrics ALL", train_wall_s=train_s,
+        generate_metrics_wall_s=gen_s, protocol=logged(gen_out, "metric protocol: "),
+        train_windows=logged(train_out, "train windows: "), epoch=events[0],
+        csv_files=files, launches=paths["cli DDPM-DiT"])
+
+    # The UNet: Trainer.generate_metrics in this process, seeded random
+    # weights (EMA = weights).
+    tr = Trainer(cfg, "DDPM-UNet", device=DEVICE, seed=SEED, run_dir=str(workdir / "unet"))
+    perturb_(tr.model, SEED + 10)
+    tr.ema_model.load_state_dict(tr.model.state_dict())
+    test_ds = ingest.get_test_dataset(cfg, tr.mprops_count, seed=CLI_SEED, device=DEVICE)
+    select, sample, seen, sampled = tr.select_past, tr.sample, [], []
+
+    def timed_sample(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(*a, **kw)
+        torch.cuda.synchronize()
+        sampled.append((time.perf_counter() - t0, out))
+        return out
+
+    tr.sample = timed_sample
+    tr.select_past = lambda *a, **kw: seen.append(select(*a, **kw)) or seen[-1]
+    reset_launch_counts()  # the UNet's protocol path
+    before = launch_counts()
+    t0 = time.perf_counter()
+    data = tr.generate_metrics(test_ds, output_dir=str(workdir / "metrics_unet"), **protocol)
+    wall = time.perf_counter() - t0
+    paths["metrics DDPM-UNet"] = check_launches("UNet generate_metrics", before,
+                                                PER_FORWARD["DDPM-UNet"](cfg), steps)
+    files = check_metric_files(workdir / "metrics_unet", cfg, "DDPM-UNet", nsamples)
+    if len(sampled) != 1 or sampled[0][1].shape[0] != nsamples:
+        raise AssertionError(f"UNet protocol: {len(sampled)} sample calls")
+    tr.sample, tr.select_past = sample, select
+
+    # The suite on the card (twice, bitwise) and on the CPU, from the same
+    # (pred, gt); generate_metrics computed the same arrays on the card.
+    pred, gt = sampled[0][1][..., :3], seen[0][1][..., :3]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = metric_suite(cfg, pred, gt)
+    suite_s = time.perf_counter() - t0
+    again = metric_suite(cfg, pred, gt)
+    for name, arr in card.items():
+        if not (arr.tobytes() == again[name].tobytes() == data[name].tobytes()):
+            raise AssertionError(f"metric suite {name}: a second run on the card gave other bits")
+    agree = metric_agreement(card, metric_suite(cfg, pred.cpu(), gt.cpu()), pred, gt)
+    log(f"metrics DDPM-UNet: generate_metrics ALL b{nsamples}", generate_metrics_wall_s=wall,
+        sampling_s=sampled[0][0], metric_suite_s=suite_s, csv_files=files,
+        bitwise_repeat=True, card_vs_cpu=agree, launches=paths["metrics DDPM-UNet"])
+
+    # Each model's generate_metrics under the profiler, then its batch-1280
+    # f32 forward against the twins (neither on a counted path).
+    unet_ckpt = tr.save(str(workdir / "ckpts"), "000")
+    dit_ckpt = str(workdir / "ckpts" / ckpt.checkpoint_name(cfg, "DDPM-DiT", "000"))
+    dit = Trainer(cfg, "DDPM-DiT", device=DEVICE, seed=SEED, run_dir=str(workdir / "dit"))
+    dit.load(dit_ckpt)
+    for arch, trainer in (("DDPM-DiT", dit), ("DDPM-UNet", tr)):
+        out_dir = str(workdir / f"profiled_{arch}")
+        profile_busy(lambda: (trainer.generate_metrics(test_ds, output_dir=out_dir, **protocol),
+                              torch.cuda.synchronize()),
+                     f"profile generate_metrics {arch} b{nsamples}")
+    past = test_ds.gather(np.arange(nsamples))[0]
+    for arch, path in (("DDPM-DiT", dit_ckpt), ("DDPM-UNet", unet_ckpt)):
+        check_forward_batch(cfg, arch, path, past)
+    return paths
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -1416,6 +1764,7 @@ def main() -> int:
         e2e = paths.pop("e2e")
         for arch in ("DDPM-DiT", "DDPM-UNet"):
             paths[f"train {arch}"] = phase_training(arch, Path(tmp) / arch)["path_launches"]
+        paths.update(phase_cli(Path(tmp) / "cli"))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

@@ -46,6 +46,13 @@ def checkpoint_name(cfg: FrozenConfig, arch: str, epoch: int | str) -> str:
     )
 
 
+def run_tag(cfg: FrozenConfig, arch: str, epoch: int | str) -> str:
+    """The metadata part of the run name, used in metric CSV file names
+    (``TE{n}_PL{p}_FL{f}_CE{epoch}_{tag}``)."""
+    name = checkpoint_name(cfg, arch, epoch)
+    return name.split(f"{cfg.DATASET.NAME}_", 1)[1]
+
+
 def build_metadata(cfg: FrozenConfig, arch: str, epoch: int | str,
                    extra: dict | None = None) -> dict:
     meta = {

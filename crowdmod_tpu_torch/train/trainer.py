@@ -1,6 +1,7 @@
 """Trainer for the DDPM family, with the DiT or UNet3D backbone (port of the
 JAX package's ``train/trainer.py``: ``_loss_fn``, ``setup``, ``fit``,
-``evaluate``, ``resume_from_abort``, ``save``/``load`` and ``sample``).
+``evaluate``, ``resume_from_abort``, ``save``/``load``, ``sample`` and the
+metric protocol, ``select_ids``/``select_past``/``generate_metrics``).
 
 Weights: ``model`` holds the live training weights; with EMA on, the train
 state's second module (``ema_model``) holds their moving average, and
@@ -12,7 +13,10 @@ Randomness: every draw of a training step — t, ε, the CFG keep mask and the
 dropout masks — comes from the trainer's ``torch.Generator`` on its device,
 seeded from ``seed`` at the start of :meth:`Trainer.fit`.  :class:`StepDraws`
 carries the generator into the loss; a caller may inject any of the draws
-instead (``fit(draws=...)``, ``evaluate(draws=...)``).
+instead (``fit(draws=...)``, ``evaluate(draws=...)``).  The metric
+protocol likewise draws each batch's window selection and sampler noise from
+a generator seeded from ``seed``, or takes them injected as
+:class:`ProtocolDraws` (``generate_metrics(draws=...)``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import logging
 import os
 import signal
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,6 +37,7 @@ from crowdmod_tpu_torch.core.schedule import (
     respaced_taus,
 )
 from crowdmod_tpu_torch.data.windows import WindowDataset
+from crowdmod_tpu_torch.metrics.generator import MetricsEngine, compute_metrics
 from crowdmod_tpu_torch.models import factory
 from crowdmod_tpu_torch.models.diffusion import (
     as_eps_fn,
@@ -40,6 +46,7 @@ from crowdmod_tpu_torch.models.diffusion import (
     ddpm_loss,
     ddpm_sample,
 )
+from crowdmod_tpu_torch.models.diffusion.ddpm import Noise
 from crowdmod_tpu_torch.models.guidance import cfg_denoise_fn, drop_condition
 from crowdmod_tpu_torch.train import checkpoint as ckpt
 from crowdmod_tpu_torch.train.optim import (
@@ -77,6 +84,20 @@ class StepDraws:
     t: torch.Tensor | None = None
     eps: torch.Tensor | None = None
     keep: torch.Tensor | None = None
+
+
+@dataclass
+class ProtocolDraws:
+    """The random draws of one protocol batch of
+    :meth:`Trainer.generate_metrics`: ``perm`` (the permutation of the
+    batch's rows that :meth:`Trainer.select_ids` selects from) and
+    ``noise`` (the sampler's draws, see
+    :mod:`crowdmod_tpu_torch.models.diffusion.ddpm`); each left None is
+    drawn from ``generator``."""
+
+    generator: torch.Generator | None = None
+    perm: torch.Tensor | None = None
+    noise: Noise | None = None
 
 
 class Trainer:
@@ -498,3 +519,124 @@ class Trainer:
         if node.SAMPLER != "DDPM":
             raise ValueError(f"unknown DDPM sampler {node.SAMPLER!r}")
         return ddpm_sample(fn, self.sched, past, shape, **common)
+
+    # ------------------------------------------------------------------
+    # Metric protocol
+    # ------------------------------------------------------------------
+    @staticmethod
+    def select_ids(
+        n: int,
+        nsamples: int,
+        generator: torch.Generator | None = None,
+        *,
+        perm=None,
+        same_past: bool = False,
+        chunk: int = 1,
+    ) -> torch.Tensor:
+        """Window ids of the sampling protocol: the first ``nsamples`` of a
+        permutation of ``range(n)`` (``perm``, or drawn from ``generator``
+        on its device), each repeated ``chunk`` times in a row, and wrapped
+        around so that there are always exactly ``nsamples`` (a ragged
+        batch does not change the sampler's batch)."""
+        if perm is None:
+            if generator is None:
+                raise ValueError("select_ids needs perm or an explicit generator")
+            perm = torch.randperm(n, generator=generator, device=generator.device)
+        idx = torch.as_tensor(perm)[: min(nsamples, n)]
+        if same_past:
+            idx = idx[:1].repeat(idx.shape[0])
+        if chunk > 1:
+            idx = idx.repeat_interleave(chunk)
+        if idx.shape[0] < nsamples:
+            idx = idx.repeat(-(-nsamples // idx.shape[0]))
+        return idx[:nsamples]
+
+    @staticmethod
+    def select_past(
+        past: torch.Tensor,
+        future: torch.Tensor,
+        nsamples: int,
+        generator: torch.Generator | None = None,
+        *,
+        perm=None,
+        same_past: bool = False,
+        chunk: int = 1,
+    ):
+        """The protocol's rows of a batch: ``(past[idx], future[idx], idx)``
+        with ``idx`` from :meth:`select_ids`."""
+        idx = Trainer.select_ids(past.shape[0], nsamples, generator, perm=perm,
+                                 same_past=same_past, chunk=chunk)
+        idx = idx.to(past.device)
+        return past[idx], future[idx], idx
+
+    def generate_metrics(
+        self,
+        test_ds: WindowDataset,
+        *,
+        metric: str = "ALL",
+        chunk: int = 20,
+        batches_to_use: int = 1,
+        output_dir: str | None = None,
+        epoch_tag: str | int = "000",
+        seed: int = 42,
+        draws=None,
+    ) -> dict:
+        """The repeated-past protocol and the metric suite: each of the
+        first ``batches_to_use`` batches of ``BATCH_SIZE × chunk`` test
+        windows gives ``BATCH_SIZE`` windows, each sampled ``chunk`` times
+        in one :meth:`sample` call; the metrics of the samples against
+        their futures are written under ``output_dir`` (default: the run
+        directory) and returned.
+
+        ``draws``: a callable giving each protocol batch's
+        :class:`ProtocolDraws` (default: a generator seeded ``seed`` on the
+        trainer's device).  The JAX package's boxplots are not written: the
+        plots are not ported yet."""
+        cfg = self.cfg
+        samples_per_batch = cfg.DATASET.BATCH_SIZE * chunk
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        next_draws = draws or (lambda: ProtocolDraws(generator=gen))
+        preds, gts = [], []
+        # drop_last as the reference's test DataLoader; with fewer windows
+        # than one batch the one partial batch is kept and the selection
+        # wraps it around to samples_per_batch rows.
+        drop_last = len(test_ds) >= samples_per_batch
+        t0 = time.perf_counter()
+        for b, (past, future) in enumerate(
+            test_ds.batches(samples_per_batch, shuffle=False, drop_last=drop_last)
+        ):
+            if b >= batches_to_use:
+                break
+            d = next_draws()
+            past_s, future_s, _ = self.select_past(
+                past, future, samples_per_batch, d.generator, perm=d.perm,
+                chunk=chunk)
+            preds.append(self.sample(past_s, d.generator, noise=d.noise))
+            gts.append(future_s.to(self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the sampling time, logged
+        t1 = time.perf_counter()
+
+        pred = torch.cat(preds)[..., :3]
+        gt = torch.cat(gts)[..., :3]
+        engine = MetricsEngine(
+            pred, gt, cfg.METRICS,
+            output_dir=output_dir or self.run_dir,
+            past_len=cfg.DATASET.PAST_LEN,
+        )
+        title = (
+            f"{cfg.DATASET.BATCH_SIZE * chunk * batches_to_use} samples in "
+            f"total (BS:{cfg.DATASET.BATCH_SIZE}, Rep:{chunk}, "
+            f"TB:{batches_to_use})-({self.arch})"
+        )
+        data = compute_metrics(
+            engine, metric, chunk,
+            eps=cfg.MACROPROPS.EPS,
+            run_tag=ckpt.run_tag(cfg, self.arch, epoch_tag),
+            title=title,
+            samples_per_batch=samples_per_batch,
+        )
+        logging.info("metric protocol: %d samples in %d sample call(s), "
+                     "sampling %.3f s, metric suite %.3f s", pred.shape[0],
+                     len(preds), t1 - t0, time.perf_counter() - t1)
+        return data
