@@ -58,13 +58,27 @@ non-zero without a result line:
      ``Trainer.generate_metrics`` in this process, its metric suite on the
      card held bitwise to a second run and to the CPU's within the CPU
      tests' tolerances; each model's ``generate_metrics`` profiled (device
-     busy share) and one f32 forward at batch 1280, kernels vs twins.
+     busy share) and one f32 forward at batch 1280, kernels vs twins; then
+     flow matching: FM-DiT through ``train``, ``generate-metrics`` (the
+     configured 1000 Euler steps, 1280 samples) and ``reflow`` (one round),
+     its ``RF1`` checkpoint served at Euler 4, and FM-UNet's
+     ``Trainer.generate_metrics`` in this process at 50 Euler steps;
+ 11. flow matching, each of FM-DiT (DiT2D, 216 tokens) and FM-UNet at the
+     serving config's width with seeded random weights: serving through
+     ``load_predictor``/``BatchingQueue`` at Euler 1000 (buckets 1 and 64,
+     p50, a profiled batch-64 request) and one Heun-500 request; one f32
+     forward and one 25-step Euler chain, kernels vs twins; one short
+     training epoch (phase 9's, without its gradient check) and
+     ``evaluate``.
 
+Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
+the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
 Each path is driven with the launch counts set to 0 just before it and read
 just after: phases 3-4 (DiT), phases 6-7 (UNet), the tap-GEMM run of
-phase 8, each model's training (phase 9) and each model's protocol run
-(phase 10; the DiT's in its own process); the counts are held to the
-launches each forward or training step makes.  The last two lines are a
+phase 8, each model's training (phases 9 and 11), each model's protocol run
+(phase 10; the DiT's in its own process, FM-DiT's commands each in theirs)
+and each FM model's serving (phase 11); the counts are held to the
+launches each forward or training step makes (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
 """
 
@@ -135,6 +149,10 @@ TRAIN_PER_STEP = {
         "fused_attention": 4,
     },
 }
+# FM-DiT (DiT2D) trains with dropout 0.1 too; FM-UNet has the DDPM UNet's
+# widths.
+TRAIN_PER_STEP["FM-DiT"] = TRAIN_PER_STEP["DDPM-DiT"]
+TRAIN_PER_STEP["FM-UNet"] = TRAIN_PER_STEP["DDPM-UNet"]
 # Kernel launches of one denoiser forward at the serving config's width:
 # the DiT's two attentions a block; the UNet's fused level-0 blocks, its
 # standalone convs and GroupNorms (the shape tables below) and 4 attentions
@@ -147,7 +165,10 @@ PER_FORWARD = {
         "fused_group_norm": sum(GN_SHAPES.values()),
         "fused_attention": 4,
     },
+    # DiT2D: one joint attention over all T·N tokens a block.
+    "FM-DiT": lambda cfg: {"fused_attention": cfg.MODEL.FM.DIT.DEPTH},
 }
+PER_FORWARD["FM-UNet"] = PER_FORWARD["DDPM-UNet"]
 
 
 def log(phase: str, **numbers) -> None:
@@ -333,6 +354,11 @@ def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_m
     return res
 
 
+# Tokens FM-DiT's attention spans (frames × patches): configs/serving/ATC.yml
+# and configs/ATC.yml, configs/HERMES-CR-120.yml, configs/ATC_medium.yml.
+FM_DIT_TOKENS = (216, 336, 432)
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     attn = {}
@@ -352,9 +378,25 @@ def phase_kernels() -> dict:
         # The UNet's level-2 attention: 54 positions, 4 heads of 32.
         attn[f"unet_b64_{dn}"] = check_attention(
             f"unet level-2 b64 {dn}", 64, 4, 54, 54, 32, dtype, gen, packed=True)
-    for key in ("spatial_b64_bfloat16", "unet_b64_bfloat16", "edge_s216_bfloat16"):
+        # FM-DiT (DiT2D) attends over all T·N tokens: 8 frames × 27 patches
+        # on the serving grid, 8 × 42 on HERMES-CR-120, 16 × 27 on
+        # ATC_medium; then Dh 32 at 432 keys, and 1000 keys, past what any
+        # block holds (both dtypes stream K and V through shared memory).
+        for s_ in FM_DIT_TOKENS:
+            attn[f"fm_dit_s{s_}_{dn}"] = check_attention(
+                f"FM-DiT S{s_} b64 {dn}", 64, 4, s_, s_, 64, dtype, gen, packed=True)
+        attn[f"edge_s432_dh32_{dn}"] = check_attention(
+            f"edge S432 Dh32 {dn}", 16, 4, 432, 432, 32, dtype, gen)
+        attn[f"edge_s1000_{dn}"] = check_attention(
+            f"edge S1000 Dh64 {dn}", 4, 4, 1000, 1000, 64, dtype, gen)
+    mma = ["spatial_b64_bfloat16", "unet_b64_bfloat16", "edge_s216_bfloat16",
+           "edge_s432_dh32_bfloat16"] + [f"fm_dit_s{s_}_bfloat16" for s_ in FM_DIT_TOKENS]
+    for key in mma:
         if attn[key]["plan"]["route"] != "mma":
             raise AssertionError(f"attention {key}: route {attn[key]['plan']['route']}")
+    for key in ("fm_dit_s432_float32", "edge_s1000_float32", "edge_s1000_bfloat16"):
+        if not attn[key]["plan"]["key_block"] < attn[key]["plan"]["keys_padded"]:
+            raise AssertionError(f"attention {key}: not streamed ({attn[key]['plan']})")
     floor = launch_floor_ms()
     log("launch floor (one-element add_, back to back)", ms=floor)
     step = {}
@@ -889,7 +931,7 @@ def write_checkpoint(cfg, arch: str, workdir: Path) -> tuple[Path, str]:
     trainer = Trainer(cfg, arch, device=DEVICE, seed=SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
     for sd in (trainer.params, trainer.ema_params):
-        for v in sd.values():
+        for v in (sd or {}).values():  # FM trains without EMA there
             v.add_(0.02 * torch.randn(v.shape, generator=gen).to(v.device))
     return cfg_path, trainer.save(str(workdir / "ckpts"), "000")
 
@@ -937,16 +979,20 @@ def profile_busy(fn, label) -> dict:
         fn()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # Device events, less the ranges that user annotations (the optimizer's
-    # step) mirror onto the card's timeline: those overlap the kernels.
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
+    # step) mirror onto the card's timeline: those overlap the kernels.  Read
+    # from the raw trace: prof.events() builds an object an event, minutes
+    # for the ~2 M events of a 1000-step request.
     by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernels = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        kernels += 1
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     res = dict(wall_ms_profiled=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-               busy_share=busy_us / wall_us, kernel_launches=len(kernels),
+               busy_share=busy_us / wall_us, kernel_launches=kernels,
                top_kernels_ms=[[n[:80], t / 1e3] for n, t in top])
     log(label, **res)
     return res
@@ -1181,7 +1227,8 @@ def training_config(workdir: Path):
     train = {"TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.999}}
     return load_config("ATC.yml", overrides={
         "DATA_FS": {"SAVE_DIR": str(workdir / "ckpts"), "OUTPUT_DIR": str(workdir / "out")},
-        "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train}},
+        "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train},
+                  "FM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train}},
     })
 
 
@@ -1363,7 +1410,8 @@ def phase_training(arch: str, workdir: Path) -> dict:
         res.update(tapgemm_step_loss=loss, tapgemm_step_launches=tap_launches)
         path = {k: path[k] + tap_launches[k] for k in path}
     log(f"training {arch} ATC b{batch}", **res)
-    res["gradients"] = check_gradients(cfg, arch, workdir)
+    if arch.startswith("DDPM"):  # the FM family's loss runs the same kernels
+        res["gradients"] = check_gradients(cfg, arch, workdir)
     res["path_launches"] = path
     return res
 
@@ -1412,7 +1460,7 @@ def write_pickle_workspace(workdir: Path):
         "DATA_FS": {"PICKLE_DIR": str(pkl), "SAVE_DIR": str(workdir / "ckpts"),
                     "OUTPUT_DIR": str(workdir / "out")},
         "DATASET": {"TRAIN_FILE_COUNT": 1, "VAL_FILE_COUNT": 1, "TEST_FILE_COUNT": 1},
-        "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0}},
+        "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0}, "FM": {"CHECKPOINTS_TO_KEEP": 0}},
     })
     cfg_path, list_path = workdir / "ATC.yml", workdir / "ATC_datafiles.yml"
     cfg_path.write_text(yaml.safe_dump(cfg.to_dict()))
@@ -1694,6 +1742,262 @@ def phase_cli(workdir: Path) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: flow matching (FM-DiT, FM-UNet) and phase 10's FM commands
+# ---------------------------------------------------------------------------
+
+FM_BUCKETS = (1, 64)
+FM_P50_REPS = 3
+FM_F32_STEPS = 25      # the f32 Euler chain held against the twins
+RF_COUPLING_STEPS = 4  # the teacher's Euler steps in phase 10's reflow
+RF_EULER_STEPS = 4     # the RF1 checkpoint's sampler
+FM_UNET_METRIC_STEPS = 50  # FM-UNet's protocol: Euler cut from 1000
+
+
+def fm_forwards(cfg, requests: int) -> int:
+    """Denoiser forwards of ``requests`` samples with the configured
+    integrator (Heun: two a step; CFG is one forward of twice the batch)."""
+    node = cfg.MODEL.FM
+    steps = getattr(node.INTEGRATOR_STEPS, node.INTEGRATOR.upper())
+    return requests * steps * (2 if node.INTEGRATOR == "Heun" else 1)
+
+
+def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) -> dict:
+    """``load_predictor`` at buckets 1 and 64 and a ``BatchingQueue`` at
+    Euler 1000, p50 per bucket, a profiled batch-64 request, then one
+    Heun-500 request; launches held per forward."""
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.serving import BatchingQueue, Predictor, load_predictor
+
+    per_forward = PER_FORWARD[arch](cfg)
+    before = launch_counts()
+    pred = load_predictor(str(cfg_path), arch, device=DEVICE, batch_buckets=FM_BUCKETS)
+    p, f, h, w, c = pred.input_spec
+    big_b = FM_BUCKETS[-1]
+    walkers = synthetic_walkers(max(big_b, 8), h, w, p + f)[:, :p]
+
+    queue = BatchingQueue(pred, max_delay_ms=5.0)
+    results, errors = [], []
+    sizes = [int(n) for n in np.random.default_rng(SEED).integers(1, 9, size=3)]
+
+    def client(n):
+        try:
+            results.append((n, queue.predict(walkers[:n], timeout=600)))
+        except Exception as e:  # re-raised below, after the threads end
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(n,)) for n in sizes]
+    for t in threads:
+        t.start()
+    big = queue.predict(walkers[:big_b], timeout=600)
+    for t in threads:
+        t.join(timeout=900)
+    queue.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"BatchingQueue clients failed: {errors}")
+    results.append((big_b, big))
+    for n, out in results:
+        if out.shape != (n,) + f_shape or not np.isfinite(out).all():
+            raise AssertionError(f"{arch}: bad output {out.shape} for a batch of {n}")
+    p50 = {}
+    for b in FM_BUCKETS:
+        lat = []
+        for _ in range(FM_P50_REPS):
+            t0 = time.perf_counter()
+            pred.predict(walkers[:b])
+            lat.append(1e3 * (time.perf_counter() - t0))
+        p50[b] = statistics.median(lat)
+    profile = profile_busy(lambda: pred.predict(walkers[:big_b]),
+                           f"profile serving {arch} Euler b{big_b}")
+    euler = check_launches(f"{arch} serving Euler", before, per_forward,
+                           fm_forwards(cfg, pred.stats.requests))
+
+    heun_cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR": "Heun"}}})
+    heun = Predictor(heun_cfg, arch, ckpt_path, device=DEVICE, batch_buckets=(big_b,))
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = heun.predict(walkers[:big_b])
+    heun_s = time.perf_counter() - t0
+    heun_launches = check_launches(f"{arch} serving Heun", before, per_forward,
+                                   fm_forwards(heun_cfg, 1))
+    if out.shape != (big_b,) + f_shape or not np.isfinite(out).all():
+        raise AssertionError(f"{arch}: bad Heun output {out.shape}")
+    node = cfg.MODEL.FM
+    res = dict(arch=arch, integrator=node.INTEGRATOR, steps=node.INTEGRATOR_STEPS.EULER,
+               requests=len(results), dispatches=queue.dispatches,
+               coalesced=queue.coalesced_requests, buckets=FM_BUCKETS,
+               predictions=pred.stats.requests,
+               p50_ms_per_bucket={str(k): v for k, v in p50.items()},
+               out_abs_mean=float(np.abs(big).mean()), launches=euler,
+               heun_steps=node.INTEGRATOR_STEPS.HEUN, heun_s=heun_s,
+               heun_launches=heun_launches, busy_share=profile["busy_share"],
+               device_busy_ms=profile["device_busy_ms"],
+               kernel_launches_profiled=profile["kernel_launches"])
+    log(f"serving {arch} Euler-{node.INTEGRATOR_STEPS.EULER}", **res)
+    return {**res, "profile": profile}
+
+
+def phase_fm_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
+    """One f32 batch-64 forward and one free-running Euler chain of
+    ``FM_F32_STEPS`` steps from the same x0, with the kernels and with the
+    twins, on the card (TF32 off)."""
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.models.flow_matching import euler_sample
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p, f, h, w = (cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN,
+                  cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    past = torch.from_numpy(synthetic_walkers(64, h, w, p + f)[:, :p]).to(DEVICE)
+    x0 = torch.randn((64, f, h, w, 3), generator=gen, device=DEVICE)
+    t = torch.floor(torch.rand((64,), generator=gen, device=DEVICE) * cfg.MODEL.FM.TIME_MAX_POS)
+
+    def run():
+        tr = Trainer(cfg, arch, device=DEVICE, compute_dtype=torch.float32)
+        tr.load(ckpt_path)
+        u = tr._denoise_fn()
+        with torch.no_grad():
+            fwd = tr.model(x0, t, past)
+            x1 = euler_sample(u, past, tuple(x0.shape), steps=FM_F32_STEPS,
+                              time_max_pos=cfg.MODEL.FM.TIME_MAX_POS, noise=lambda _: x0)
+        torch.cuda.synchronize()
+        return fwd, x1
+
+    with twins_on_the_card():
+        fwd_t, x1_t = run()
+    before = launch_counts()
+    fwd_k, x1_k = run()
+    launches = check_launches(f"{arch} f32 kernels", before, PER_FORWARD[arch](cfg),
+                              1 + FM_F32_STEPS)
+    fwd_err = (fwd_k - fwd_t).abs().max().item()
+    chain_err = (x1_k - x1_t).abs().max().item()
+    if not fwd_k.abs().max().item() > 1e-3:
+        raise AssertionError(f"{arch}: the velocity output is all but zero")
+    if not (fwd_err <= TOL["forward_f32"] and chain_err <= TOL["chain"]
+            and torch.isfinite(x1_k).all()):
+        raise AssertionError(f"{arch} f32 kernels vs twins: forward {fwd_err}, "
+                             f"{FM_F32_STEPS}-step Euler chain {chain_err}")
+    res = dict(arch=arch, forward_max_abs_diff=fwd_err, forward_abs_max=fwd_k.abs().max().item(),
+               chain_steps=FM_F32_STEPS, chain_max_abs_diff=chain_err,
+               moved=(x1_k - x0).abs().max().item(),
+               tolerances=[TOL["forward_f32"], TOL["chain"]], launches=launches)
+    log(f"end to end {arch} kernels vs twins (f32)", **res)
+    return res
+
+
+def phase_fm(tmp: Path, cfg) -> dict:
+    """Phase 11, each FM model at the serving config's width: serving
+    (Euler 1000 and Heun 500), the f32 check, then training; → each
+    model's path launches (serving, then training)."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    paths = {}
+    for arch in ("FM-DiT", "FM-UNet"):
+        work = tmp / arch
+        work.mkdir()
+        cfg_path, ckpt_path = write_checkpoint(cfg, arch, work)
+        reset_launch_counts()  # this arch's serving path
+        phase_fm_serving(cfg, cfg_path, arch, ckpt_path, f_shape)
+        paths[f"serving {arch}"] = launch_counts()
+        log("main path launches", arch=arch, **paths[f"serving {arch}"])
+        phase_fm_end_to_end(cfg, arch, ckpt_path)
+        paths[f"train {arch}"] = phase_training(arch, work / "train")["path_launches"]
+    return paths
+
+
+def phase_cli_fm(workdir: Path) -> dict:
+    """Phase 10 for FM: FM-DiT through ``train``, ``generate-metrics`` (the
+    configured 1000 Euler steps, 1280 samples) and ``reflow`` as
+    subprocesses, launches from each command's log line; the ``RF1``
+    checkpoint served at Euler ``RF_EULER_STEPS``; FM-UNet's
+    ``Trainer.generate_metrics`` in this process at
+    ``FM_UNET_METRIC_STEPS`` Euler steps.  → the paths' launch counts."""
+    import yaml
+
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.serving import load_predictor
+    from crowdmod_tpu_torch.train.distiller import reflow_tag
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    cfg_path, list_path, cfg = write_pickle_workspace(workdir)
+    arch = "FM-DiT"
+    common = ["--config-yml-file", str(cfg_path), "--configList-yml-file",
+              str(list_path), "--seed", str(CLI_SEED), "--arch", arch]
+    nsamples = cfg.DATASET.BATCH_SIZE * METRIC_CHUNK
+    per_forward = PER_FORWARD[arch](cfg)
+    batches = CLI_SEQS * 2 // cfg.DATASET.BATCH_SIZE  # train and val batches alike
+    paths = {}
+
+    train_s, train_out = run_cli("train", "--epochs", "1", *common)
+    # Dropout 0.1: no kernel in a training step; evaluate's forwards run it.
+    paths["cli train FM-DiT"] = hold_launches(
+        "FM-DiT train", json.loads(logged(train_out, "kernel launches: ")),
+        per_forward, batches)
+    gen_s, gen_out = run_cli(
+        "generate-metrics", "--metric", "ALL", "--chunk-repd-past-seq", str(METRIC_CHUNK),
+        "--batches-to-use", "1", "--output-dir", str(workdir / "metrics_fm_dit"), *common)
+    files = check_metric_files(workdir / "metrics_fm_dit", cfg, arch, nsamples)
+    paths["cli generate-metrics FM-DiT"] = hold_launches(
+        "FM-DiT generate-metrics", json.loads(logged(gen_out, "kernel launches: ")),
+        per_forward, fm_forwards(cfg, 1))
+    rf_s, rf_out = run_cli("reflow", "--rounds", "1", "--epochs-per-round", "1",
+                           "--coupling-steps", str(RF_COUPLING_STEPS), *common)
+    # The teacher's coupling forwards and the student's training forwards
+    # (no dropout in ReFlow: each runs the kernel, with its gradient).
+    paths["cli reflow FM-DiT"] = hold_launches(
+        "FM-DiT reflow", json.loads(logged(rf_out, "kernel launches: ")),
+        per_forward, batches * (RF_COUPLING_STEPS + 1))
+    log("cli FM-DiT: train -> generate-metrics ALL -> reflow", train_wall_s=train_s,
+        generate_metrics_wall_s=gen_s, reflow_wall_s=rf_s,
+        protocol=logged(gen_out, "metric protocol: "), csv_files=files,
+        reflow=logged(rf_out, "reflow complete: "),
+        launches={k: v for k, v in paths.items()})
+
+    # The rectified checkpoint through the ordinary serving surface.
+    rf_cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR_STEPS": {"EULER": RF_EULER_STEPS}}}})
+    rf_cfg_path = workdir / "ATC_rf.yml"
+    rf_cfg_path.write_text(yaml.safe_dump(rf_cfg.to_dict()))
+    test_ds = ingest.get_test_dataset(cfg, 3, seed=CLI_SEED, device=DEVICE)
+    past = test_ds.gather(np.arange(64))[0]
+    before = launch_counts()
+    pred = load_predictor(str(rf_cfg_path), arch, epoch_tag=reflow_tag(1), device=DEVICE,
+                          batch_buckets=(64,))
+    t0 = time.perf_counter()
+    out = pred.predict(past.cpu().numpy())
+    rf_ms = 1e3 * (time.perf_counter() - t0)
+    paths["RF1 FM-DiT"] = check_launches("RF1 Euler-4", before, per_forward, RF_EULER_STEPS)
+    if out.shape != (64, cfg.DATASET.FUTURE_LEN, *past.shape[2:]) or not np.isfinite(out).all():
+        raise AssertionError(f"RF1 sampling: {out.shape}")
+    log("RF1 FM-DiT Euler-4 b64", latency_ms=rf_ms, out_abs_mean=float(np.abs(out).mean()),
+        launches=paths["RF1 FM-DiT"])
+
+    # FM-UNet's protocol in this process, seeded random weights, its Euler
+    # steps cut.
+    ucfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR_STEPS": {"EULER": FM_UNET_METRIC_STEPS}}}})
+    tr = Trainer(ucfg, "FM-UNet", device=DEVICE, seed=SEED, run_dir=str(workdir / "fm_unet"))
+    perturb_(tr.model, SEED + 13)  # no EMA: sampling takes these weights
+    reset_launch_counts()  # FM-UNet's protocol path
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = tr.generate_metrics(test_ds, metric="ALL", chunk=METRIC_CHUNK, batches_to_use=1,
+                               seed=CLI_SEED, output_dir=str(workdir / "metrics_fm_unet"))
+    wall = time.perf_counter() - t0
+    paths["metrics FM-UNet"] = check_launches("FM-UNet generate_metrics", before,
+                                              PER_FORWARD["FM-UNet"](ucfg),
+                                              fm_forwards(ucfg, 1))
+    files = check_metric_files(workdir / "metrics_fm_unet", ucfg, "FM-UNet", nsamples)
+    log(f"metrics FM-UNet: generate_metrics ALL b{nsamples}", generate_metrics_wall_s=wall,
+        euler_steps=FM_UNET_METRIC_STEPS,
+        euler_steps_configured=cfg.MODEL.FM.INTEGRATOR_STEPS.EULER, csv_files=files,
+        arrays=len(data), launches=paths["metrics FM-UNet"])
+    return paths
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -1756,15 +2060,26 @@ def main() -> int:
         log("serving done", seconds=time.perf_counter() - t_start,
             package=str(Path(crowdmod_tpu_torch.__file__).parent))
         return 0
-    kernels = phase_kernels()
-    unet = phase_unet_kernels()
+    seconds = {"build": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("2 kernels", phase_kernels)
+    unet = timed("2 unet kernels", phase_unet_kernels)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        paths = serving_paths(Path(tmp), cfg, end_to_end=True)
+        paths = timed("3-8 serving", serving_paths, Path(tmp), cfg, True)
         e2e = paths.pop("e2e")
         for arch in ("DDPM-DiT", "DDPM-UNet"):
-            paths[f"train {arch}"] = phase_training(arch, Path(tmp) / arch)["path_launches"]
-        paths.update(phase_cli(Path(tmp) / "cli"))
+            paths[f"train {arch}"] = timed(f"9 {arch}", phase_training, arch,
+                                           Path(tmp) / arch)["path_launches"]
+        paths.update(timed("10 cli", phase_cli, Path(tmp) / "cli"))
+        paths.update(timed("10 cli fm", phase_cli_fm, Path(tmp) / "cli_fm"))
+        paths.update(timed("11 fm", phase_fm, Path(tmp), cfg))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)
@@ -1785,7 +2100,8 @@ def main() -> int:
     }
     line = {"kernels": [kernel_entry(n, "cuda", measured[n], launches[n])
                         for n in measured]}
-    log("done", seconds=time.perf_counter() - t_start)
+    log("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds,
+        paths=sorted(paths))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],

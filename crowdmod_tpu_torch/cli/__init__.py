@@ -2,12 +2,14 @@
 
 ``python -m crowdmod_tpu_torch.cli <command> ...`` runs:
 
-  * ``train``            — train DDPM-UNet or DDPM-DiT on the macroprop
-    pickles of a config's DATA_LIST;
+  * ``train``            — train DDPM-UNet, DDPM-DiT, FM-UNet or FM-DiT on
+    the macroprop pickles of a config's DATA_LIST;
   * ``generate-metrics`` — the repeated-past protocol and the metric suite
-    of a trained checkpoint → CSVs and the ``metrics_files.json`` manifest.
+    of a trained checkpoint → CSVs and the ``metrics_files.json`` manifest;
+  * ``reflow``           — rectify a trained FM model (ReFlow) → its ``RF<n>``
+    checkpoint, which samples in a few Euler steps.
 
-Both run on the GPU unless given ``--device cpu``.  The JAX package's other
+Each runs on the GPU unless given ``--device cpu``.  The JAX package's other
 commands are not ported yet; each exits with status 2 and names its
 ROADMAP.md Queue 1 item.
 """
@@ -23,6 +25,7 @@ import sys
 COMMANDS = {
     "train": "crowdmod_tpu_torch.cli.train",
     "generate-metrics": "crowdmod_tpu_torch.cli.generate_metrics",
+    "reflow": "crowdmod_tpu_torch.cli.reflow",
 }
 
 # The JAX package's other commands → the ROADMAP.md Queue 1 item that ports
@@ -32,7 +35,6 @@ NOT_PORTED = {
     "generate-samples": "item 17 (viz: its output is plots)",
     "sweep": "item 17",
     "distill": "item 11 (fast samplers and distillation)",
-    "reflow": "item 12 (flow matching)",
     "serve": "item 14 (serving)",
     "import-checkpoint": "item 17",
     "export": "item 14 (serving)",
@@ -56,7 +58,7 @@ def common_parser(description: str) -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--arch", type=str, default="DDPM-UNet",
-        help="DDPM-UNet|DDPM-DiT",
+        help="DDPM-UNet|DDPM-DiT|FM-UNet|FM-DiT",
     )
     p.add_argument("--seed", type=int, default=42)
     p.add_argument(

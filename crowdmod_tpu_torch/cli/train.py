@@ -1,10 +1,11 @@
 """Training entry point (the JAX package's ``cli/train.py``).
 
-Trains DDPM-UNet or DDPM-DiT through :class:`~crowdmod_tpu_torch.train.
+Trains DDPM-UNet, DDPM-DiT, FM-UNet or FM-DiT through :class:`~crowdmod_tpu_torch.train.
 trainer.Trainer` on the config's macroprop pickles, logging through
 :class:`~crowdmod_tpu_torch.utils.tracker.RunTracker` (``events.jsonl`` and
 ``config.json`` in the run directory) and keeping the best-loss checkpoint
-under ``DATA_FS.SAVE_DIR``.  The JAX command's loss-curve plot
+under ``DATA_FS.SAVE_DIR``; a log line gives the kernel launches of the
+run.  The JAX command's loss-curve plot
 (``losses.png``) waits for the plotting module (ROADMAP.md Queue 1 item
 17), its parallel flags for item 16.  Exit status 1 when the NaN watchdog
 aborts the run.
@@ -15,6 +16,7 @@ aborts the run.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 
@@ -42,6 +44,7 @@ def run(argv=None) -> int:
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.config.validate import require_valid
     from crowdmod_tpu_torch.data.ingest import get_training_dataset
+    from crowdmod_tpu_torch.ops.kernels import KERNELS
     from crowdmod_tpu_torch.train.trainer import Trainer
     from crowdmod_tpu_torch.utils.tracker import RunTracker
 
@@ -68,6 +71,8 @@ def run(argv=None) -> int:
             epochs=args.epochs,
             tracker=tracker,
         )
+    logging.info("kernel launches: %s",
+                 json.dumps({fn.__name__: fn.launches for fn in KERNELS}))
     logging.info("losses.png not written: plots are not ported yet "
                  "(ROADMAP.md Queue 1 item 17); the losses are in %s",
                  os.path.join(trainer.run_dir, "events.jsonl"))

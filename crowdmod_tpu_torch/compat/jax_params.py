@@ -1,14 +1,23 @@
-"""Carry the JAX package's DiT4DFactorized and UNet3D weights into the port.
+"""Carry the JAX package's DiT and UNet3D weights into the port.
 
 :func:`state_dict_from_jax` turns a flax parameter tree (nested dicts of
 numpy arrays, as ``model.init(...)["params"]`` gives them) into the port's
 state_dict.  The port keeps the reference's torch layout, so this is the
-exact inverse of the JAX package's ``compat/torch_import.py``:
+inverse of the JAX package's ``compat/torch_import.py``:
 
-* ``_import_dit4d_factorized``: the fused MHA in-projection is packed, the
-  patch kernel goes back to Conv3d ``(D, C, pt, p, p)``, and the final
-  layer's token features go back from channel-minor ``(pt, p, p, C)`` to the
-  reference's channel-major ``(pt, C, p, p)`` order;
+* ``_import_dit4d_factorized`` and ``_import_dit4d_joint``: the fused MHA
+  in-projection is packed, the patch kernel goes back to Conv3d ``(D, C,
+  pt, p, p)``, and the final layer's token features go back from
+  channel-minor ``(pt, p, p, C)`` to the reference's channel-major ``(pt, C,
+  p, p)`` order;
+* ``_import_dit2d``: the same with the per-frame Conv2d ``(D, C, p, p)``
+  and the ``time_embeddings`` prefix;
+* ``_import_dit4d_tube``: the reference's final layer emits the F future
+  frames only, so the JAX projection's past-frame rows (zero in any tree
+  that importer makes or that training reaches: they never get a gradient)
+  are dropped, and refused where they are not zero; the reference has no
+  temporal embedding (one slot), so the JAX one is added into the spatial
+  embedding, which every token also gets;
 * ``_import_unet3d``: conv kernels go back to Conv3d ``(O, I, kh, kw, kl)``,
   and the flax names (``enc_{level}_{i}``, ``down_{level}``, ``mid_*``,
   ``dec_{level}_{i}``, ``up_{level}``) to the reference's ModuleList indices,
@@ -104,42 +113,77 @@ def _unet3d(params: dict) -> dict[str, np.ndarray]:
     return sd
 
 
-def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """Flax DiT4DFactorized or UNet3D params → the port's (reference-layout)
-    state_dict, float32 and contiguous."""
-    sd = _unet3d(params) if "first" in params else _dit4d_factorized(params)
+BACKBONES = ("unet3d", "dit4d_factorized", "dit2d", "dit4d_joint", "dit4d_tube")
+
+
+def state_dict_from_jax(params: dict, backbone: str | None = None, *,
+                        future_len: int | None = None) -> dict[str, torch.Tensor]:
+    """Flax params of a UNet3D or DiT → the port's (reference-layout)
+    state_dict, float32 and contiguous.
+
+    ``backbone`` (a name of :data:`BACKBONES`, as ``torch_import`` names
+    them) is read from the tree when None: the UNet, the factorized DiT, and
+    DiT2D (a joint-attention tree with a one-frame patch; a DiT4DJoint with
+    t_patch 1 computes the same function).  DiT4DJoint and DiT4DTube trees
+    must be named, the tube's with its ``future_len``."""
+    if backbone is None:
+        backbone = _detect(params)
+    if backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {backbone!r}; expected one of {BACKBONES}")
+    if backbone == "dit4d_tube":
+        sd = _dit4d_tube(params, future_len)
+    else:
+        sd = {"unet3d": _unet3d, "dit2d": _dit2d,
+              "dit4d_factorized": lambda p: _dit4d(p, _FACTORIZED_ATTN),
+              "dit4d_joint": lambda p: _dit4d(p, _JOINT_ATTN)}[backbone](params)
     return {
-        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
         for k, v in sd.items()
     }
 
 
-def _dit4d_factorized(params: dict) -> dict[str, np.ndarray]:
-    sd: dict[str, np.ndarray] = {}
-    _linear(params["time_emb"]["expand"], "dif_time_embeddings.time_blocks.1", sd)
-    _linear(params["time_emb"]["project"], "dif_time_embeddings.time_blocks.3", sd)
-    _linear(params["time_proj"], "time_proj.0", sd)
+def _detect(params: dict) -> str:
+    if "first" in params:
+        return "unet3d"
+    if "spatial_attn" in params["block_0"]:
+        return "dit4d_factorized"
+    if np.shape(params["patch_embed"]["Conv_0"]["kernel"])[0] == 1:
+        return "dit2d"
+    raise ValueError(
+        "a joint-attention DiT tree with a temporal tube: pass "
+        "backbone='dit4d_joint' or 'dit4d_tube'"
+    )
 
-    kernel = np.asarray(params["patch_embed"]["Conv_0"]["kernel"])  # (pt,p,p,C,D)
-    pt, p, _, c, _ = kernel.shape
-    sd["patch_embed.proj.weight"] = kernel.transpose(4, 3, 0, 1, 2)
+
+def _dit_common(params: dict, time_key: str, sd: dict) -> np.ndarray:
+    """The timestep embedding, ``time_proj``, the patch bias and the spatial
+    embedding into ``sd``; → the patch kernel ``(pt, p, p, C, D)``."""
+    _linear(params["time_emb"]["expand"], f"{time_key}.time_blocks.1", sd)
+    _linear(params["time_emb"]["project"], f"{time_key}.time_blocks.3", sd)
+    _linear(params["time_proj"], "time_proj.0", sd)
     sd["patch_embed.proj.bias"] = np.asarray(params["patch_embed"]["Conv_0"]["bias"])
     sd["spatial_pos_embed"] = np.asarray(params["spatial_pos_embed"])[:, 0]
-    sd["temporal_pos_embed"] = np.asarray(params["temporal_pos_embed"])[:, :, 0]
+    return np.asarray(params["patch_embed"]["Conv_0"]["kernel"])
 
+
+def _dit_blocks(params: dict, sd: dict, attn: tuple[str, ...]) -> None:
+    """Each ``block_{i}``: AdaLN, the attention(s) named ``attn`` (flax
+    name → reference name), the MLP."""
     n_blocks = sum(1 for k in params if k.startswith("block_"))
     for i in range(n_blocks):
         blk, pre = params[f"block_{i}"], f"blocks.{i}"
         _linear(blk["AdaLNModulation_0"]["Dense_0"], f"{pre}.adaLN_modulation.1", sd)
-        _mha(blk["spatial_attn"], f"{pre}.spatial_attn", sd)
-        _mha(blk["temporal_attn"], f"{pre}.temporal_attn", sd)
+        for flax_name, name in attn:
+            _mha(blk[flax_name], f"{pre}.{name}", sd)
         _linear(blk["Mlp_0"]["Dense_0"], f"{pre}.mlp.0", sd)
         _linear(blk["Mlp_0"]["Dense_1"], f"{pre}.mlp.3", sd)
 
-    final = params["final"]
+
+def _dit_final(final: dict, perm: np.ndarray, sd: dict) -> None:
+    """The final layer, its token features from the JAX order to the
+    reference's: feature ``perm[j]`` of the reference is JAX's ``j``."""
     _linear(final["AdaLNModulation_0"]["Dense_0"],
             "final_layer.adaLN_modulation.1", sd)
-    perm = _tube_perm(pt, p, c)
     fin_k = np.asarray(final["Dense_0"]["kernel"])  # (hidden, out), JAX order
     weight = np.empty((fin_k.shape[1], fin_k.shape[0]), np.float32)
     bias = np.empty((fin_k.shape[1],), np.float32)
@@ -147,4 +191,59 @@ def _dit4d_factorized(params: dict) -> dict[str, np.ndarray]:
     bias[perm] = np.asarray(final["Dense_0"]["bias"])
     sd["final_layer.linear.weight"] = weight
     sd["final_layer.linear.bias"] = bias
+
+
+_JOINT_ATTN = (("MultiHeadAttention_0", "attn"),)
+_FACTORIZED_ATTN = (("spatial_attn", "spatial_attn"), ("temporal_attn", "temporal_attn"))
+
+
+def _dit4d(params: dict, attn: tuple) -> dict[str, np.ndarray]:
+    """DiT4DFactorized (V4) or DiT4DJoint (V3): a Conv3d tube patch."""
+    sd: dict[str, np.ndarray] = {}
+    kernel = _dit_common(params, "dif_time_embeddings", sd)  # (pt, p, p, C, D)
+    pt, p, _, c, _ = kernel.shape
+    sd["patch_embed.proj.weight"] = kernel.transpose(4, 3, 0, 1, 2)
+    sd["temporal_pos_embed"] = np.asarray(params["temporal_pos_embed"])[:, :, 0]
+    _dit_blocks(params, sd, attn)
+    _dit_final(params["final"], _tube_perm(pt, p, c), sd)
+    return sd
+
+
+def _dit2d(params: dict) -> dict[str, np.ndarray]:
+    sd: dict[str, np.ndarray] = {}
+    kernel = _dit_common(params, "time_embeddings", sd)  # (1, p, p, C, D)
+    _, p, _, c, _ = kernel.shape
+    sd["patch_embed.proj.weight"] = kernel[0].transpose(3, 2, 0, 1)  # Conv2d
+    sd["temporal_pos_embed"] = np.asarray(params["temporal_pos_embed"])[:, :, 0]
+    _dit_blocks(params, sd, _JOINT_ATTN)
+    _dit_final(params["final"], _tube_perm(1, p, c), sd)
+    return sd
+
+
+def _dit4d_tube(params: dict, future_len: int | None) -> dict[str, np.ndarray]:
+    if future_len is None:
+        raise ValueError("a DiT4DTube tree needs future_len: the reference's "
+                         "final layer emits the future frames only")
+    sd: dict[str, np.ndarray] = {}
+    kernel = _dit_common(params, "time_embeddings", sd)  # (T, p, p, C, D)
+    t_total, p, _, c, _ = kernel.shape
+    sd["patch_embed.proj.weight"] = kernel.transpose(4, 3, 0, 1, 2)
+    # One slot: its temporal embedding reaches every token, as the spatial
+    # one does.
+    sd["spatial_pos_embed"] = (sd["spatial_pos_embed"]
+                               + np.asarray(params["temporal_pos_embed"])[:, :1, 0])
+    _dit_blocks(params, sd, _JOINT_ATTN)
+
+    final = params["final"]
+    fin_k = np.asarray(final["Dense_0"]["kernel"])  # (hidden, T·p·p·C)
+    fin_b = np.asarray(final["Dense_0"]["bias"])
+    cut = (t_total - future_len) * p * p * c  # the past frames' features
+    if np.any(fin_k[:, :cut]) or np.any(fin_b[:cut]):
+        raise ValueError(
+            "DiT4DTube: the final layer's past-frame rows are not zero, so the "
+            "reference layout (future frames only) cannot hold them"
+        )
+    _dit_final({"AdaLNModulation_0": final["AdaLNModulation_0"],
+                "Dense_0": {"kernel": fin_k[:, cut:], "bias": fin_b[cut:]}},
+               _tube_perm(future_len, p, c), sd)
     return sd

@@ -34,20 +34,30 @@
 //   and repacked from the accumulator layout into A fragments in
 //   registers; O = W V takes V through ldmatrix.trans and accumulates in
 //   f32.  Up to 64 keys the logits of a row stay in registers and nothing
-//   is recomputed; beyond (up to 256) the keys go in blocks of 64 in two
-//   sweeps: the row max and sum, rescaled online, then each block's logits
-//   again, its normalised weights and their product with V.
+//   is recomputed; beyond, the keys go in blocks of 64 in two sweeps: the
+//   row max and sum, rescaled online, then each block's logits again, its
+//   normalised weights and their product with V.  The plan takes this route
+//   only while a problem's Q, K and V fit in shared memory (FM-DiT's 432
+//   tokens at Dh 64: 186,624 bytes); past that, bf16 takes "simt".
 //
 //   "simt" (f32, and bf16 with Sq < 16: the DiT's temporal attention, one
 //   query against two keys, where a 16-row tile would be 15/16 waste): the
-//   first design.  A block of 8 warps takes max(1, 8 / Sq) problems, copies
+//   first design, in two forms.  Resident, while the block's K and V fit in
+//   shared memory: a block of 8 warps takes max(1, 8 / Sq) problems, copies
 //   K and V to shared memory as f32 in 16-byte loads where the rows allow
 //   it, and each warp walks one query row at a time: f32 logits a lane a
 //   key, two warp reductions, the weights rounded to V's type, each lane
-//   Dh/32 output elements.  f32 stays exact (no TF32).
+//   Dh/32 output elements.  Streamed, past that (f32 at 432 keys and Dh 64
+//   would need 243,968 bytes): a block takes one problem and 8 to 32 of its
+//   query rows (up to 4 a warp, their running max, sum and output in
+//   registers) and streams K and V through shared memory in blocks of 128
+//   keys, in two sweeps as the mma route: the row max and sum, rescaled
+//   online, then each block's logits again, the normalised weights rounded
+//   to V's type, and their product with V.  Any Sk.  f32 stays exact (no
+//   TF32).
 //
 // Limits (checked by the Python wrapper, and again here): Dh in {32, 64};
-// 1 <= Sk <= 256; the plan's shared memory at most 227 KB.  The last
+// Sk >= 1; the plan's shared memory at most 227 KB.  The last
 // dimension of each tensor must be contiguous; the other three strides are
 // arguments, so the caller's (B, S, H, Dh) projections are read in place.
 // The mma route needs 16-byte aligned rows (base address and strides).
@@ -69,7 +79,8 @@ using crowdmod::bf16;
 constexpr int kWarps = 8;       // simt route
 constexpr int kMaxWarps = 16;   // mma route
 constexpr int kKeyBlock = 64;   // keys whose logits a warp holds at once
-constexpr int kMaxSk = 256;
+constexpr int kStreamKeys = 128;  // simt, streamed: keys a block stages at once
+constexpr int kStreamRows = 4;    // simt, streamed: query rows a warp holds
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's most
 
 struct Strides {
@@ -464,17 +475,168 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// Streamed: one problem and query_rows (8 to 32) of its rows a block; K and
+// V pass through shared memory kStreamKeys at a time, twice for K.
+template <typename T, int kDh>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, T* __restrict__ o, int heads, int sq,
+                               int sk, int query_rows, int vec, float scale, Strides qs,
+                               Strides ks, Strides vs, Strides os) {
+  constexpr int kDpl = kDh / 32;
+  constexpr int kLdk = kDh + 4;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPieces = kDh / kVec;
+  constexpr int kPerLane = kStreamKeys / 32;  // keys a lane takes of a block
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows = query_rows / kWarps;  // this warp's rows: r0 + warp + 8 i
+  const long long bh = blockIdx.x;
+  const long long b = bh / heads, h = bh % heads;
+  const int r0 = blockIdx.y * query_rows;
+  float* k_sh = smem;                                    // [kStreamKeys][kLdk]
+  float* v_sh = k_sh + kStreamKeys * kLdk;               // [kStreamKeys][kDh]
+  float* q_sh = v_sh + kStreamKeys * kDh + warp * (rows * kDh + kStreamKeys);
+  float* p = q_sh + rows * kDh;  // this warp's weights of one row and block
+  const T* kg = k + b * ks.b + h * ks.h;
+  const T* vg = v + b * vs.b + h * vs.h;
+
+#pragma unroll
+  for (int i = 0; i < kStreamRows; ++i) {
+    const int s = r0 + warp + kWarps * i;
+    if (i < rows && s < sq) {
+      const T* qrow = q + b * qs.b + h * qs.h + (long long)s * qs.s;
+#pragma unroll
+      for (int c = 0; c < kDpl; ++c) q_sh[i * kDh + lane + 32 * c] = load_f(qrow + lane + 32 * c);
+    }
+  }
+  __syncwarp();
+
+  // Keys kb .. kb + nk - 1 of K (and V) into shared memory, all threads.
+  const auto stage = [&](int kb, int nk, bool with_v) {
+    if (vec) {
+      for (int idx = threadIdx.x; idx < nk * kPieces; idx += kWarps * 32) {
+        const int j = idx / kPieces, c = idx % kPieces * kVec;
+        copy16(k_sh + j * kLdk + c, kg + (long long)(kb + j) * ks.s + c);
+        if (with_v) copy16(v_sh + j * kDh + c, vg + (long long)(kb + j) * vs.s + c);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < nk * kDh; idx += kWarps * 32) {
+        const int j = idx / kDh, d = idx % kDh;
+        k_sh[j * kLdk + d] = load_f(kg + (long long)(kb + j) * ks.s + d);
+        if (with_v) v_sh[j * kDh + d] = load_f(vg + (long long)(kb + j) * vs.s + d);
+      }
+    }
+  };
+  // f32 logit of query row i against staged key j (16-byte shared reads).
+  const auto logit = [&](int i, int j) {
+    const float4* q4 = reinterpret_cast<const float4*>(q_sh + i * kDh);
+    const float4* k4 = reinterpret_cast<const float4*>(k_sh + j * kLdk);
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDh / 4; ++d) {
+      const float4 a = q4[d], c = k4[d];
+      dot = fmaf(a.x, c.x, dot);
+      dot = fmaf(a.y, c.y, dot);
+      dot = fmaf(a.z, c.z, dot);
+      dot = fmaf(a.w, c.w, dot);
+    }
+    return dot * scale;
+  };
+
+  // Sweep 1: each row's max and sum over the key blocks, rescaled online.
+  float m[kStreamRows], l[kStreamRows];
+#pragma unroll
+  for (int i = 0; i < kStreamRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  for (int kb = 0; kb < sk; kb += kStreamKeys) {
+    const int nk = min(kStreamKeys, sk - kb);
+    __syncthreads();  // the last block's reads are done
+    stage(kb, nk, false);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kStreamRows; ++i) {
+      if (i >= rows || r0 + warp + kWarps * i >= sq) continue;
+      float s[kPerLane], bm = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kPerLane; ++u) {
+        const int j = lane + 32 * u;
+        s[u] = j < nk ? logit(i, j) : -INFINITY;
+        bm = fmaxf(bm, s[u]);
+      }
+      const float mn = fmaxf(m[i], warp_max(bm));
+      float x = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPerLane; ++u) x += expf(s[u] - mn);
+      l[i] = l[i] * expf(m[i] - mn) + warp_sum(x);
+      m[i] = mn;
+    }
+  }
+
+  // Sweep 2: each block's logits again, the weights e / l rounded to V's
+  // type, and their f32 product with V (a lane Dh/32 output elements).
+  float acc[kStreamRows][kDpl];
+#pragma unroll
+  for (int i = 0; i < kStreamRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kDpl; ++c) acc[i][c] = 0.f;
+  for (int kb = 0; kb < sk; kb += kStreamKeys) {
+    const int nk = min(kStreamKeys, sk - kb);
+    __syncthreads();
+    stage(kb, nk, true);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kStreamRows; ++i) {
+      if (i >= rows || r0 + warp + kWarps * i >= sq) continue;
+      for (int j = lane; j < nk; j += 32) p[j] = round_like(expf(logit(i, j) - m[i]) / l[i], v);
+      __syncwarp();
+#pragma unroll 4
+      for (int j = 0; j < nk; ++j) {
+        const float w = p[j];
+        const float* vr = v_sh + j * kDh + kDpl * lane;
+        if constexpr (kDpl == 2) {
+          const float2 t = *reinterpret_cast<const float2*>(vr);
+          acc[i][0] = fmaf(w, t.x, acc[i][0]);
+          acc[i][1] = fmaf(w, t.y, acc[i][1]);
+        } else {
+          acc[i][0] = fmaf(w, vr[0], acc[i][0]);
+        }
+      }
+      __syncwarp();  // the next row overwrites p
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kStreamRows; ++i) {
+    const int s = r0 + warp + kWarps * i;
+    if (i >= rows || s >= sq) continue;
+    T* orow = o + b * os.b + h * os.h + (long long)s * os.s;
+#pragma unroll
+    for (int c = 0; c < kDpl; ++c) store_f(orow + kDpl * lane + c, acc[i][c]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
 // Shared memory of a block of either route, in bytes, as the wrapper's
-// attention_plan computes it.
-long long smem_bytes(int route, int dh, int sq, int sk, int per_block, int keys_padded) {
+// attention_plan computes it; the simt route is streamed when its key block
+// holds fewer than Sk keys.
+long long smem_bytes(int route, int dh, int sq, int sk, int per_block, int keys_padded,
+                     int query_rows, int key_block) {
   if (route == 1) {
     const long long tiles = (sq + 15) / 16;
     return 2LL * (dh + 8) * per_block * (tiles * 16 + 2LL * keys_padded);
   }
+  if (key_block < sk)
+    return 4LL * ((long long)key_block * (2 * dh + 4) +
+                  kWarps * ((long long)(query_rows / kWarps) * dh + key_block));
   return 4LL * ((long long)per_block * sk * (2 * dh + 4) + kWarps * (dh + keys_padded));
 }
 
@@ -521,23 +683,52 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int heads,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kDh>
+int launch_simt_streamed(const void* q, const void* k, const void* v, void* o, int heads, int sq,
+                         int sk, long long problems, int per_block, int warps, int query_rows,
+                         int smem, int vec, float scale, const long long* st,
+                         cudaStream_t stream) {
+  if (warps != kWarps || per_block != 1 || query_rows % kWarps ||
+      query_rows < kWarps || query_rows > kWarps * kStreamRows)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = attention_simt_streamed_kernel<T, kDh>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long chunks = (sq + query_rows - 1) / query_rows;
+  if (problems > 0x7fffffffLL || chunks > 65535) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<dim3((unsigned)problems, (unsigned)chunks), kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), heads, sq, sk, query_rows, vec, scale, strides_at(st, 0),
+      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (b, h, s)
 // for q, k, v and o in that order.  The plan (ops/kernels/attention.py,
 // attention_plan): route 1 = "mma" (bf16 only), 0 = "simt"; problems a
 // block, warps a block, keys padded (mma: Sk up to a multiple of 16; simt:
-// of 4) and the dynamic shared memory, which must be the plan's own.  vec:
+// of 4), the query rows of a problem a block covers (Sq, but for the
+// streamed simt form), the keys a block holds in shared memory at once (the
+// padded keys, or kStreamKeys: the streamed simt form) and the dynamic
+// shared memory, which must be the plan's own.  vec:
 // the simt route may copy K and V in 16-byte loads (rows 16-byte aligned);
 // the mma route needs them so.  Returns a cudaError_t value.
 extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* o, int batch, int heads, int sq, int sk, int dh,
                                   float scale, const long long* strides, int route,
-                                  int per_block, int warps, int keys_padded, int smem,
-                                  int vec, void* stream) {
-  if (sk < 1 || sk > kMaxSk || sq < 0 || batch < 0 || heads < 1 || per_block < 1 ||
+                                  int per_block, int warps, int keys_padded, int query_rows,
+                                  int key_block, int smem, int vec, void* stream) {
+  const bool streamed = route == 0 && key_block < sk;
+  if (sk < 1 || sq < 0 || batch < 0 || heads < 1 || per_block < 1 ||
       (route != 0 && route != 1) || (route == 1 && (dtype != 1 || sq < 16 || !vec)) ||
-      smem > kMaxSmem || smem != smem_bytes(route, dh, sq, sk, per_block, keys_padded))
+      (streamed ? key_block != kStreamKeys : (key_block != keys_padded || query_rows != sq)) ||
+      smem > kMaxSmem ||
+      smem != smem_bytes(route, dh, sq, sk, per_block, keys_padded, query_rows, key_block))
     return (int)cudaErrorInvalidValue;
   const long long problems = (long long)batch * heads;
   if (problems == 0 || sq == 0) return (int)cudaSuccess;
@@ -552,9 +743,11 @@ extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const
     return (int)cudaErrorInvalidValue;
   }
   if (keys_padded != ((sk + 3) & ~3)) return (int)cudaErrorInvalidValue;
-#define CROWDMOD_SIMT(T, DH)                                                                   \
-  return launch_simt<T, DH>(q, k, v, o, heads, sq, sk, problems, per_block, warps, smem, vec, \
-                            scale, strides, s)
+#define CROWDMOD_SIMT(T, DH)                                                                    \
+  return streamed ? launch_simt_streamed<T, DH>(q, k, v, o, heads, sq, sk, problems, per_block, \
+                                                warps, query_rows, smem, vec, scale, strides, s) \
+                  : launch_simt<T, DH>(q, k, v, o, heads, sq, sk, problems, per_block, warps,   \
+                                       smem, vec, scale, strides, s)
   if (dtype == 0 && dh == 32) CROWDMOD_SIMT(float, 32);
   if (dtype == 0 && dh == 64) CROWDMOD_SIMT(float, 64);
   if (dtype == 1 && dh == 32) CROWDMOD_SIMT(bf16, 32);

@@ -1,19 +1,27 @@
-"""Diffusion-Transformer backbone for macroproperty sequences (port of the
-JAX package's ``models/backbones/dit.py``: the shared pieces and
-:class:`DiT4DFactorized`, the DDPM-DiT flagship).
+"""Diffusion-Transformer backbones for macroproperty sequences (port of the
+JAX package's ``models/backbones/dit.py``).
 
-:class:`DiT4DFactorized` — partial temporal tube patchify + factorized
-attention: spatial self-attention per temporal slot, then temporal
-cross-attention where only future slots are queries (the reference's
-DiT4D_V4).  AdaLN-Zero conditioning throughout.
+  * :class:`DiT2D` — per-frame patchify, full attention over all T·N
+    tokens (the reference's DiT2D, V1; the FM-DiT backbone);
+  * :class:`DiT4DTube` — full temporal-tube patchify, one token per spatial
+    patch, the final layer emitting the future frames only (DiT4D, V2);
+  * :class:`DiT4DJoint` — partial temporal tube, joint attention over all
+    T_p·N_s tokens (DiT4D_V3);
+  * :class:`DiT4DFactorized` — partial temporal tube + factorized
+    attention: spatial self-attention per temporal slot, then temporal
+    cross-attention where only future slots are queries (DiT4D_V4, the
+    DDPM-DiT flagship).
 
-Inputs and outputs are native layout ``(B, T, H, W, C)``; tokens are carried
-as ``(B, T_p, N_s, D)``.  Module and parameter names follow the reference's
-torch layout, the one ``crowdmod_tpu.compat.torch_import`` reads
-(``blocks.{i}.spatial_attn.in_proj_weight``, ``patch_embed.proj.weight`` as
-``(D, C, pt, p, p)``, ``final_layer.linear`` with channel-major token
-features, ``temporal_pos_embed`` as ``(1, t_slots, D)``), so a state_dict of
-this model is a reference checkpoint.
+AdaLN-Zero conditioning throughout.  Inputs and outputs are native layout
+``(B, T, H, W, C)``; tokens are carried as ``(B, T_p, N_s, D)``.  Module and
+parameter names follow the reference's torch layout, the one
+``crowdmod_tpu.compat.torch_import`` reads (``blocks.{i}.attn`` or
+``blocks.{i}.spatial_attn``, ``patch_embed.proj.weight`` as Conv2d ``(D, C,
+p, p)`` or Conv3d ``(D, C, pt, p, p)``, ``final_layer.linear`` with
+channel-major token features, ``temporal_pos_embed`` as ``(1, t_slots, D)``
+where the variant has one, ``time_embeddings`` (V1, V2) or
+``dif_time_embeddings`` (V3, V4)), so a state_dict of each is a reference
+checkpoint that ``detect_backbone`` tells apart.
 
 ``dtype`` is the compute dtype: weights stay float32 and are cast at use, and
 the final projection runs in float32, as in the JAX package.
@@ -108,6 +116,38 @@ class Mlp(nn.Sequential):
         return dropout(dense(h, self[3], self.dtype), k2, self[4].p)
 
 
+class DiTBlock(nn.Module):
+    """Self-attention DiT block over ``(B, S, D)`` tokens, 6-parameter
+    AdaLN-Zero (``attn``, ``mlp``, ``adaLN_modulation``)."""
+
+    def __init__(self, hidden: int, num_heads: int, mlp_ratio: float,
+                 dropout_rate: float, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.adaLN_modulation = _ada_ln(hidden, 6)
+        self.attn = MultiHeadAttention(
+            hidden, num_heads, dropout_rate=dropout_rate, dtype=dtype
+        )
+        self.mlp = Mlp(hidden, int(hidden * mlp_ratio), dropout_rate, dtype)
+
+    def keep_masks(self, tokens_shape, generator) -> tuple:
+        """The dropout keep masks of one forward over ``tokens_shape`` (B,
+        S, D): the attention weights', then the MLP's two; each None when
+        dropout is off."""
+        b, s, _ = tokens_shape
+        return (self.attn.keep_mask((b,), s, s, generator),
+                self.mlp.keep_masks((b, s), generator))
+
+    def forward(self, x, c, keep: tuple = (None, None)) -> torch.Tensor:
+        dt = self.dtype
+        keep_attn, keep_mlp = keep
+        sh1, sc1, g1, sh2, sc2, g2 = _modulation(self.adaLN_modulation, c, 6, dt)
+        h = self.attn(modulate(_layer_norm(x, dt), sh1, sc1), keep=keep_attn)
+        x = x + _gate(h, g1)
+        h = self.mlp(modulate(_layer_norm(x, dt), sh2, sc2), keep=keep_mlp)
+        return x + _gate(h, g2)
+
+
 class DiTBlockFactorized(nn.Module):
     """Spatial self-attention + future-query temporal cross-attention + MLP.
 
@@ -179,18 +219,26 @@ class FinalLayer(nn.Module):
 class PatchEmbed4D(nn.Module):
     """(B, T, H, W, C) → (B, T_p, N_s, D) via (t_patch, p, p) tube patches.
 
-    The weight is the reference's Conv3d ``(D, C, pt, p, p)``; with stride
-    equal to the kernel the convolution is a reshape and one matmul, which is
-    how it runs here (no cuDNN, so no TF32 rounding of an f32 convolution).
+    The weight is the reference's Conv3d ``(D, C, pt, p, p)``, or with
+    ``frame_wise`` its per-frame Conv2d ``(D, C, p, p)`` (t_patch 1, the
+    reference's DiT2D); with stride equal to the kernel the convolution is
+    a reshape and one matmul, which is how it runs here (no cuDNN, so no
+    TF32 rounding of an f32 convolution).
     """
 
     def __init__(self, in_channels: int, hidden: int, patch_size: int,
-                 t_patch_size: int, dtype):
+                 t_patch_size: int, dtype, *, frame_wise: bool = False):
         super().__init__()
         self.patch_size, self.t_patch_size = patch_size, t_patch_size
         self.dtype = dtype
-        k = (t_patch_size, patch_size, patch_size)
-        self.proj = nn.Conv3d(in_channels, hidden, kernel_size=k, stride=k)
+        if frame_wise:
+            if t_patch_size != 1:
+                raise ValueError("a frame-wise patch embedding has t_patch 1")
+            k = (patch_size, patch_size)
+            self.proj = nn.Conv2d(in_channels, hidden, kernel_size=k, stride=k)
+        else:
+            k = (t_patch_size, patch_size, patch_size)
+            self.proj = nn.Conv3d(in_channels, hidden, kernel_size=k, stride=k)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p, pt = self.patch_size, self.t_patch_size
@@ -229,19 +277,29 @@ def unpatch4d(
     return x.reshape(b, tp * pt, h_patches * p, w_patches * p, c)
 
 
-class DiT4DFactorized(nn.Module):
-    """Partial tube + factorized spatial/temporal-cross attention (V4)."""
+class _DiTBase(nn.Module):
+    """Shared condition and positional plumbing of the DiT variants: the
+    timestep embedding (under ``time_key``), ``time_proj``, the patch
+    embedding, the learned spatial and (where ``temporal_slots``) temporal
+    position embeddings, the blocks, the final layer and the JAX package's
+    initialisation.  Subclasses build ``blocks`` and define ``forward``."""
+
+    time_key = "dif_time_embeddings"
 
     def __init__(
         self,
         *,
-        out_channels: int = 3,
+        out_channels: int,
+        patch_size: int,
+        t_patch_size: int,
+        temporal_slots: int | None,
+        final_features: int,
+        block=DiTBlock,
+        frame_wise: bool = False,
         grid_rows: int = 12,
         grid_cols: int = 36,
         past_len: int = 5,
         future_len: int = 3,
-        patch_size: int = 4,
-        t_patch_size: int = 4,
         hidden_size: int = 256,
         depth: int = 6,
         num_heads: int = 4,
@@ -249,7 +307,6 @@ class DiT4DFactorized(nn.Module):
         dropout_rate: float = 0.1,
         time_multiple: int = 4,
         condition: str = "Past",
-        t_max: int = 32,
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
     ):
@@ -262,23 +319,25 @@ class DiT4DFactorized(nn.Module):
         self.condition = condition
         self.dtype = dtype
         exp_dim = hidden_size * time_multiple
-        self.dif_time_embeddings = TimestepEmbedding(hidden_size, exp_dim, dtype)
+        self.add_module(self.time_key, TimestepEmbedding(hidden_size, exp_dim, dtype))
         self.time_proj = nn.Sequential(nn.Linear(exp_dim, hidden_size), nn.SiLU())
         self.patch_embed = PatchEmbed4D(
-            out_channels, hidden_size, patch_size, t_patch_size, dtype
+            out_channels, hidden_size, patch_size, t_patch_size, dtype,
+            frame_wise=frame_wise,
         )
         n_spatial = (grid_rows // patch_size) * (grid_cols // patch_size)
         self.spatial_pos_embed = nn.Parameter(torch.zeros(1, n_spatial, hidden_size))
-        self.temporal_pos_embed = nn.Parameter(
-            torch.zeros(1, t_max // t_patch_size, hidden_size)
-        )
+        if temporal_slots is not None:
+            self.temporal_pos_embed = nn.Parameter(
+                torch.zeros(1, temporal_slots, hidden_size)
+            )
+        else:
+            self.temporal_pos_embed = None
         self.blocks = nn.ModuleList([
-            DiTBlockFactorized(hidden_size, num_heads, mlp_ratio, dropout_rate, dtype)
+            block(hidden_size, num_heads, mlp_ratio, dropout_rate, dtype)
             for _ in range(depth)
         ])
-        self.final_layer = FinalLayer(
-            hidden_size, t_patch_size * out_channels * patch_size**2, dtype
-        )
+        self.final_layer = FinalLayer(hidden_size, final_features, dtype)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -286,7 +345,7 @@ class DiT4DFactorized(nn.Module):
         zero biases, zero-init AdaLN and final projection (AdaLN-Zero), and
         truncated-normal(0.02) positional embeddings."""
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv3d)):
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, MultiHeadAttention):
@@ -297,7 +356,8 @@ class DiT4DFactorized(nn.Module):
             nn.init.zeros_(m.weight)
             nn.init.zeros_(m.bias)
         for p in (self.spatial_pos_embed, self.temporal_pos_embed):
-            nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
+            if p is not None:
+                nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
 
     def _concat_input(self, future, past):
         if self.condition == "Past":
@@ -310,37 +370,136 @@ class DiT4DFactorized(nn.Module):
             return torch.cat([past, future], dim=1), past.shape[1]
         return future, 0
 
-    def forward(self, future, t, past=None, *, generator=None) -> torch.Tensor:
-        """``generator`` draws the dropout masks in training mode."""
-        x, past_len = self._concat_input(future, past)
+    def _condition_vec(self, t: torch.Tensor) -> torch.Tensor:
+        emb = getattr(self, self.time_key)(t)
+        return F.silu(dense(emb, self.time_proj[0], self.dtype))
+
+    def _tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Patch tokens ``(B, T_p, N_s, D)`` plus the position embeddings."""
         dt = self.dtype
-        x = x.to(dt)
-        c = F.silu(dense(self.dif_time_embeddings(t), self.time_proj[0], dt))
+        tokens = self.patch_embed(x) + self.spatial_pos_embed[:, None].to(dt)
+        if self.temporal_pos_embed is not None:
+            tokens = tokens + self.temporal_pos_embed[:, : tokens.shape[1], None].to(dt)
+        return tokens
 
-        tokens = self.patch_embed(x)  # (B, T_p, N_s, D)
-        tokens = (
-            tokens + self.spatial_pos_embed[:, None].to(dt)
-            + self.temporal_pos_embed[:, : tokens.shape[1], None].to(dt)
-        )
+    def _run_block(self, block, tokens, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, tokens, *args, use_reentrant=False)
+        return block(tokens, *args)
 
-        # First future temporal slot, from the runtime past length.
-        query_slot_start = past_len // self.t_patch_size
-        remat = self.remat and torch.is_grad_enabled()
-        for block in self.blocks:
-            keep = block.keep_masks(tokens.shape, query_slot_start, generator)
-            if remat:
-                tokens = checkpoint(block, tokens, c, query_slot_start, keep,
-                                    use_reentrant=False)
-            else:
-                tokens = block(tokens, c, query_slot_start, keep)
-
-        tokens = self.final_layer(tokens, c)
-        out = unpatch4d(
+    def _unpatch(self, tokens: torch.Tensor, t_patch: int) -> torch.Tensor:
+        return unpatch4d(
             tokens,
             h_patches=self.grid_rows // self.patch_size,
             w_patches=self.grid_cols // self.patch_size,
             patch_size=self.patch_size,
-            t_patch_size=self.t_patch_size,
+            t_patch_size=t_patch,
             out_channels=self.out_channels,
         )
-        return out[:, past_len:]
+
+
+class _DiTJointBase(_DiTBase):
+    """Joint self-attention over all of a sample's tokens (:class:`DiTBlock`),
+    the forward shared by :class:`DiT2D`, :class:`DiT4DJoint` and
+    :class:`DiT4DTube`."""
+
+    def forward(self, future, t, past=None, *, generator=None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
+        x, past_len = self._concat_input(future, past)
+        x = x.to(self.dtype)
+        c = self._condition_vec(t)
+        tokens = self._tokens(x)  # (B, T_p, N_s, D)
+        b, tp, ns, d = tokens.shape
+        tokens = tokens.reshape(b, tp * ns, d)
+        for block in self.blocks:
+            keep = block.keep_masks(tokens.shape, generator)
+            tokens = self._run_block(block, tokens, c, keep)
+        tokens = self.final_layer(tokens, c)
+        return self._output(tokens.reshape(b, tp, ns, -1), past_len)
+
+    def _output(self, tokens: torch.Tensor, past_len: int) -> torch.Tensor:
+        return self._unpatch(tokens, self.t_patch_size)[:, past_len:]
+
+
+class DiT2D(_DiTJointBase):
+    """Per-frame patchify; full attention over (T·N) tokens (V1, FM-DiT)."""
+
+    time_key = "time_embeddings"
+
+    def __init__(self, *, out_channels: int = 3, patch_size: int = 4,
+                 t_max: int = 32, **kw):
+        super().__init__(
+            out_channels=out_channels, patch_size=patch_size, t_patch_size=1,
+            temporal_slots=t_max, frame_wise=True,
+            final_features=out_channels * patch_size**2, **kw,
+        )
+
+
+class DiT4DJoint(_DiTJointBase):
+    """Partial temporal tube + joint attention over all T_p·N_s tokens (V3)."""
+
+    def __init__(self, *, out_channels: int = 3, patch_size: int = 4,
+                 t_patch_size: int = 2, t_max: int = 32, **kw):
+        super().__init__(
+            out_channels=out_channels, patch_size=patch_size,
+            t_patch_size=t_patch_size, temporal_slots=t_max // t_patch_size,
+            final_features=t_patch_size * out_channels * patch_size**2, **kw,
+        )
+
+
+class DiT4DTube(_DiTJointBase):
+    """Full temporal tube (V2): one token per spatial patch, t_patch = T.
+
+    The reference's layout: no temporal position embedding (a single slot)
+    and a final layer that emits the F future frames only, ``(F, C, p, p)``
+    features a token.  (The JAX package emits all T frames and slices them,
+    with zero past rows; ``state_dict_from_jax`` drops those rows.)  Build
+    with :meth:`make` so t_patch == past + future.
+    """
+
+    time_key = "time_embeddings"
+
+    def __init__(self, *, out_channels: int = 3, patch_size: int = 4,
+                 t_patch_size: int, future_len: int = 3, **kw):
+        super().__init__(
+            out_channels=out_channels, patch_size=patch_size,
+            t_patch_size=t_patch_size, future_len=future_len, temporal_slots=None,
+            final_features=future_len * out_channels * patch_size**2, **kw,
+        )
+
+    @classmethod
+    def make(cls, *, past_len: int, future_len: int, **kw):
+        return cls(past_len=past_len, future_len=future_len,
+                   t_patch_size=past_len + future_len, **kw)
+
+    def _output(self, tokens: torch.Tensor, past_len: int) -> torch.Tensor:
+        return self._unpatch(tokens, self.future_len)
+
+
+class DiT4DFactorized(_DiTBase):
+    """Partial tube + factorized spatial/temporal-cross attention (V4)."""
+
+    def __init__(self, *, out_channels: int = 3, patch_size: int = 4,
+                 t_patch_size: int = 4, t_max: int = 32, **kw):
+        super().__init__(
+            out_channels=out_channels, patch_size=patch_size,
+            t_patch_size=t_patch_size, temporal_slots=t_max // t_patch_size,
+            final_features=t_patch_size * out_channels * patch_size**2,
+            block=DiTBlockFactorized, **kw,
+        )
+
+    def forward(self, future, t, past=None, *, generator=None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
+        x, past_len = self._concat_input(future, past)
+        x = x.to(self.dtype)
+        c = self._condition_vec(t)
+        tokens = self._tokens(x)  # (B, T_p, N_s, D)
+
+        # First future temporal slot, from the runtime past length.
+        query_slot_start = past_len // self.t_patch_size
+        for block in self.blocks:
+            keep = block.keep_masks(tokens.shape, query_slot_start, generator)
+            tokens = self._run_block(block, tokens, c, query_slot_start, keep)
+
+        tokens = self.final_layer(tokens, c)
+        return self._unpatch(tokens, self.t_patch_size)[:, past_len:]

@@ -1,11 +1,11 @@
 """Architecture registry: config node → backbone module (port of the JAX
-package's ``models/factory.py``: the ``DDPM-DiT`` and ``DDPM-UNet``
-branches).
+package's ``models/factory.py``: the DDPM and FM branches).
 
 Arch strings ``DDPM-UNet | DDPM-DiT | FM-UNet | FM-DiT | ConvRNN`` select
 both the generative family and the backbone, with hyperparameters read from
-the ``MODEL.{DDPM,FM,CONVRNN}.{UNET,DIT}`` config nodes.  Archs not ported
-yet raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+the ``MODEL.{DDPM,FM,CONVRNN}.{UNET,DIT}`` config nodes.  ConvRNN is not
+ported yet and raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ ARCHS = ("DDPM-UNet", "DDPM-DiT", "FM-UNet", "FM-DiT", "ConvRNN")
 
 # Arch → the ROADMAP.md Queue 1 item that ports its backbone.
 _NOT_PORTED = {
-    "FM-UNet": "Queue 1 item 12 (flow matching)",
-    "FM-DiT": "Queue 1 items 10 and 12 (DiT2D, flow matching)",
     "ConvRNN": "Queue 1 item 13 (ConvRNN)",
 }
 
@@ -43,7 +41,7 @@ def build_backbone(
     caller moves it).  ``conv_impl`` picks the UNet's conv kernel;
     ``TPU.REMAT`` recomputes each block in the backward pass."""
     remat = bool(cfg.get_path("TPU.REMAT", False))
-    if arch == "DDPM-UNet":
+    if arch in ("DDPM-UNet", "FM-UNet"):
         from crowdmod_tpu_torch.models.backbones.unet3d import UNet3D
 
         node = backbone_cfg(cfg, arch)
@@ -60,19 +58,17 @@ def build_backbone(
             conv_impl=conv_impl,
             remat=remat,
         )
-    if arch == "DDPM-DiT":
-        from crowdmod_tpu_torch.models.backbones.dit import DiT4DFactorized
+    if arch in ("DDPM-DiT", "FM-DiT"):
+        from crowdmod_tpu_torch.models.backbones import dit
 
         node = backbone_cfg(cfg, arch)
-        # The reference's DDPM-DiT instantiates the factorized-attention V4.
-        return DiT4DFactorized(
+        common = dict(
             out_channels=mprops_count,
             grid_rows=cfg.MACROPROPS.ROWS,
             grid_cols=cfg.MACROPROPS.COLS,
             past_len=cfg.DATASET.PAST_LEN,
             future_len=cfg.DATASET.FUTURE_LEN,
             patch_size=node.PATCH_SIZE,
-            t_patch_size=node.T_PATCH_SIZE,
             hidden_size=node.HIDDEN_SIZE,
             depth=node.DEPTH,
             num_heads=node.NUM_HEADS,
@@ -83,6 +79,11 @@ def build_backbone(
             dtype=dtype,
             remat=remat,
         )
+        if arch == "DDPM-DiT":
+            # The reference's DDPM-DiT instantiates the factorized V4.
+            return dit.DiT4DFactorized(t_patch_size=node.T_PATCH_SIZE, **common)
+        # FM-DiT: the per-frame DiT2D.
+        return dit.DiT2D(**common)
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to PyTorch yet: ROADMAP.md "

@@ -4,9 +4,12 @@ Replaces ``crowdmod_tpu/ops/pallas/attention.py`` (``_attention_pallas``,
 kernel ``_attn_kernel``).  The CUDA source, ``csrc/attention.cu``, notes what
 bounds the kernel on the H100 (bytes) and how its two routes answer that:
 ``"mma"``, bf16 tiles of 16 query rows on the tensor cores, for bf16 with at
-least 16 queries; ``"simt"``, a warp a query row in f32, for f32 and for the
-DiT's one-query temporal attention.  :func:`attention_plan` picks the route
-and the block shape from the call's shape and dtype.
+least 16 queries while a problem's Q, K and V fit in shared memory;
+``"simt"``, a warp a query row in f32, for f32, for the DiT's one-query
+temporal attention and for bf16 problems too large for the mma route, with
+K and V resident in shared memory or, where they do not fit, streamed
+through it in blocks of keys.  Any number of keys.  :func:`attention_plan`
+picks the route and the block shape from the call's shape and dtype.
 
 :func:`fused_attention` takes ``(B, H, S, Dh)`` tensors.  On CPU tensors it
 runs :func:`attention_reference`; on CUDA tensors it launches the kernel or
@@ -29,12 +32,16 @@ import torch
 
 from crowdmod_tpu_torch.ops.kernels import build
 
-# Limits of the kernel (csrc/attention.cu): the head dims it is compiled for,
-# the most keys a block holds, and the shared memory a block can have.
+# Limits of the kernel (csrc/attention.cu): the head dims it is compiled for
+# and the shared memory a block can have.
 HEAD_DIMS = (32, 64)
-MAX_KEYS = 256
 MAX_SMEM = 232448  # 227 KB
 MMA_MIN_QUERIES = 16  # one 16-row query tile; fewer take the SIMT route
+# The streamed SIMT form: keys a block stages at once, query rows a warp
+# holds (csrc/attention.cu, kStreamKeys and kStreamRows).
+STREAM_KEYS = 128
+STREAM_ROWS = 4
+WARPS_SIMT = 8
 _ROUTES = {"simt": 0, "mma": 1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -42,7 +49,7 @@ _SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ),
 }
 
@@ -54,15 +61,25 @@ class AttentionPlan:
     ``route``: ``"mma"`` (bf16 tensor cores, a warp a 16-row query tile) or
     ``"simt"`` (a warp a query row, f32 arithmetic); ``problems_per_block``
     (b, h) problems a block holds; ``warps`` a block; ``keys_padded``: Sk
-    rounded up to the route's multiple (16 or 4); ``smem_bytes``: dynamic
-    shared memory a block; ``blocks`` of the grid."""
+    rounded up to the route's multiple (16 or 4); ``query_rows``: the
+    queries of a problem a block covers (Sq, but for the streamed SIMT
+    form); ``key_block``: the keys a block holds in shared memory at once
+    (``keys_padded``, or :data:`STREAM_KEYS` when the SIMT route streams
+    them); ``smem_bytes``: dynamic shared memory a block; ``blocks`` of the
+    grid."""
 
     route: str
     problems_per_block: int
     warps: int
     keys_padded: int
+    query_rows: int
+    key_block: int
     smem_bytes: int
     blocks: int
+
+    @property
+    def streamed(self) -> bool:
+        return self.key_block < self.keys_padded
 
 
 def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> AttentionPlan:
@@ -71,27 +88,39 @@ def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> Attentio
 
     bf16 with ``sq ≥ 16``: the mma route, ⌈sq/16⌉ query tiles a problem and
     8 // tiles problems a block, a warp a tile up to 16 warps (the DiT's
-    spatial 27 queries: 4 problems on 8 warps; the UNet's 54: 2 on 8); Q (in
-    whole tiles), K and V (keys padded to 16) in shared memory as bf16 rows
-    of Dh + 8.  Otherwise the SIMT route: 8 warps and 8 // sq problems a
-    block, K and V as f32 rows plus a query row and a logit row a warp.
-    Either takes fewer problems a block where their keys would overflow
-    shared memory, and at least one."""
-    mma = dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES
-    if mma:
-        tiles = -(-sq // 16)
-        keys = -(-sk // 16) * 16
-        smem = lambda n: 2 * (dh + 8) * n * (tiles * 16 + 2 * keys)  # noqa: E731
+    spatial 27 queries: 4 problems on 8 warps; the UNet's 54: 2 on 8;
+    FM-DiT's 216: 1 on 14); Q (in whole tiles), K and V (keys padded to 16)
+    in shared memory as bf16 rows of Dh + 8; fewer problems a block where
+    they would overflow it, and where one problem does, the SIMT route.
+    Otherwise the SIMT route: resident, 8 warps and 8 // sq problems a
+    block (fewer where their keys would overflow shared memory), K and V as
+    f32 rows plus a query row and a logit row a warp; or, where one
+    problem's K and V do not fit, streamed: one problem and up to 32 query
+    rows a block (4 a warp), K and V through shared memory 128 keys at a
+    time."""
+    tiles = -(-sq // 16)
+    keys16 = -(-sk // 16) * 16
+    mma_smem = lambda n: 2 * (dh + 8) * n * (tiles * 16 + 2 * keys16)  # noqa: E731
+    problems = b * h
+    if dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES and mma_smem(1) <= MAX_SMEM:
         per_block = max(1, 8 // tiles)
-    else:
-        keys = -(-sk // 4) * 4
-        smem = lambda n: 4 * (n * sk * (2 * dh + 4) + 8 * (dh + keys))  # noqa: E731
+        while per_block > 1 and mma_smem(per_block) > MAX_SMEM:
+            per_block -= 1
+        return AttentionPlan("mma", per_block, min(per_block * tiles, 16), keys16, sq,
+                             keys16, mma_smem(per_block), -(-problems // per_block))
+    keys = -(-sk // 4) * 4
+    smem = lambda n: 4 * (n * sk * (2 * dh + 4) + WARPS_SIMT * (dh + keys))  # noqa: E731
+    if smem(1) <= MAX_SMEM:
         per_block = max(1, 8 // max(sq, 1))
-    while per_block > 1 and smem(per_block) > MAX_SMEM:
-        per_block -= 1
-    warps = min(per_block * tiles, 16) if mma else 8
-    return AttentionPlan("mma" if mma else "simt", per_block, warps, keys, smem(per_block),
-                         -(-b * h // per_block))
+        while per_block > 1 and smem(per_block) > MAX_SMEM:
+            per_block -= 1
+        return AttentionPlan("simt", per_block, WARPS_SIMT, keys, sq, keys, smem(per_block),
+                             -(-problems // per_block))
+    rows = WARPS_SIMT * min(STREAM_ROWS, -(-sq // WARPS_SIMT))
+    streamed_smem = 4 * (STREAM_KEYS * (2 * dh + 4)
+                         + WARPS_SIMT * (rows // WARPS_SIMT * dh + STREAM_KEYS))
+    return AttentionPlan("simt", 1, WARPS_SIMT, keys, rows, STREAM_KEYS, streamed_smem,
+                         problems * -(-sq // rows))
 
 
 def rows_aligned(ptr: int, strides, elsize: int) -> bool:
@@ -154,11 +183,8 @@ def _check(q, k, v) -> None:
         raise ValueError(
             f"fused_attention: head dim {dh} not in the kernel's {HEAD_DIMS}"
         )
-    if not 1 <= k.shape[2] <= MAX_KEYS:
-        raise ValueError(
-            f"fused_attention: {k.shape[2]} keys; the kernel takes 1 to "
-            f"{MAX_KEYS}"
-        )
+    if k.shape[2] < 1:
+        raise ValueError("fused_attention: no keys; the kernel takes at least one")
 
 
 def attention_vjp(q, k, v, g, scale: float):
@@ -229,8 +255,9 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     err = lib.crowdmod_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, h, sq, sk, dh, scale, strides, _ROUTES[plan.route],
-        plan.problems_per_block, plan.warps, plan.keys_padded, plan.smem_bytes,
-        int(vec), torch.cuda.current_stream(q.device).cuda_stream,
+        plan.problems_per_block, plan.warps, plan.keys_padded, plan.query_rows,
+        plan.key_block, plan.smem_bytes, int(vec),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")

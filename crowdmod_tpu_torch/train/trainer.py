@@ -1,7 +1,8 @@
-"""Trainer for the DDPM family, with the DiT or UNet3D backbone (port of the
-JAX package's ``train/trainer.py``: ``_loss_fn``, ``setup``, ``fit``,
-``evaluate``, ``resume_from_abort``, ``save``/``load``, ``sample`` and the
-metric protocol, ``select_ids``/``select_past``/``generate_metrics``).
+"""Trainer for the DDPM and flow-matching families, with the DiT or UNet3D
+backbone (port of the JAX package's ``train/trainer.py``: ``_loss_fn``,
+``setup``, ``fit``, ``evaluate``, ``resume_from_abort``, ``save``/``load``,
+``sample`` and the metric protocol,
+``select_ids``/``select_past``/``generate_metrics``).
 
 Weights: ``model`` holds the live training weights; with EMA on, the train
 state's second module (``ema_model``) holds their moving average, and
@@ -9,8 +10,9 @@ sampling uses it (``sample_weights``) without touching the training
 weights.  ``params`` and ``ema_params`` read both as state_dicts in the
 reference torch layout.
 
-Randomness: every draw of a training step — t, ε, the CFG keep mask and the
-dropout masks — comes from the trainer's ``torch.Generator`` on its device,
+Randomness: every draw of a training step — t, ε (DDPM) or x0 (FM), the CFG
+keep mask and the dropout masks — comes from the trainer's
+``torch.Generator`` on its device,
 seeded from ``seed`` at the start of :meth:`Trainer.fit`.  :class:`StepDraws`
 carries the generator into the loss; a caller may inject any of the draws
 instead (``fit(draws=...)``, ``evaluate(draws=...)``).  The metric
@@ -47,6 +49,7 @@ from crowdmod_tpu_torch.models.diffusion import (
     ddpm_sample,
 )
 from crowdmod_tpu_torch.models.diffusion.ddpm import Noise
+from crowdmod_tpu_torch.models.flow_matching import INTEGRATORS, fm_loss
 from crowdmod_tpu_torch.models.guidance import cfg_denoise_fn, drop_condition
 from crowdmod_tpu_torch.train import checkpoint as ckpt
 from crowdmod_tpu_torch.train.optim import (
@@ -76,14 +79,16 @@ def resolve_device(device) -> torch.device:
 
 @dataclass
 class StepDraws:
-    """The random draws of one loss evaluation.  Each of ``t`` (B,), ``eps``
-    (the future's shape) and ``keep`` (the CFG keep mask, (B,) bool) left
-    None is drawn from ``generator``, as are the dropout masks."""
+    """The random draws of one loss evaluation.  Each of ``t`` (B,): the
+    DDPM timestep, or FM's uniform time; ``eps`` (DDPM) or ``x0`` (FM), the
+    future's shape; and ``keep`` (the CFG keep mask, (B,) bool) left None is
+    drawn from ``generator``, as are the dropout masks."""
 
     generator: torch.Generator | None = None
     t: torch.Tensor | None = None
     eps: torch.Tensor | None = None
     keep: torch.Tensor | None = None
+    x0: torch.Tensor | None = None
 
 
 @dataclass
@@ -117,10 +122,10 @@ class Trainer:
         self.cfg = cfg
         self.arch = arch
         self.family = "ConvRNN" if arch == "ConvRNN" else arch.split("-")[0]
-        if self.family != "DDPM":
+        if self.family not in ("DDPM", "FM"):
             raise NotImplementedError(
                 f"the {self.family} family is not ported to PyTorch yet: "
-                "ROADMAP.md Queue 1 items 12-13"
+                "ROADMAP.md Queue 1 item 13"
             )
         self.mprops_count = mprops_count if mprops_count is not None else 3
         if compute_dtype is None:
@@ -153,8 +158,9 @@ class Trainer:
             patience=solver.SCHEDULER.PATIENCE,
             min_lr=solver.SCHEDULER.MIN_LR,
         )
-        self.sched = linear_schedule(
-            cfg.MODEL.DDPM.TIMESTEPS, scale=cfg.MODEL.DDPM.SCALE
+        self.sched = (
+            linear_schedule(cfg.MODEL.DDPM.TIMESTEPS, scale=cfg.MODEL.DDPM.SCALE)
+            if self.family == "DDPM" else None
         )
         self.state = self._new_state()
         self._ready = False
@@ -193,9 +199,21 @@ class Trainer:
         """Loss closure ``(batch, draws) -> loss``; ``deterministic=True``
         is the eval variant: dropout and the CFG condition drop off."""
         model, sched, device = self.model, self.sched, self.device
-        node = self.cfg.MODEL.DDPM
+        node = getattr(self.cfg.MODEL, self.family)  # MODEL.DDPM or MODEL.FM
         cfg_drop = float(node.get("CFG_DROP_PROB", 0.0))
-        pred_type = node.get("PRED_TYPE", "eps")
+
+        if self.family == "DDPM":
+            pred_type = node.get("PRED_TYPE", "eps")
+
+            def family_loss(u_fn, future, past, draws, gen):
+                return ddpm_loss(u_fn, sched, future, past, t=draws.t, eps=draws.eps,
+                                 generator=gen, pred_type=pred_type)
+        else:
+            w_type, tmax = node.W_TYPE, node.TIME_MAX_POS
+
+            def family_loss(u_fn, future, past, draws, gen):
+                return fm_loss(u_fn, future, past, t=draws.t, x0=draws.x0, generator=gen,
+                               w_type=w_type, time_max_pos=tmax)
 
         def loss(batch, draws: StepDraws) -> torch.Tensor:
             past, future = (x.to(device) for x in batch)
@@ -204,10 +222,8 @@ class Trainer:
                 past = drop_condition(past, cfg_drop, keep=draws.keep,
                                       generator=draws.generator)
             gen = draws.generator
-            return ddpm_loss(
-                lambda x, t, c: model(x, t, c, generator=gen), sched, future, past,
-                t=draws.t, eps=draws.eps, generator=gen, pred_type=pred_type,
-            )
+            return family_loss(lambda x, t, c: model(x, t, c, generator=gen),
+                               future, past, draws, gen)
 
         return loss
 
@@ -465,12 +481,14 @@ class Trainer:
         return self.ema_model
 
     def _denoise_fn(self, model=None):
-        """The eps-space denoiser over ``model`` (default: the sampling
-        weights' module, in eval mode), with classifier-free guidance and the
-        PRED_TYPE adapter."""
+        """The sampler's denoiser over ``model`` (default: the sampling
+        weights' module, in eval mode), with classifier-free guidance; for
+        DDPM in eps space (the PRED_TYPE adapter), for FM the velocity."""
         model = (self._sample_model() if model is None else model).eval()
-        node = self.cfg.MODEL.DDPM
+        node = getattr(self.cfg.MODEL, self.family)
         fn = cfg_denoise_fn(model, float(node.get("CFG_SCALE", 1.0)))
+        if self.family == "FM":
+            return fn
         return as_eps_fn(fn, self.sched, node.get("PRED_TYPE", "eps"))
 
     @torch.no_grad()
@@ -491,9 +509,26 @@ class Trainer:
         return self._sample_impl(past, generator, noise=noise, history=history)
 
     def _sample_impl(self, past, generator, *, noise=None, history=False):
-        node = self.cfg.MODEL.DDPM
         _, f, h, w = self._grid_shapes()
         shape = (past.shape[0], f, h, w, self.mprops_count)
+        if self.family == "FM":
+            # The integrators keep no trajectory: ``history`` is ignored, as
+            # in the JAX package.
+            node = self.cfg.MODEL.FM
+            try:
+                integrator = INTEGRATORS[node.INTEGRATOR]
+            except KeyError:
+                raise ValueError(
+                    f"unknown integrator {node.INTEGRATOR!r}; "
+                    f"expected {list(INTEGRATORS)}"
+                ) from None
+            steps = getattr(node.INTEGRATOR_STEPS, node.INTEGRATOR.upper())
+            return integrator(
+                self._denoise_fn(), past, shape, steps=steps,
+                time_max_pos=node.TIME_MAX_POS, noise=noise, generator=generator,
+                device=self.device,
+            )
+        node = self.cfg.MODEL.DDPM
         common = dict(
             noise=noise, generator=generator, device=self.device,
             guidance=node.GUIDANCE,

@@ -4,8 +4,9 @@
 route of ``csrc/attention.cu`` and the block shape from the call's shape and
 dtype; the wrapper passes the plan to the kernel, which rejects a plan whose
 shared memory is not its own.  These tests pin the routes at the serving
-shapes, the shared-memory bound, the row-alignment check, and replay the
-mma route's key-block sweeps in torch against the twin.
+shapes and at FM-DiT's (216, 336 and 432 tokens), the shared-memory bound
+at any number of keys, the row-alignment check, and replay the mma route's
+and the streamed SIMT form's key-block sweeps in torch against the twin.
 """
 
 import numpy as np
@@ -15,8 +16,8 @@ import torch
 from crowdmod_tpu_torch.ops.kernels import attention_reference, fused_attention
 from crowdmod_tpu_torch.ops.kernels.attention import (
     HEAD_DIMS,
-    MAX_KEYS,
     MAX_SMEM,
+    STREAM_KEYS,
     attention_plan,
     check_rows,
     rows_aligned,
@@ -30,13 +31,19 @@ SHAPES = {
     "dit_temporal": (1728, 4, 1, 2, 64),
     "unet_level2": (64, 4, 54, 54, 32),
     "edge_s216": (16, 4, 216, 216, 32),
+    # FM-DiT (DiT2D): all T·N tokens, 8 × 27 on configs/serving/ATC.yml,
+    # 8 × 42 on HERMES-CR-120, 16 × 27 on ATC_medium.
+    "fm_dit_s216": (64, 4, 216, 216, 64),
+    "fm_dit_s336": (64, 4, 336, 336, 64),
+    "fm_dit_s432": (64, 4, 432, 432, 64),
 }
 
 
 @pytest.mark.parametrize(
     "name,per_block,warps,keys,blocks",
     [("dit_spatial", 4, 8, 32, 128), ("unet_level2", 2, 8, 64, 128),
-     ("edge_s216", 1, 14, 224, 64)],
+     ("edge_s216", 1, 14, 224, 64), ("fm_dit_s216", 1, 14, 224, 256),
+     ("fm_dit_s336", 1, 16, 336, 256), ("fm_dit_s432", 1, 16, 432, 256)],
 )
 def test_bf16_serving_shapes_take_the_mma_route(name, per_block, warps, keys, blocks):
     plan = attention_plan(*SHAPES[name], torch.bfloat16)
@@ -49,6 +56,8 @@ def test_bf16_serving_shapes_take_the_mma_route(name, per_block, warps, keys, bl
     assert plan.warps == min(16, plan.problems_per_block * tiles)
     assert plan.blocks * plan.problems_per_block >= b * h
     assert plan.smem_bytes == 2 * (dh + 8) * per_block * (tiles * 16 + 2 * keys)
+    assert plan.smem_bytes <= MAX_SMEM and not plan.streamed
+    assert (plan.query_rows, plan.key_block) == (sq, keys)
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -56,6 +65,25 @@ def test_f32_takes_the_simt_route(name):
     plan = attention_plan(*SHAPES[name], torch.float32)
     assert plan.route == "simt" and plan.warps == 8
     assert plan.keys_padded % 4 == 0 and plan.keys_padded >= SHAPES[name][3]
+    assert plan.smem_bytes <= MAX_SMEM
+
+
+@pytest.mark.parametrize("name,streamed", [("fm_dit_s216", False), ("fm_dit_s336", False),
+                                           ("fm_dit_s432", True)])
+def test_f32_streams_keys_past_shared_memory(name, streamed):
+    """f32 at FM-DiT's shapes: K and V resident up to 336 tokens (190,208
+    bytes); at 432 they would need 243,968, so the block takes one problem
+    and 32 query rows and streams the keys 128 at a time."""
+    b, h, sq, sk, dh = SHAPES[name]
+    plan = attention_plan(b, h, sq, sk, dh, torch.float32)
+    resident = 4 * (sk * (2 * dh + 4) + 8 * (dh + plan.keys_padded))
+    assert plan.streamed == streamed == (resident > MAX_SMEM)
+    if streamed:
+        assert (plan.problems_per_block, plan.query_rows, plan.key_block) == (1, 32, STREAM_KEYS)
+        assert plan.blocks == b * h * -(-sq // 32)
+        assert plan.smem_bytes == 4 * (STREAM_KEYS * (2 * dh + 4) + 8 * (4 * dh + STREAM_KEYS))
+    else:
+        assert plan.smem_bytes == resident and plan.query_rows == sq
 
 
 def test_one_query_takes_the_simt_route_in_bf16():
@@ -70,10 +98,17 @@ def test_one_query_takes_the_simt_route_in_bf16():
 @pytest.mark.parametrize("sq", [1, 16, 54, 216, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_shared_memory_fits_at_the_most_keys(dtype, sq):
-    for dh in HEAD_DIMS:
-        plan = attention_plan(1, 1, sq, MAX_KEYS, dh, dtype)
-        assert plan.smem_bytes <= MAX_SMEM == 232448, plan
-        assert plan.keys_padded >= MAX_KEYS
+    """No key count has a limit: every plan fits a block's shared memory,
+    the bf16 problems too large for the mma route taking the streamed SIMT
+    form."""
+    for sk in (256, 336, 432, 1000, 4096, 100_000):
+        for dh in HEAD_DIMS:
+            plan = attention_plan(1, 1, sq, sk, dh, dtype)
+            assert plan.smem_bytes <= MAX_SMEM == 232448, plan
+            assert plan.keys_padded >= sk
+            if plan.streamed:
+                assert plan.route == "simt" and plan.key_block == STREAM_KEYS
+                assert plan.query_rows == 8 * min(4, -(-sq // 8))
 
 
 def test_row_alignment_check():
@@ -114,11 +149,49 @@ def _mma_replay(q, k, v, scale, key_block=64):
     return out
 
 
-@pytest.mark.parametrize("name", ["dit_spatial", "unet_level2", "edge_s216"])
+def _simt_streamed_replay(q, k, v, scale, key_block=STREAM_KEYS):
+    """The streamed SIMT form's arithmetic in torch f32: a sweep of
+    128-key blocks for each row's max and its sum, rescaled online; a
+    second for each block's weights exp(s - m) / l, rounded to V's dtype,
+    times V, summed in f32."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sk = k.shape[2]
+    blocks = [(lo, min(lo + key_block, sk)) for lo in range(0, sk, key_block)]
+    logits = lambda lo, hi: qf @ kf[:, :, lo:hi].transpose(-1, -2) * scale  # noqa: E731
+    m = torch.full(q.shape[:3] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    for lo, hi in blocks:
+        s = logits(lo, hi)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - mn) + torch.exp(s - mn).sum(-1, keepdim=True)
+        m = mn
+    out = torch.zeros(q.shape[:3] + (v.shape[-1],))
+    for lo, hi in blocks:
+        out = out + (torch.exp(logits(lo, hi) - m) / l).to(v.dtype).float() @ vf[:, :, lo:hi]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sk", [432, 1000])
+def test_simt_streamed_sweeps_match_the_twin(sk, dtype):
+    """4 or 8 key blocks: in f32 the online sum differs from the twin's by
+    its rounding only (the card's run holds 1e-5); in bf16 the rounded
+    weights agree to a few bf16 ulps."""
+    rng = np.random.default_rng(sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, s, 64)).astype(np.float32)).to(dtype)
+               for s in (40, sk, sk))
+    scale = 64 ** -0.5
+    want = attention_reference(q, k, v, scale).float()
+    got = _simt_streamed_replay(q, k, v, scale)
+    tol = 1e-6 if dtype == torch.float32 else 2 * 2.0 ** -8 * float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["dit_spatial", "unet_level2", "edge_s216", "fm_dit_s432"])
 def test_mma_sweeps_match_the_twin(name):
-    """One key block (27, 54 keys) or four (216): the normalised bf16
-    weights are the twin's up to the f32 rounding of l, so the outputs
-    agree to a few bf16 ulps of the weights."""
+    """One key block (27, 54 keys), four (216) or seven (432): the
+    normalised bf16 weights are the twin's up to the f32 rounding of l, so
+    the outputs agree to a few bf16 ulps of the weights."""
     _, h, sq, sk, dh = SHAPES[name]
     rng = np.random.default_rng(sk)
     q, k, v = (torch.from_numpy(rng.normal(size=(2, h, s, dh)).astype(np.float32))
@@ -137,10 +210,12 @@ def test_mma_sweeps_match_the_twin(name):
 
 def test_plan_covers_every_problem_once():
     """Blocks × problems a block cover all B·H problems, the last block
-    partly; tiles a problem cover all queries."""
-    for b, h, sq, sk, dh in SHAPES.values():
+    partly, and every query row once (the streamed form: ⌈Sq / query
+    rows⌉ blocks a problem)."""
+    for b, h, sq, sk, dh in list(SHAPES.values()) + [(4, 4, 700, 1000, 64)]:
         for dtype in (torch.float32, torch.bfloat16):
             plan = attention_plan(b, h, sq, sk, dh, dtype)
             n = b * h
-            assert (plan.blocks - 1) * plan.problems_per_block < n
-            assert plan.blocks * plan.problems_per_block >= n
+            chunks = -(-sq // plan.query_rows)
+            assert plan.blocks == -(-n // plan.problems_per_block) * chunks
+            assert (chunks - 1) * plan.query_rows < sq <= chunks * plan.query_rows

@@ -56,6 +56,10 @@ def test_importing_the_port_loads_no_jax():
         "import crowdmod_tpu_torch.models.diffusion.ddpm\n"
         "import crowdmod_tpu_torch.models.backbones.unet3d\n"
         "import crowdmod_tpu_torch.compat.jax_params\n"
+        "import crowdmod_tpu_torch.models.flow_matching\n"
+        "import crowdmod_tpu_torch.models.backbones.dit\n"
+        "import crowdmod_tpu_torch.train.distiller\n"
+        "import crowdmod_tpu_torch.cli.reflow\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -78,7 +82,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config("4test/ATC.yml")
-    for arch in ("DDPM-DiT", "DDPM-UNet"):
+    for arch in ("DDPM-DiT", "DDPM-UNet", "FM-DiT", "FM-UNet"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Predictor(cfg, arch, str(tmp_path))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -89,10 +93,32 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 def test_unported_archs_name_their_roadmap_item():
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.models.factory import build_backbone
+    from crowdmod_tpu_torch.train.trainer import Trainer
 
     cfg = load_config("4test/ATC.yml")
-    for arch in ("FM-UNet", "FM-DiT", "ConvRNN"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            build_backbone(cfg, arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
+        build_backbone(cfg, "ConvRNN")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
+        Trainer(cfg, "ConvRNN", device="cpu")
     with pytest.raises(ValueError, match="unknown arch"):
         build_backbone(cfg, "DDPM-Nope")
+
+
+@pytest.mark.parametrize("arch,module", [("FM-UNet", "UNet3D"), ("FM-DiT", "DiT2D")])
+def test_fm_archs_build_from_their_node(arch, module):
+    """FM-UNet is UNet3D from ``MODEL.FM.UNET``; FM-DiT is DiT2D (the
+    reference's FM backbone) from ``MODEL.FM.DIT``, whose state_dict the
+    JAX package's importer fingerprints as the FM-DiT backbone."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.models.factory import build_backbone
+
+    cfg = load_config("4test/ATC.yml").updated({"MODEL": {"FM": {
+        "UNET": {"BASE_CH": 16}, "DIT": {"HIDDEN_SIZE": 32, "DEPTH": 3}}}})
+    model = build_backbone(cfg, arch)
+    assert type(model).__name__ == module
+    if arch == "FM-DiT":
+        assert len(model.blocks) == 3 and model.spatial_pos_embed.shape[-1] == 32
+        assert model.patch_embed.proj.weight.ndim == 4  # per-frame Conv2d
+        assert "time_embeddings.time_blocks.1.weight" in model.state_dict()
+    else:
+        assert model.first.weight.shape[0] == 16

@@ -1,10 +1,11 @@
 """The port's command line (``python -m crowdmod_tpu_torch.cli``) against
 the JAX package's on the tiny pickle workspace (``conftest.workspace``):
-``train`` then ``generate-metrics``, on the CPU, give the same checkpoint
-names, run files, metric CSV names, headers and columns and manifest keys
-as ``crowdmod_tpu.cli``'s run (the JAX run also writes ``losses.png`` and
-boxplot PNGs, which wait for the port's plotting module).  Commands not
-ported yet exit 2 and name their ROADMAP.md item."""
+``train`` then ``generate-metrics`` (DDPM-UNet, and FM-DiT followed by
+``reflow``), on the CPU, give the same checkpoint names, run files, metric
+CSV names, headers and columns and manifest keys as ``crowdmod_tpu.cli``'s
+run (the JAX run also writes ``losses.png`` and boxplot PNGs, which wait
+for the port's plotting module).  Commands not ported yet exit 2 and name
+their ROADMAP.md item."""
 
 import json
 import os
@@ -17,9 +18,10 @@ import yaml
 
 from crowdmod_tpu.cli import generate_metrics as jax_generate_metrics
 from crowdmod_tpu.cli import main as jax_main
+from crowdmod_tpu.cli import reflow as jax_reflow
 from crowdmod_tpu.cli import train as jax_train
 from crowdmod_tpu_torch import cli
-from crowdmod_tpu_torch.cli import generate_metrics, train
+from crowdmod_tpu_torch.cli import generate_metrics, reflow, train
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -89,6 +91,56 @@ def test_train_then_generate_metrics_match_jax(workspace):
     assert os.path.exists(ws["tmp"] / "out" / "logs" / "genMetrics.log")
 
 
+def _fm_workspace(ws):
+    """The workspace config with a small FM-DiT (hidden 32, depth 1) and a
+    3-step Euler integrator."""
+    cfg = yaml.safe_load(open(ws["cfg"]))
+    fm = cfg["MODEL"]["FM"]
+    fm.update({"CHECKPOINTS_TO_KEEP": 0, "INTEGRATOR_STEPS": {"EULER": 3, "HEUN": 2}})
+    fm["DIT"].update({"HIDDEN_SIZE": 32, "DEPTH": 1, "NUM_HEADS": 2, "DROPOUT_RATE": 0.0})
+    fm["DIT"]["TRAIN"]["EPOCHS"] = 1
+    path = ws["tmp"] / "fm_cfg.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    return {**ws, "cfg": str(path)}
+
+
+def test_fm_dit_train_metrics_reflow_match_jax(workspace):
+    """FM-DiT through ``train → generate-metrics → reflow``: the best-loss
+    and the ``RF1`` checkpoints, the CSVs and the manifest under the JAX
+    package's names."""
+    ws = _fm_workspace(workspace)
+    common = ["--config-yml-file", ws["cfg"], "--configList-yml-file", ws["list"],
+              "--arch", "FM-DiT"]
+    r = _port_cli("train", *common, "--device", "cpu", "--run-dir", str(ws["tmp"] / "run"))
+    assert r.returncode == 0, r.stdout + r.stderr
+    r = _port_cli("generate-metrics", *common, "--device", "cpu", "--metric", "ALL",
+                  "--output-dir", str(ws["tmp"] / "metrics"))
+    assert r.returncode == 0, r.stdout + r.stderr
+    r = _port_cli("reflow", *common, "--device", "cpu", "--rounds", "1",
+                  "--epochs-per-round", "1", "--coupling-steps", "2")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "reflow complete" in r.stdout and "kernel launches" in r.stdout
+
+    jcommon = ["--config-yml-file", _jax_workspace(ws), "--configList-yml-file",
+               ws["list"], "--arch", "FM-DiT"]
+    assert jax_train.run(jcommon + ["--run-dir", str(ws["tmp"] / "jax_run")]) == 0
+    assert jax_generate_metrics.run(
+        jcommon + ["--metric", "ALL", "--output-dir", str(ws["tmp"] / "jax_metrics")]) == 0
+    assert jax_reflow.run(jcommon + ["--rounds", "1", "--epochs-per-round", "1",
+                                     "--coupling-steps", "2"]) == 0
+
+    names = sorted(os.listdir(ws["tmp"] / "ckpts"))
+    assert names == sorted(os.listdir(ws["tmp"] / "jax_ckpts"))
+    assert [n.rsplit("_CE", 1)[1] for n in names] == ["000_Linear", "RF1_Linear"]
+    port_csvs = _csvs(ws["tmp"] / "metrics")
+    assert len(port_csvs) == 20 and port_csvs == _csvs(ws["tmp"] / "jax_metrics")
+    manifest = json.loads((ws["tmp"] / "metrics" / "metrics_files.json").read_text())
+    jax_manifest = json.loads((ws["tmp"] / "jax_metrics" / "metrics_files.json").read_text())
+    assert manifest.keys() == jax_manifest.keys()
+    assert manifest["title"] == jax_manifest["title"]
+    assert os.path.exists(ws["tmp"] / "out" / "logs" / "reflow.log")
+
+
 def test_every_jax_command_is_ported_or_named(capsys):
     jax_main(["--help"])
     usage = capsys.readouterr().out
@@ -112,7 +164,7 @@ def test_help_unknown_and_module_entry(capsys):
     assert r.returncode == 2 and "item 11" in r.stderr
 
 
-@pytest.mark.parametrize("module", [train, generate_metrics])
+@pytest.mark.parametrize("module", [train, generate_metrics, reflow])
 def test_commands_default_to_the_card(module, workspace):
     args = module.build_parser().parse_args([])
     assert args.device == "cuda"

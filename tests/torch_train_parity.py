@@ -1,12 +1,13 @@
-"""Shared by ``test_torch_train_{unet,dit}.py``: the JAX package's
+"""Shared by ``test_torch_train_{unet,dit,fm}.py``: the JAX package's
 ``Trainer.fit`` on a tiny config, and the port's, held against it.
 
 Both trainers start from the same weights (the JAX init, perturbed with
 seeded numpy noise, carried over by ``state_dict_from_jax``), train on the
 same numpy walker windows in float32 on the CPU, and see the same draws:
-the port's steps get the t, ε and CFG keep mask that JAX ``fit``'s key
-stream gives (``key, sub = split(key)`` a batch; ``_loss_fn`` splits
-``sub`` into 2, or 3 with CFG; ``ddpm_loss`` splits again into kt, kq).
+the port's steps get the t, ε (DDPM) or x0 (FM) and CFG keep mask that JAX
+``fit``'s key stream gives (``key, sub = split(key)`` a batch; ``_loss_fn``
+splits ``sub`` into 2, or 3 with CFG; ``ddpm_loss`` splits again into kt,
+kq, ``fm_loss`` into k0, kt).
 Dropout is off (``DROPOUT_RATE`` 0): flax's dropout bits cannot be made in
 PyTorch.
 """
@@ -44,20 +45,23 @@ PARAM_ATOL = 1e-6  # params and EMA after 3 steps
 MAX_SIGN_SHARE = 1e-4
 
 
-def tiny_config(root, **ddpm):
+def tiny_config(root, cfg_drop=0.0, **ddpm):
+    backbones = {
+        "UNET": {"BASE_CH": 8, "BASE_CH_MULT": [1, 2],
+                 "APPLY_ATTENTION": [False, True], "DROPOUT_RATE": 0.0,
+                 "TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.9}},
+        "DIT": {"HIDDEN_SIZE": 64, "DEPTH": 2, "NUM_HEADS": 4,
+                "DROPOUT_RATE": 0.0, "TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.9}},
+    }
     over = {
         "DATA_FS": {"SAVE_DIR": str(root / "ckpts"), "OUTPUT_DIR": str(root / "out")},
         "MACROPROPS": {"ROWS": 8, "COLS": 12},
         "DATASET": {"BATCH_SIZE": BATCH},
-        "MODEL": {"DDPM": {
-            "TIMESTEPS": TIMESTEPS, "CHECKPOINTS_TO_KEEP": 0, "PRED_TYPE": "v",
-            "UNET": {"BASE_CH": 8, "BASE_CH_MULT": [1, 2],
-                     "APPLY_ATTENTION": [False, True], "DROPOUT_RATE": 0.0,
-                     "TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.9}},
-            "DIT": {"HIDDEN_SIZE": 64, "DEPTH": 2, "NUM_HEADS": 4,
-                    "DROPOUT_RATE": 0.0, "TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.9}},
-            **ddpm,
-        }},
+        "MODEL": {
+            "DDPM": {"TIMESTEPS": TIMESTEPS, "CHECKPOINTS_TO_KEEP": 0, "PRED_TYPE": "v",
+                     "CFG_DROP_PROB": cfg_drop, **backbones, **ddpm},
+            "FM": {"CHECKPOINTS_TO_KEEP": 0, "CFG_DROP_PROB": cfg_drop, **backbones},
+        },
     }
     return load_config("4test/ATC.yml", overrides=over), jax_load_config(
         "4test/ATC.yml", overrides=over)
@@ -79,7 +83,7 @@ def walker_raw(n=6):
     return raw + np.random.default_rng(3).normal(0, 0.1, raw.shape).astype(np.float32)
 
 
-def loss_draws(key, future_shape, cfg_drop=0.0) -> StepDraws:
+def loss_draws(key, future_shape, cfg_drop=0.0, family="DDPM") -> StepDraws:
     """The draws of one JAX ``_loss_fn`` call on ``key``, as port tensors."""
     b = future_shape[0]
     keep = None
@@ -89,6 +93,12 @@ def loss_draws(key, future_shape, cfg_drop=0.0) -> StepDraws:
             jax.random.bernoulli(drop_key, 1.0 - cfg_drop, (b,))))
     else:
         _, step_key = jax.random.split(key)
+    if family == "FM":
+        k0, kt = jax.random.split(step_key)
+        x0 = jax.random.normal(k0, future_shape, jnp.float32)
+        t = jax.random.uniform(kt, (b,))
+        return StepDraws(t=torch.from_numpy(np.array(t)),
+                         x0=torch.from_numpy(np.array(x0)), keep=keep)
     kt, kq = jax.random.split(step_key)
     t = jax.random.randint(kt, (b,), 0, TIMESTEPS)
     eps = jax.random.normal(kq, future_shape, jnp.float32)
@@ -96,20 +106,20 @@ def loss_draws(key, future_shape, cfg_drop=0.0) -> StepDraws:
                      eps=torch.from_numpy(np.array(eps)), keep=keep)
 
 
-def key_stream(seed, n, future_shape, cfg_drop=0.0) -> list[StepDraws]:
+def key_stream(seed, n, future_shape, cfg_drop=0.0, family="DDPM") -> list[StepDraws]:
     """The draws of n steps of a JAX ``fit`` (or, seed 0 without CFG, of
     ``evaluate``'s batches)."""
     key, out = jax.random.PRNGKey(seed), []
     for _ in range(n):
         key, sub = jax.random.split(key)
-        out.append(loss_draws(sub, future_shape, cfg_drop))
+        out.append(loss_draws(sub, future_shape, cfg_drop, family))
     return out
 
 
 def jax_reference(arch, root, cfg_drop=0.0) -> dict:
     """JAX side: step-1 gradients, one epoch of ``fit`` (per-step losses),
     then ``evaluate``."""
-    _, jcfg = tiny_config(root, CFG_DROP_PROB=cfg_drop)
+    _, jcfg = tiny_config(root, cfg_drop)
     jtr = JaxTrainer(jcfg, arch, run_dir=str(root / "jax_run"), seed=SEED).setup()
     params = perturbed(jtr.state.params, seed=1)
     jtr.state = jtr.state.replace(params=params,
@@ -154,7 +164,8 @@ def _assert_params_close(got: dict, want_tree, lr, steps, label):
 def check_port_against(ref, root, conv_impl="im2col"):
     """Port side, from the same weights and draws; asserts each tolerance."""
     arch = ref["arch"]
-    cfg, _ = tiny_config(root, CFG_DROP_PROB=ref["cfg_drop"])
+    family = arch.split("-")[0]
+    cfg, _ = tiny_config(root, ref["cfg_drop"])
     tr = Trainer(cfg, arch, device="cpu", run_dir=str(root / "port_run"), seed=SEED,
                  conv_impl=conv_impl).setup()
     sd = state_dict_from_jax(ref["params"])
@@ -162,7 +173,7 @@ def check_port_against(ref, root, conv_impl="im2col"):
     tr.ema_model.load_state_dict(sd)
     ds = WindowDataset(torch.from_numpy(ref["raw"]), past_len=5, future_len=3, stride=8)
     fshape = (BATCH, 3, 8, 12, 3)
-    draws = key_stream(SEED, len(ds) // BATCH, fshape, ref["cfg_drop"])
+    draws = key_stream(SEED, len(ds) // BATCH, fshape, ref["cfg_drop"], family)
 
     # Step 1's gradient of every parameter.
     first = next(ds.batches(BATCH, shuffle=True, seed=SEED + 1))
@@ -199,5 +210,6 @@ def check_port_against(ref, root, conv_impl="im2col"):
     assert (tr.plateau.lr, tr.plateau.num_bad) == (jp.lr, jp.num_bad)
     np.testing.assert_allclose(tr.plateau.best, jp.best, rtol=LOSS_RTOL)
 
-    val = tr.evaluate(ds, draws=iter(key_stream(0, ref["n_val"], fshape)).__next__)
+    val = tr.evaluate(ds, draws=iter(key_stream(0, ref["n_val"], fshape,
+                                                family=family)).__next__)
     np.testing.assert_allclose(val, ref["val"], rtol=LOSS_RTOL)
