@@ -69,16 +69,35 @@ non-zero without a result line:
      p50, a profiled batch-64 request) and one Heun-500 request; one f32
      forward and one 25-step Euler chain, kernels vs twins; one short
      training epoch (phase 9's, without its gradient check) and
-     ``evaluate``.
+     ``evaluate``;
+ 12. the DDPM fast samplers at the serving config's width, each of
+     DDPM-DiT and DDPM-UNet with seeded random weights: DPM-Solver (20
+     steps) and Distilled-eta:1.0:8 through ``load_predictor``/
+     ``BatchingQueue`` (buckets 1 and 64, p50, a profiled batch-64 request),
+     one f32 10-step DPM-Solver chain kernels vs twins; then ``python -m
+     crowdmod_tpu_torch.cli distill`` on phase 10's DDPM-DiT checkpoint (8
+     → 4 steps, one epoch a phase), its ``D004`` checkpoint served by the
+     Distilled sampler at 4 steps, and one UNet ``progressive_distill``
+     phase in this process (ms a step, launches a step: two fused teacher
+     forwards, one unfused student forward);
+ 13. ConvRNN (GRU, 4 channels) at the configs' width: phase 9's training
+     (one short epoch, ``evaluate``, ms a step, busy share, peak memory),
+     serving at buckets 1 and 64, ``train`` then ``generate-metrics``
+     through the command line on phase 10's pickles, and one f32 forward
+     (teacher-forced) and one free rollout on the card against the same
+     weights on the CPU; no kernel of the port on any of its paths (its
+     convolutions are library calls, as they are XLA's in the JAX package).
 
 Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
 Each path is driven with the launch counts set to 0 just before it and read
 just after: phases 3-4 (DiT), phases 6-7 (UNet), the tap-GEMM run of
-phase 8, each model's training (phases 9 and 11), each model's protocol run
-(phase 10; the DiT's in its own process, FM-DiT's commands each in theirs)
-and each FM model's serving (phase 11); the counts are held to the
-launches each forward or training step makes (a CFG forward counts once).  The last two lines are a
+phase 8, each model's training (phases 9, 11 and 13), each model's protocol run
+(phase 10; the DiT's in its own process, FM-DiT's commands each in theirs),
+each FM model's serving (phase 11), each fast sampler's serving, the
+distillation runs and the D004 request (phase 12) and ConvRNN's serving and
+commands (phase 13); the counts are held to the launches each forward,
+training or distillation step makes (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
 """
 
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import statistics
 import subprocess
@@ -150,9 +170,10 @@ TRAIN_PER_STEP = {
     },
 }
 # FM-DiT (DiT2D) trains with dropout 0.1 too; FM-UNet has the DDPM UNet's
-# widths.
+# widths.  ConvRNN's convolutions are library calls: no kernel of the port.
 TRAIN_PER_STEP["FM-DiT"] = TRAIN_PER_STEP["DDPM-DiT"]
 TRAIN_PER_STEP["FM-UNet"] = TRAIN_PER_STEP["DDPM-UNet"]
+TRAIN_PER_STEP["ConvRNN"] = lambda cfg: {}
 # Kernel launches of one denoiser forward at the serving config's width:
 # the DiT's two attentions a block; the UNet's fused level-0 blocks, its
 # standalone convs and GroupNorms (the shape tables below) and 4 attentions
@@ -169,6 +190,7 @@ PER_FORWARD = {
     "FM-DiT": lambda cfg: {"fused_attention": cfg.MODEL.FM.DIT.DEPTH},
 }
 PER_FORWARD["FM-UNet"] = PER_FORWARD["DDPM-UNet"]
+PER_FORWARD["ConvRNN"] = lambda cfg: {}
 
 
 def log(phase: str, **numbers) -> None:
@@ -916,18 +938,23 @@ def phase_gn_plans() -> dict:
 # Phases 3-8
 # ---------------------------------------------------------------------------
 
+def write_config(cfg, path: Path) -> Path:
+    """``cfg`` as YAML at ``path``; → the path."""
+    import yaml
+
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+    return path
+
+
 def write_checkpoint(cfg, arch: str, workdir: Path) -> tuple[Path, str]:
     """The serving config with SAVE_DIR in ``workdir``, and a checkpoint of
     ``arch`` with seeded random weights, every parameter perturbed by
     N(0, 0.02²) (the zero-init AdaLN and final layer would otherwise make
     the DiT output 0)."""
-    import yaml
-
     from crowdmod_tpu_torch.train.trainer import Trainer
 
     cfg = cfg.updated({"DATA_FS": {"SAVE_DIR": str(workdir / "ckpts")}})
-    cfg_path = workdir / "ATC.yml"
-    cfg_path.write_text(yaml.safe_dump(cfg.to_dict()))
+    cfg_path = write_config(cfg, workdir / "ATC.yml")
     trainer = Trainer(cfg, arch, device=DEVICE, seed=SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
     for sd in (trainer.params, trainer.ema_params):
@@ -1126,12 +1153,33 @@ def twins_on_the_card():
             setattr(mod, name, fn)
 
 
+def hold_chain(label, chain_k, chain_t) -> int:
+    """A free-running chain's states with the kernels (``chain_k``, x_T
+    first) against the twins': each state after x_T within ``TOL["chain"]``,
+    except ρ elements whose sign flipped near 0 under Sparsity (at most
+    ``TOL["max_flip_share"]`` of a state's elements); → the flips."""
+    from crowdmod_tpu_torch.core import layout
+
+    if not torch.isfinite(chain_k).all():
+        raise AssertionError(f"{label}: chain output is not finite")
+    flips = 0
+    for step in range(1, len(chain_k)):
+        off = (chain_k[step] - chain_t[step]).abs() > TOL["chain"]
+        step_flips = int(off[..., layout.RHO].sum())
+        off_other = int(off.sum()) - step_flips
+        if off_other or step_flips > TOL["max_flip_share"] * off.numel():
+            raise AssertionError(
+                f"{label} chain kernels vs twins, step {step}: {off_other} "
+                f"non-rho elements and {step_flips} rho flips beyond {TOL['chain']}")
+        flips += step_flips
+    return flips
+
+
 def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
     """One f32 batch-64 forward and one free-running DDIM-eta chain, with
     the kernels (each conv kernel, for the UNet) and with the twins, on the
     card.  The tap-GEMM run is that kernel's path and its launches are
     returned."""
-    from crowdmod_tpu_torch.core import layout
     from crowdmod_tpu_torch.core.schedule import respaced_taus
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
     from crowdmod_tpu_torch.models.diffusion import ddim_eta_sample
@@ -1190,18 +1238,7 @@ def phase_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
             raise AssertionError(f"{arch}: the denoiser output is all but zero")
         if not fwd_err <= TOL["forward_f32"]:
             raise AssertionError(f"{arch} {impl} forward kernels vs twins: {fwd_err}")
-        if not torch.isfinite(chain_k).all():
-            raise AssertionError("chain output is not finite")
-        flips = 0
-        for step in range(1, len(chain_k)):  # each state after x_T
-            off = (chain_k[step] - chain_t[step]).abs() > TOL["chain"]
-            step_flips = int(off[..., layout.RHO].sum())
-            off_other = int(off.sum()) - step_flips
-            if off_other or step_flips > TOL["max_flip_share"] * off.numel():
-                raise AssertionError(
-                    f"{arch} {impl} chain kernels vs twins, step {step}: {off_other} "
-                    f"non-rho elements and {step_flips} rho flips beyond {TOL['chain']}")
-            flips += step_flips
+        flips = hold_chain(f"{arch} {impl}", chain_k, chain_t)
         res[impl] = dict(forward_max_abs_diff=fwd_err,
                          forward_abs_max=fwd_k.abs().max().item(),
                          chain_max_abs_diff=(chain_k - chain_t).abs().max().item(),
@@ -1220,27 +1257,35 @@ TRAIN_STEPS = 6  # one epoch of 6 batches
 
 
 def training_config(workdir: Path):
-    """``configs/ATC.yml`` (batch 64, bf16 compute) with EMA 0.999, one
-    epoch, no late checkpoints, files under ``workdir``."""
+    """``configs/ATC.yml`` (batch 64, bf16 compute) with EMA 0.999 (ConvRNN:
+    none, as configured), one epoch, no late checkpoints, files under
+    ``workdir``."""
     from crowdmod_tpu_torch.config import load_config
 
     train = {"TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.999}}
     return load_config("ATC.yml", overrides={
         "DATA_FS": {"SAVE_DIR": str(workdir / "ckpts"), "OUTPUT_DIR": str(workdir / "out")},
         "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train},
-                  "FM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train}},
+                  "FM": {"CHECKPOINTS_TO_KEEP": 0, "UNET": train, "DIT": train},
+                  "CONVRNN": {"CHECKPOINTS_TO_KEEP": 0, "TRAIN": {"EPOCHS": 1}}},
     })
 
 
-def walker_windows(cfg, n_windows: int, seed: int):
+def walker_windows(cfg, n_windows: int, seed: int, channels: int = 3):
     """``n_windows`` synthetic walker windows (two a 16-frame sequence, plus
-    N(0, 0.05²) so the rows differ) on the card."""
+    N(0, 0.05²) so the rows differ) on the card; ``channels=4`` adds a
+    σ²_v channel of |N(0, 0.05²)| (ρ kept ≥ 0 there too)."""
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
     from crowdmod_tpu_torch.data.windows import WindowDataset
 
     h, w = cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS
     raw = synthetic_walkers(n_windows // 2, h, w, 16)
-    raw = raw + np.random.default_rng(seed).normal(0, 0.05, raw.shape).astype(np.float32)
+    if channels == 4:
+        raw = np.concatenate([raw, np.zeros(raw.shape[:-1] + (1,), np.float32)], -1)
+    noise = np.random.default_rng(seed).normal(0, 0.05, raw.shape).astype(np.float32)
+    if channels == 4:
+        noise[..., (0, 3)] = np.abs(noise[..., (0, 3)])
+    raw = raw + noise
     return WindowDataset(torch.from_numpy(raw).to(DEVICE), past_len=cfg.DATASET.PAST_LEN,
                          future_len=cfg.DATASET.FUTURE_LEN, stride=8)
 
@@ -1358,8 +1403,9 @@ def phase_training(arch: str, workdir: Path) -> dict:
 
     cfg = training_config(workdir)
     batch = cfg.DATASET.BATCH_SIZE
-    train_ds = walker_windows(cfg, TRAIN_STEPS * batch, SEED + 3)
-    val_ds = walker_windows(cfg, batch, SEED + 4)
+    channels = 4 if arch == "ConvRNN" else 3
+    train_ds = walker_windows(cfg, TRAIN_STEPS * batch, SEED + 3, channels)
+    val_ds = walker_windows(cfg, batch, SEED + 4, channels)
     tr = Trainer(cfg, arch, device=DEVICE, seed=SEED, run_dir=str(workdir / "run"))
     step, step_ms = tr._train_step, []
 
@@ -1762,19 +1808,20 @@ def fm_forwards(cfg, requests: int) -> int:
     return requests * steps * (2 if node.INTEGRATOR == "Heun" else 1)
 
 
-def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) -> dict:
-    """``load_predictor`` at buckets 1 and 64 and a ``BatchingQueue`` at
-    Euler 1000, p50 per bucket, a profiled batch-64 request, then one
-    Heun-500 request; launches held per forward."""
+def serve_buckets(pred, arch: str, f_shape, buckets, label: str) -> dict:
+    """A ``BatchingQueue`` over ``pred`` taking three small clients beside
+    one request of the largest bucket, then the p50 of each bucket over
+    ``FM_P50_REPS`` requests and one profiled request of the largest
+    bucket; every output finite and of ``f_shape``."""
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
-    from crowdmod_tpu_torch.serving import BatchingQueue, Predictor, load_predictor
+    from crowdmod_tpu_torch.serving import BatchingQueue
 
-    per_forward = PER_FORWARD[arch](cfg)
-    before = launch_counts()
-    pred = load_predictor(str(cfg_path), arch, device=DEVICE, batch_buckets=FM_BUCKETS)
     p, f, h, w, c = pred.input_spec
-    big_b = FM_BUCKETS[-1]
+    big_b = buckets[-1]
     walkers = synthetic_walkers(max(big_b, 8), h, w, p + f)[:, :p]
+    if c == 4:  # ConvRNN: a σ²_v channel
+        walkers = np.concatenate([walkers, np.full(walkers.shape[:-1] + (1,), 0.05,
+                                                   np.float32)], -1)
 
     queue = BatchingQueue(pred, max_delay_ms=5.0)
     results, errors = [], []
@@ -1800,7 +1847,7 @@ def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) ->
         if out.shape != (n,) + f_shape or not np.isfinite(out).all():
             raise AssertionError(f"{arch}: bad output {out.shape} for a batch of {n}")
     p50 = {}
-    for b in FM_BUCKETS:
+    for b in buckets:
         lat = []
         for _ in range(FM_P50_REPS):
             t0 = time.perf_counter()
@@ -1808,7 +1855,26 @@ def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) ->
             lat.append(1e3 * (time.perf_counter() - t0))
         p50[b] = statistics.median(lat)
     profile = profile_busy(lambda: pred.predict(walkers[:big_b]),
-                           f"profile serving {arch} Euler b{big_b}")
+                           f"profile serving {label} b{big_b}")
+    return dict(requests=len(results), dispatches=queue.dispatches,
+                coalesced=queue.coalesced_requests,
+                p50_ms_per_bucket={str(k): v for k, v in p50.items()},
+                out_abs_mean=float(np.abs(big).mean()), profile=profile,
+                walkers=walkers[:big_b])
+
+
+def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) -> dict:
+    """``load_predictor`` at buckets 1 and 64 and a ``BatchingQueue`` at
+    Euler 1000, p50 per bucket, a profiled batch-64 request, then one
+    Heun-500 request; launches held per forward."""
+    from crowdmod_tpu_torch.serving import Predictor, load_predictor
+
+    per_forward = PER_FORWARD[arch](cfg)
+    before = launch_counts()
+    pred = load_predictor(str(cfg_path), arch, device=DEVICE, batch_buckets=FM_BUCKETS)
+    big_b = FM_BUCKETS[-1]
+    served = serve_buckets(pred, arch, f_shape, FM_BUCKETS, f"{arch} Euler")
+    walkers, profile = served["walkers"], served["profile"]
     euler = check_launches(f"{arch} serving Euler", before, per_forward,
                            fm_forwards(cfg, pred.stats.requests))
 
@@ -1816,7 +1882,7 @@ def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) ->
     heun = Predictor(heun_cfg, arch, ckpt_path, device=DEVICE, batch_buckets=(big_b,))
     before = launch_counts()
     t0 = time.perf_counter()
-    out = heun.predict(walkers[:big_b])
+    out = heun.predict(walkers)
     heun_s = time.perf_counter() - t0
     heun_launches = check_launches(f"{arch} serving Heun", before, per_forward,
                                    fm_forwards(heun_cfg, 1))
@@ -1824,11 +1890,11 @@ def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) ->
         raise AssertionError(f"{arch}: bad Heun output {out.shape}")
     node = cfg.MODEL.FM
     res = dict(arch=arch, integrator=node.INTEGRATOR, steps=node.INTEGRATOR_STEPS.EULER,
-               requests=len(results), dispatches=queue.dispatches,
-               coalesced=queue.coalesced_requests, buckets=FM_BUCKETS,
+               requests=served["requests"], dispatches=served["dispatches"],
+               coalesced=served["coalesced"], buckets=FM_BUCKETS,
                predictions=pred.stats.requests,
-               p50_ms_per_bucket={str(k): v for k, v in p50.items()},
-               out_abs_mean=float(np.abs(big).mean()), launches=euler,
+               p50_ms_per_bucket=served["p50_ms_per_bucket"],
+               out_abs_mean=served["out_abs_mean"], launches=euler,
                heun_steps=node.INTEGRATOR_STEPS.HEUN, heun_s=heun_s,
                heun_launches=heun_launches, busy_share=profile["busy_share"],
                device_busy_ms=profile["device_busy_ms"],
@@ -1915,8 +1981,6 @@ def phase_cli_fm(workdir: Path) -> dict:
     checkpoint served at Euler ``RF_EULER_STEPS``; FM-UNet's
     ``Trainer.generate_metrics`` in this process at
     ``FM_UNET_METRIC_STEPS`` Euler steps.  → the paths' launch counts."""
-    import yaml
-
     from crowdmod_tpu_torch.data import ingest
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
     from crowdmod_tpu_torch.serving import load_predictor
@@ -1959,8 +2023,7 @@ def phase_cli_fm(workdir: Path) -> dict:
 
     # The rectified checkpoint through the ordinary serving surface.
     rf_cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR_STEPS": {"EULER": RF_EULER_STEPS}}}})
-    rf_cfg_path = workdir / "ATC_rf.yml"
-    rf_cfg_path.write_text(yaml.safe_dump(rf_cfg.to_dict()))
+    rf_cfg_path = write_config(rf_cfg, workdir / "ATC_rf.yml")
     test_ds = ingest.get_test_dataset(cfg, 3, seed=CLI_SEED, device=DEVICE)
     past = test_ds.gather(np.arange(64))[0]
     before = launch_counts()
@@ -1995,6 +2058,326 @@ def phase_cli_fm(workdir: Path) -> dict:
         euler_steps=FM_UNET_METRIC_STEPS,
         euler_steps_configured=cfg.MODEL.FM.INTEGRATOR_STEPS.EULER, csv_files=files,
         arrays=len(data), launches=paths["metrics FM-UNet"])
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the DDPM fast samplers and progressive distillation
+# ---------------------------------------------------------------------------
+
+FAST_SPECS = ("DPM-Solver", "Distilled-eta:1.0:8")  # DPM_STEPS 20 (the default)
+FAST_BUCKETS = (1, 64)
+DPM_F32_STEPS = 10     # the f32 DPM-Solver chain held against the twins
+# `distill` on phase 10's DiT: 8 -> 4 steps, one epoch a phase (cut from the
+# command's 64 -> 8 and 8 epochs); the UNet's one phase in process, 4 steps.
+DISTILL_START, DISTILL_TARGET = 8, 4
+
+
+def fast_config(cfg, spec: str):
+    """``cfg`` serving the sampler ``spec`` (``utils.sampler_spec``), without
+    guidance: both fast samplers refuse it."""
+    from crowdmod_tpu_torch.utils.sampler_spec import sampler_overrides
+
+    return cfg.updated({"MODEL": {"DDPM": {**sampler_overrides(spec), "GUIDANCE": "None"}}})
+
+
+def sampler_forwards(cfg) -> int:
+    """Denoiser forwards of one fast-sampler request."""
+    node = cfg.MODEL.DDPM
+    return node.get("DPM_STEPS", 20) if node.SAMPLER == "DPM-Solver" else node.DISTILL_STEPS
+
+
+def phase_fast_serving(cfg, workdir: Path, arch: str, spec: str, f_shape) -> dict:
+    """``load_predictor`` with the sampler ``spec`` at buckets 1 and 64
+    through ``serve_buckets``; launches held per forward × the sampler's
+    forwards a request."""
+    from crowdmod_tpu_torch.serving import load_predictor
+
+    fcfg = fast_config(cfg, spec)
+    cfg_path = write_config(fcfg, workdir / f"ATC_{spec.split('-')[0]}.yml")
+    before = launch_counts()
+    pred = load_predictor(str(cfg_path), arch, device=DEVICE, batch_buckets=FAST_BUCKETS)
+    served = serve_buckets(pred, arch, f_shape, FAST_BUCKETS, f"{arch} {spec}")
+    forwards = sampler_forwards(fcfg)
+    launches = check_launches(f"{arch} {spec}", before, PER_FORWARD[arch](cfg),
+                              forwards * pred.stats.requests)
+    profile = served.pop("profile")
+    served.pop("walkers")
+    res = dict(arch=arch, spec=spec, forwards_per_request=forwards,
+               predictions=pred.stats.requests, **served, launches=launches,
+               busy_share=profile["busy_share"], device_busy_ms=profile["device_busy_ms"],
+               kernel_launches_profiled=profile["kernel_launches"])
+    log(f"serving {arch} {spec}", **res)
+    return res
+
+
+def phase_dpm_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
+    """One free-running f32 DPM-Solver chain of ``DPM_F32_STEPS`` steps from
+    the same x_T, with the kernels and with the twins, on the card (TF32
+    off), every state held as phase 8's."""
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.models.diffusion import dpm_solver_sample
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p, f, h, w = (cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN,
+                  cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS)
+    past = torch.from_numpy(synthetic_walkers(64, h, w, p + f)[:, :p]).to(DEVICE)
+    x_t = torch.randn((64, f, h, w, 3), generator=torch.Generator(device=DEVICE)
+                      .manual_seed(SEED + 14), device=DEVICE)
+    fcfg = fast_config(cfg, "DPM-Solver")
+
+    def run():
+        tr = Trainer(fcfg, arch, device=DEVICE, compute_dtype=torch.float32)
+        tr.load(ckpt_path)
+        with torch.no_grad():
+            chain = dpm_solver_sample(tr._denoise_fn(), tr.sched, past, tuple(x_t.shape),
+                                      steps=DPM_F32_STEPS, noise=lambda _: x_t,
+                                      history=True)[1]
+        torch.cuda.synchronize()
+        return chain
+
+    with twins_on_the_card():
+        chain_t = run()
+    before = launch_counts()
+    chain_k = run()
+    launches = check_launches(f"{arch} f32 DPM-Solver", before, PER_FORWARD[arch](cfg),
+                              DPM_F32_STEPS)
+    flips = hold_chain(f"{arch} DPM-Solver", chain_k, chain_t)
+    res = dict(arch=arch, steps=DPM_F32_STEPS, chain="free-running",
+               chain_max_abs_diff=(chain_k - chain_t).abs().max().item(),
+               chain_rho_flips=flips, moved=(chain_k[-1] - x_t).abs().max().item(),
+               tolerance=TOL["chain"], launches=launches)
+    log(f"end to end {arch} DPM-Solver-{DPM_F32_STEPS} kernels vs twins (f32)", **res)
+    return res
+
+
+def step_timer(draws):
+    """``draws`` that also records the card-synchronised time of each
+    distillation step's first draw ("k"): the steps' durations are the
+    differences."""
+    stamps = []
+
+    def timed(kind, shape, n=None):
+        if kind == "k":
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return draws(kind, shape, n)
+
+    return timed, stamps
+
+
+def phase_unet_distill(cli_dir: Path) -> dict:
+    """One UNet ``progressive_distill`` phase in this process (4 steps, one
+    epoch of phase 10's training windows, seeded random weights): ms per
+    step and launches held per step (two fused teacher forwards, one
+    unfused student forward)."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train.distiller import progressive_distill
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(str(cli_dir / "ATC.yml"), str(cli_dir / "ATC_datafiles.yml"))
+    arch = "DDPM-UNet"
+    tr = Trainer(cfg, arch, device=DEVICE, seed=SEED, run_dir=str(cli_dir / "unet_distill"))
+    tr.setup()
+    perturb_(tr.model, SEED + 15)
+    tr.ema_model.load_state_dict(tr.model.state_dict())
+    train_ds, _ = ingest.get_training_dataset(cfg, 3, seed=CLI_SEED, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+
+    def draws(kind, shape, n=None):
+        if kind == "k":
+            return torch.randint(1, n + 1, shape, generator=gen, device=DEVICE)
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    timed, stamps = step_timer(draws)
+    reset_launch_counts()  # the UNet's distillation path
+    t0 = time.perf_counter()
+    hist = progressive_distill(tr, train_ds, target_steps=DISTILL_TARGET,
+                               start_steps=DISTILL_TARGET, epochs_per_phase=1, draws=timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(stamps)
+    per_step = {k: 2 * v for k, v in PER_FORWARD[arch](cfg).items()}
+    for k, v in TRAIN_PER_STEP[arch](cfg).items():
+        per_step[k] = per_step.get(k, 0) + v
+    launches = hold_launches("UNet progressive_distill", launch_counts(), per_step, steps)
+    if not (steps == len(train_ds) // cfg.DATASET.BATCH_SIZE
+            and np.isfinite(hist["loss"][DISTILL_TARGET]).all()):
+        raise AssertionError(f"UNet distillation: {steps} steps, history {hist}")
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    res = dict(arch=arch, phase_steps=DISTILL_TARGET, batch=cfg.DATASET.BATCH_SIZE,
+               steps=steps, loss=hist["loss"][DISTILL_TARGET], wall_s=wall,
+               step_ms_median=statistics.median(step_ms[1:]),
+               launches_per_step=per_step, launches=launches)
+    log("progressive_distill DDPM-UNet b64", **res)
+    return res
+
+
+def phase_cli_distill(cli_dir: Path) -> dict:
+    """``python -m crowdmod_tpu_torch.cli distill`` on phase 10's DDPM-DiT
+    checkpoint (``DISTILL_START`` → ``DISTILL_TARGET`` steps, one epoch a
+    phase), launches from its log line, then its ``D004`` checkpoint served
+    by the Distilled sampler at ``DISTILL_TARGET`` steps."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.serving import load_predictor
+    from crowdmod_tpu_torch.train.distiller import distilled_tag
+
+    arch = "DDPM-DiT"
+    cfg = load_config(str(cli_dir / "ATC.yml"), str(cli_dir / "ATC_datafiles.yml"))
+    common = ["--config-yml-file", str(cli_dir / "ATC.yml"), "--configList-yml-file",
+              str(cli_dir / "ATC_datafiles.yml"), "--seed", str(CLI_SEED), "--arch", arch]
+    wall, out = run_cli("distill", "--start-steps", str(DISTILL_START), "--steps",
+                        str(DISTILL_TARGET), "--epochs-per-phase", "1", *common)
+    phases = int(np.log2(DISTILL_START // DISTILL_TARGET)) + 1
+    batches = CLI_SEQS * 2 // cfg.DATASET.BATCH_SIZE
+    # Each step: two teacher forwards and one student forward (eval mode, so
+    # the DiT's attention takes the kernel, with its gradient).
+    paths = {"cli distill DDPM-DiT": hold_launches(
+        "DiT distill", json.loads(logged(out, "kernel launches: ")),
+        PER_FORWARD[arch](cfg), 3 * batches * phases)}
+    # ms a step: the last phase's steps, between the two last phases' epoch
+    # log lines (their timestamps).
+    ends = [datetime.datetime.strptime(ln[:23], "%Y-%m-%d %H:%M:%S,%f")
+            for ln in out.splitlines() if "-step phase, epoch" in ln]
+    step_ms = 1e3 * (ends[-1] - ends[-2]).total_seconds() / batches
+
+    dcfg = cfg.updated({"MODEL": {"DDPM": {"SAMPLER": "Distilled", "GUIDANCE": "None",
+                                           "DISTILL_STEPS": DISTILL_TARGET,
+                                           "DISTILL_ETA": 1.0}}})
+    dcfg_path = write_config(dcfg, cli_dir / "ATC_distilled.yml")
+    past = ingest.get_test_dataset(cfg, 3, seed=CLI_SEED, device=DEVICE).gather(
+        np.arange(64))[0].cpu().numpy()
+    before = launch_counts()
+    pred = load_predictor(str(dcfg_path), arch, epoch_tag=distilled_tag(DISTILL_TARGET),
+                          device=DEVICE, batch_buckets=(64,))
+    pred.predict(past)  # first request: setup
+    t0 = time.perf_counter()
+    sample = pred.predict(past)
+    ms = 1e3 * (time.perf_counter() - t0)
+    paths["D004 DDPM-DiT"] = check_launches("D004 Distilled", before, PER_FORWARD[arch](cfg),
+                                            2 * DISTILL_TARGET)
+    if sample.shape != (64, cfg.DATASET.FUTURE_LEN, *past.shape[2:]) \
+            or not np.isfinite(sample).all():
+        raise AssertionError(f"D004 sampling: {sample.shape}")
+    log(f"cli DDPM-DiT: distill {DISTILL_START} -> {DISTILL_TARGET}", wall_s=wall,
+        steps=phases * batches, step_ms_last_phase=step_ms,
+        result=logged(out, "distillation complete: "),
+        launches=paths["cli distill DDPM-DiT"], d004_latency_ms=ms,
+        d004_out_abs_mean=float(np.abs(sample).mean()), d004_launches=paths["D004 DDPM-DiT"])
+    return paths
+
+
+def phase_fast(tmp: Path, cfg) -> dict:
+    """Phase 12, each DDPM model at the serving config's width: DPM-Solver
+    and Distilled-eta serving, the f32 DPM-Solver chain; then ``distill``
+    through the command line on phase 10's DiT and the UNet's distillation
+    phase in process.  → the paths' launch counts."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    paths = {}
+    for arch in ("DDPM-DiT", "DDPM-UNet"):
+        work = tmp / f"fast_{arch}"
+        work.mkdir()
+        cfg_path, ckpt_path = write_checkpoint(cfg, arch, work)
+        for spec in FAST_SPECS:
+            reset_launch_counts()  # this sampler's serving path
+            phase_fast_serving(load_config(str(cfg_path)), work, arch, spec, f_shape)
+            paths[f"serving {arch} {spec}"] = launch_counts()
+        phase_dpm_end_to_end(cfg, arch, ckpt_path)
+    reset_launch_counts()
+    paths.update(phase_cli_distill(tmp / "cli"))
+    paths["distill DDPM-UNet"] = phase_unet_distill(tmp / "cli")["launches"]
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: ConvRNN
+# ---------------------------------------------------------------------------
+
+CONVRNN_CHECK_BATCH = 16  # the f32 card-vs-CPU rows
+
+
+def phase_convrnn_cpu(cfg, ckpt_path: str) -> dict:
+    """The f32 forward (teacher-forced) and the free rollout (``sample``) on
+    the card against the same weights on the CPU (TF32 off): within 1e-4 and
+    1e-3 of max|CPU|."""
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ds = walker_windows(cfg, CONVRNN_CHECK_BATCH, SEED + 17, channels=4)
+    past, future = (x.cpu() for x in next(ds.batches(CONVRNN_CHECK_BATCH, shuffle=False)))
+    out = {}
+    for device in (DEVICE, "cpu"):
+        tr = Trainer(cfg, "ConvRNN", device=device, compute_dtype=torch.float32)
+        tr.load(ckpt_path)
+        with torch.no_grad():
+            fwd = tr.model(past.to(device), target=future.to(device), teacher_forcing=True)
+        out[device] = (fwd.cpu(), tr.sample(past).cpu())
+    res = {}
+    for i, (name, tol) in enumerate((("forward", TOL["forward_f32"]), ("rollout", TOL["chain"]))):
+        card, cpu = out[DEVICE][i], out["cpu"][i]
+        scale = cpu.abs().max().item()
+        err = (card - cpu).abs().max().item()
+        if not (torch.isfinite(card).all() and scale > 1e-3 and err <= tol * scale):
+            raise AssertionError(f"ConvRNN f32 {name} card vs CPU: {err} > {tol} x {scale}")
+        res[name] = dict(max_abs_err=err, scale=scale, tolerance=tol)
+    log(f"ConvRNN f32 card vs CPU b{CONVRNN_CHECK_BATCH}", **res)
+    return res
+
+
+def phase_convrnn(tmp: Path, cfg) -> dict:
+    """Phase 13: ConvRNN (GRU, 4 channels) at the configs' width: phase 9's
+    training, serving at buckets 1 and 64, ``train`` then
+    ``generate-metrics`` through the command line on phase 10's pickles,
+    and the f32 card-vs-CPU check; no kernel of the port launched on any
+    of its paths.  → the paths' launch counts."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.serving import load_predictor
+
+    arch = "ConvRNN"
+    work = tmp / arch
+    work.mkdir()
+    paths = {f"train {arch}": phase_training(arch, work / "train")["path_launches"]}
+
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 4)
+    cfg_path, ckpt_path = write_checkpoint(cfg, arch, work)
+    reset_launch_counts()  # ConvRNN's serving path
+    pred = load_predictor(str(cfg_path), arch, device=DEVICE, batch_buckets=FAST_BUCKETS)
+    served = serve_buckets(pred, arch, f_shape, FAST_BUCKETS, arch)
+    paths[f"serving {arch}"] = hold_launches(f"{arch} serving", launch_counts(), {}, 0)
+    profile = served.pop("profile")
+    served.pop("walkers")
+    log(f"serving {arch}", predictions=pred.stats.requests, **served,
+        busy_share=profile["busy_share"], device_busy_ms=profile["device_busy_ms"],
+        kernel_launches_profiled=profile["kernel_launches"], launches=paths[f"serving {arch}"])
+
+    cli = tmp / "cli"
+    ccfg = load_config(str(cli / "ATC.yml"), str(cli / "ATC_datafiles.yml"))
+    common = ["--config-yml-file", str(cli / "ATC.yml"), "--configList-yml-file",
+              str(cli / "ATC_datafiles.yml"), "--seed", str(CLI_SEED), "--arch", arch]
+    train_s, train_out = run_cli("train", "--epochs", "1", *common)
+    gen_s, gen_out = run_cli(
+        "generate-metrics", "--metric", "ALL", "--chunk-repd-past-seq", str(METRIC_CHUNK),
+        "--batches-to-use", "1", "--output-dir", str(work / "metrics"), *common)
+    nsamples = ccfg.DATASET.BATCH_SIZE * METRIC_CHUNK
+    files = check_metric_files(work / "metrics", ccfg, arch, nsamples)
+    for cmd, out in (("train", train_out), ("generate-metrics", gen_out)):
+        paths[f"cli {cmd} {arch}"] = hold_launches(
+            f"{arch} {cmd}", json.loads(logged(out, "kernel launches: ")), {}, 0)
+    log(f"cli {arch}: train -> generate-metrics ALL", train_wall_s=train_s,
+        generate_metrics_wall_s=gen_s, protocol=logged(gen_out, "metric protocol: "),
+        train_windows=logged(train_out, "train windows: "),
+        mprops=logged(train_out, "loading training data "), csv_files=files)
+    phase_convrnn_cpu(cfg, ckpt_path)
     return paths
 
 
@@ -2080,6 +2463,8 @@ def main() -> int:
         paths.update(timed("10 cli", phase_cli, Path(tmp) / "cli"))
         paths.update(timed("10 cli fm", phase_cli_fm, Path(tmp) / "cli_fm"))
         paths.update(timed("11 fm", phase_fm, Path(tmp), cfg))
+        paths.update(timed("12 fast", phase_fast, Path(tmp), cfg))
+        paths.update(timed("13 convrnn", phase_convrnn, Path(tmp), cfg))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

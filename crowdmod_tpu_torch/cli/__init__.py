@@ -2,12 +2,14 @@
 
 ``python -m crowdmod_tpu_torch.cli <command> ...`` runs:
 
-  * ``train``            — train DDPM-UNet, DDPM-DiT, FM-UNet or FM-DiT on
+  * ``train``            — train DDPM-UNet, DDPM-DiT, FM-UNet, FM-DiT or ConvRNN on
     the macroprop pickles of a config's DATA_LIST;
   * ``generate-metrics`` — the repeated-past protocol and the metric suite
     of a trained checkpoint → CSVs and the ``metrics_files.json`` manifest;
   * ``reflow``           — rectify a trained FM model (ReFlow) → its ``RF<n>``
-    checkpoint, which samples in a few Euler steps.
+    checkpoint, which samples in a few Euler steps;
+  * ``distill``          — progressively distill a trained DDPM → its
+    ``D<steps>`` checkpoint, which samples with the Distilled sampler.
 
 Each runs on the GPU unless given ``--device cpu``.  The JAX package's other
 commands are not ported yet; each exits with status 2 and names its
@@ -26,6 +28,7 @@ COMMANDS = {
     "train": "crowdmod_tpu_torch.cli.train",
     "generate-metrics": "crowdmod_tpu_torch.cli.generate_metrics",
     "reflow": "crowdmod_tpu_torch.cli.reflow",
+    "distill": "crowdmod_tpu_torch.cli.distill",
 }
 
 # The JAX package's other commands → the ROADMAP.md Queue 1 item that ports
@@ -34,7 +37,6 @@ NOT_PORTED = {
     "etl": "item 15 (data at scale)",
     "generate-samples": "item 17 (viz: its output is plots)",
     "sweep": "item 17",
-    "distill": "item 11 (fast samplers and distillation)",
     "serve": "item 14 (serving)",
     "import-checkpoint": "item 17",
     "export": "item 14 (serving)",
@@ -58,7 +60,7 @@ def common_parser(description: str) -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--arch", type=str, default="DDPM-UNet",
-        help="DDPM-UNet|DDPM-DiT|FM-UNet|FM-DiT",
+        help="DDPM-UNet|DDPM-DiT|FM-UNet|FM-DiT|ConvRNN",
     )
     p.add_argument("--seed", type=int, default=42)
     p.add_argument(

@@ -1,6 +1,7 @@
 """Training entry point (the JAX package's ``cli/train.py``).
 
-Trains DDPM-UNet, DDPM-DiT, FM-UNet or FM-DiT through :class:`~crowdmod_tpu_torch.train.
+Trains DDPM-UNet, DDPM-DiT, FM-UNet, FM-DiT or ConvRNN (which reads all 4
+channels of the pickles) through :class:`~crowdmod_tpu_torch.train.
 trainer.Trainer` on the config's macroprop pickles, logging through
 :class:`~crowdmod_tpu_torch.utils.tracker.RunTracker` (``events.jsonl`` and
 ``config.json`` in the run directory) and keeping the best-loss checkpoint

@@ -1,4 +1,4 @@
-"""Carry the JAX package's DiT and UNet3D weights into the port.
+"""Carry the JAX package's DiT, UNet3D and ConvRNN weights into the port.
 
 :func:`state_dict_from_jax` turns a flax parameter tree (nested dicts of
 numpy arrays, as ``model.init(...)["params"]`` gives them) into the port's
@@ -21,7 +21,14 @@ inverse of the JAX package's ``compat/torch_import.py``:
 * ``_import_unet3d``: conv kernels go back to Conv3d ``(O, I, kh, kw, kl)``,
   and the flax names (``enc_{level}_{i}``, ``down_{level}``, ``mid_*``,
   ``dec_{level}_{i}``, ``up_{level}``) to the reference's ModuleList indices,
-  where ResnetBlocks and Down/UpSamples interleave.
+  where ResnetBlocks and Down/UpSamples interleave;
+* ``_import_convrnn``, ``_cell``, ``_conv2d`` and ``_convT2d``: conv
+  kernels go back to Conv2d ``(O, I, kh, kw)``, the transpose kernels to
+  ConvTranspose2d ``(I, O, kh, kw)`` with the spatial flip undone, the
+  fused GRU ``gates`` conv is split into ``reset_gate`` (its first
+  ``hidden`` output channels) and ``update_gate``, and the flax names to
+  the reference's ``encoder.encoder_cell_list`` and
+  ``forecaster_cell_list`` indices.
 
 Pure numpy, then ``torch.from_numpy``; nothing of JAX is imported.
 """
@@ -113,18 +120,62 @@ def _unet3d(params: dict) -> dict[str, np.ndarray]:
     return sd
 
 
-BACKBONES = ("unet3d", "dit4d_factorized", "dit2d", "dit4d_joint", "dit4d_tube")
+def _conv2d(tree: dict, prefix: str, out: dict) -> None:
+    # flax (kh, kw, I, O) → torch Conv2d (O, I, kh, kw).
+    out[f"{prefix}.weight"] = np.asarray(tree["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = np.asarray(tree["bias"])
+
+
+def _conv_t2d(tree: dict, prefix: str, out: dict) -> None:
+    # flax ConvTranspose (kh, kw, I, O), spatially flipped against the
+    # reference → torch ConvTranspose2d (I, O, kh, kw).
+    out[f"{prefix}.weight"] = np.asarray(tree["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = np.asarray(tree["bias"])
+
+
+def _cell(tree: dict, prefix: str, out: dict) -> None:
+    if "candidate" not in tree:  # ConvLSTM: one 4-gate conv
+        _conv2d(tree["gates"], f"{prefix}.conv", out)
+        return
+    gates = tree["gates"]  # ConvGRU: [reset | update] along the outputs
+    hidden = np.shape(gates["kernel"])[-1] // 2
+    for name, part in (("reset_gate", slice(0, hidden)),
+                       ("update_gate", slice(hidden, 2 * hidden))):
+        half = {"kernel": np.asarray(gates["kernel"])[..., part]}
+        if "bias" in gates:
+            half["bias"] = np.asarray(gates["bias"])[part]
+        _conv2d(half, f"{prefix}.{name}", out)
+    _conv2d(tree["candidate"], f"{prefix}.conv_cand", out)
+
+
+def _convrnn(params: dict) -> dict[str, np.ndarray]:
+    sd: dict[str, np.ndarray] = {}
+    enc, pre = params["encoder"], "encoder.encoder_cell_list"
+    for i, (name, fn) in enumerate((("conv1", _conv2d), ("rnn1", _cell), ("down1", _conv2d),
+                                    ("rnn2", _cell), ("down2", _conv2d), ("rnn3", _cell))):
+        fn(enc[name], f"{pre}.{i}", sd)
+    for i, (name, fn) in enumerate((("frnn1", _cell), ("fup1", _conv_t2d), ("frnn2", _cell),
+                                    ("fup2", _conv_t2d), ("frnn3", _cell),
+                                    ("fconv4", _conv2d), ("head", _conv2d))):
+        fn(params[name], f"forecaster_cell_list.{i}", sd)
+    return sd
+
+
+BACKBONES = ("unet3d", "dit4d_factorized", "dit2d", "dit4d_joint", "dit4d_tube",
+             "convrnn")
 
 
 def state_dict_from_jax(params: dict, backbone: str | None = None, *,
                         future_len: int | None = None) -> dict[str, torch.Tensor]:
-    """Flax params of a UNet3D or DiT → the port's (reference-layout)
-    state_dict, float32 and contiguous.
+    """Flax params of a UNet3D, DiT or ConvRNN → the port's
+    (reference-layout) state_dict, float32 and contiguous.
 
     ``backbone`` (a name of :data:`BACKBONES`, as ``torch_import`` names
-    them) is read from the tree when None: the UNet, the factorized DiT, and
-    DiT2D (a joint-attention tree with a one-frame patch; a DiT4DJoint with
-    t_patch 1 computes the same function).  DiT4DJoint and DiT4DTube trees
+    them) is read from the tree when None: the UNet, the ConvRNN, the
+    factorized DiT, and DiT2D (a joint-attention tree with a one-frame
+    patch; a DiT4DJoint with t_patch 1 computes the same function).  DiT4DJoint and DiT4DTube trees
     must be named, the tube's with its ``future_len``."""
     if backbone is None:
         backbone = _detect(params)
@@ -133,7 +184,7 @@ def state_dict_from_jax(params: dict, backbone: str | None = None, *,
     if backbone == "dit4d_tube":
         sd = _dit4d_tube(params, future_len)
     else:
-        sd = {"unet3d": _unet3d, "dit2d": _dit2d,
+        sd = {"unet3d": _unet3d, "dit2d": _dit2d, "convrnn": _convrnn,
               "dit4d_factorized": lambda p: _dit4d(p, _FACTORIZED_ATTN),
               "dit4d_joint": lambda p: _dit4d(p, _JOINT_ATTN)}[backbone](params)
     return {
@@ -145,6 +196,8 @@ def state_dict_from_jax(params: dict, backbone: str | None = None, *,
 def _detect(params: dict) -> str:
     if "first" in params:
         return "unet3d"
+    if "encoder" in params and "frnn1" in params:
+        return "convrnn"
     if "spatial_attn" in params["block_0"]:
         return "dit4d_factorized"
     if np.shape(params["patch_embed"]["Conv_0"]["kernel"])[0] == 1:

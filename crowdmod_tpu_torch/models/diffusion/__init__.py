@@ -8,6 +8,17 @@ from crowdmod_tpu_torch.models.diffusion.ddpm import (
     gaussian_noise,
     prediction_target,
 )
+from crowdmod_tpu_torch.models.diffusion.distill import (
+    ddim_det_step,
+    distill_grid,
+    distill_loss,
+    distill_targets,
+    distilled_sample,
+)
+from crowdmod_tpu_torch.models.diffusion.dpm_solver import (
+    dpm_solver_sample,
+    dpm_timesteps,
+)
 
 __all__ = [
     "as_eps_fn",
@@ -18,4 +29,11 @@ __all__ = [
     "ddim_sample",
     "ddim_eta_sample",
     "ddim_eta_step",
+    "dpm_timesteps",
+    "dpm_solver_sample",
+    "distill_grid",
+    "ddim_det_step",
+    "distill_targets",
+    "distill_loss",
+    "distilled_sample",
 ]

@@ -1,11 +1,9 @@
 """Architecture registry: config node → backbone module (port of the JAX
-package's ``models/factory.py``: the DDPM and FM branches).
+package's ``models/factory.py``).
 
 Arch strings ``DDPM-UNet | DDPM-DiT | FM-UNet | FM-DiT | ConvRNN`` select
-both the generative family and the backbone, with hyperparameters read from
-the ``MODEL.{DDPM,FM,CONVRNN}.{UNET,DIT}`` config nodes.  ConvRNN is not
-ported yet and raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+both the model family and the backbone, with hyperparameters read from the
+``MODEL.{DDPM,FM}.{UNET,DIT}`` and ``MODEL.CONVRNN`` config nodes.
 """
 
 from __future__ import annotations
@@ -16,11 +14,6 @@ from torch import nn
 from crowdmod_tpu_torch.config import FrozenConfig
 
 ARCHS = ("DDPM-UNet", "DDPM-DiT", "FM-UNet", "FM-DiT", "ConvRNN")
-
-# Arch → the ROADMAP.md Queue 1 item that ports its backbone.
-_NOT_PORTED = {
-    "ConvRNN": "Queue 1 item 13 (ConvRNN)",
-}
 
 
 def backbone_cfg(cfg: FrozenConfig, arch: str) -> FrozenConfig:
@@ -37,9 +30,9 @@ def build_backbone(
     dtype: torch.dtype = torch.float32,
     conv_impl: str = "im2col",
 ) -> nn.Module:
-    """Instantiate the denoiser backbone for ``arch`` (on the CPU; the
-    caller moves it).  ``conv_impl`` picks the UNet's conv kernel;
-    ``TPU.REMAT`` recomputes each block in the backward pass."""
+    """Instantiate the backbone for ``arch`` (on the CPU; the caller moves
+    it).  ``conv_impl`` picks the UNet's conv kernel; ``TPU.REMAT``
+    recomputes each DiT or UNet block in the backward pass."""
     remat = bool(cfg.get_path("TPU.REMAT", False))
     if arch in ("DDPM-UNet", "FM-UNet"):
         from crowdmod_tpu_torch.models.backbones.unet3d import UNet3D
@@ -84,9 +77,23 @@ def build_backbone(
             return dit.DiT4DFactorized(t_patch_size=node.T_PATCH_SIZE, **common)
         # FM-DiT: the per-frame DiT2D.
         return dit.DiT2D(**common)
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to PyTorch yet: ROADMAP.md "
-            f"{_NOT_PORTED[arch]}"
+    if arch == "ConvRNN":
+        from crowdmod_tpu_torch.models.convrnn import CELLS, Forecaster
+
+        node = cfg.MODEL.CONVRNN
+        try:
+            cell = CELLS[node.CELL_CLASS]
+        except KeyError:
+            raise ValueError(
+                f"unknown cell class {node.CELL_CLASS!r}; expected {list(CELLS)}"
+            ) from None
+        return Forecaster(
+            out_channels=mprops_count,
+            enc_hidden_channels=tuple(node.ENC_HIDDEN_CH),
+            forc_hidden_channels=tuple(node.FORC_HIDDEN_CH),
+            enc_kernels=tuple(node.ENC_KERNELS),
+            forc_kernels=tuple(node.FORC_KERNELS),
+            cell=cell,
+            dtype=dtype,
         )
     raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")

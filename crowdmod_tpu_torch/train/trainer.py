@@ -1,8 +1,8 @@
 """Trainer for the DDPM and flow-matching families, with the DiT or UNet3D
-backbone (port of the JAX package's ``train/trainer.py``: ``_loss_fn``,
-``setup``, ``fit``, ``evaluate``, ``resume_from_abort``, ``save``/``load``,
-``sample`` and the metric protocol,
-``select_ids``/``select_past``/``generate_metrics``).
+backbone, and for the ConvRNN forecaster (port of the JAX package's
+``train/trainer.py``: ``_loss_fn``, ``setup``, ``fit``, ``evaluate``,
+``resume_from_abort``, ``save``/``load``, ``sample`` with every sampler and
+the metric protocol, ``select_ids``/``select_past``/``generate_metrics``).
 
 Weights: ``model`` holds the live training weights; with EMA on, the train
 state's second module (``ema_model``) holds their moving average, and
@@ -41,12 +41,15 @@ from crowdmod_tpu_torch.core.schedule import (
 from crowdmod_tpu_torch.data.windows import WindowDataset
 from crowdmod_tpu_torch.metrics.generator import MetricsEngine, compute_metrics
 from crowdmod_tpu_torch.models import factory
+from crowdmod_tpu_torch.models.convrnn import convrnn_loss, exp_log_channels
 from crowdmod_tpu_torch.models.diffusion import (
     as_eps_fn,
     ddim_eta_sample,
     ddim_sample,
     ddpm_loss,
     ddpm_sample,
+    distilled_sample,
+    dpm_solver_sample,
 )
 from crowdmod_tpu_torch.models.diffusion.ddpm import Noise
 from crowdmod_tpu_torch.models.flow_matching import INTEGRATORS, fm_loss
@@ -60,6 +63,14 @@ from crowdmod_tpu_torch.train.optim import (
 )
 from crowdmod_tpu_torch.train.state import TrainState, ema_copy, train_step
 from crowdmod_tpu_torch.utils.tracker import RunTracker
+
+
+def solver_node(cfg: FrozenConfig, arch: str) -> FrozenConfig:
+    """The ``TRAIN`` node of ``arch``: ``MODEL.CONVRNN.TRAIN`` or the
+    backbone's."""
+    if arch == "ConvRNN":
+        return cfg.MODEL.CONVRNN.TRAIN
+    return factory.backbone_cfg(cfg, arch).TRAIN
 
 
 def resolve_device(device) -> torch.device:
@@ -122,12 +133,9 @@ class Trainer:
         self.cfg = cfg
         self.arch = arch
         self.family = "ConvRNN" if arch == "ConvRNN" else arch.split("-")[0]
-        if self.family not in ("DDPM", "FM"):
-            raise NotImplementedError(
-                f"the {self.family} family is not ported to PyTorch yet: "
-                "ROADMAP.md Queue 1 item 13"
-            )
-        self.mprops_count = mprops_count if mprops_count is not None else 3
+        # ConvRNN models all 4 macroprops; the generative models 3.
+        self.mprops_count = (mprops_count if mprops_count is not None
+                             else (4 if arch == "ConvRNN" else 3))
         if compute_dtype is None:
             # bf16 where the JAX package would use it, with the card in the
             # TPU's place; float32 on the CPU.
@@ -148,7 +156,7 @@ class Trainer:
         # "ema" (EMA weights when present) or "raw" (the training weights).
         self.sample_weights = "ema"
         self.run_dir = run_dir or os.path.join(cfg.DATA_FS.OUTPUT_DIR, "runs", arch)
-        train = factory.backbone_cfg(cfg, arch).TRAIN
+        train = solver_node(cfg, arch)
         self.total_epochs = train.EPOCHS
         self.ema_decay = float(train.get("EMA_DECAY", 0.0))
         solver = train.SOLVER
@@ -167,9 +175,9 @@ class Trainer:
         self._resumed = False
 
     def _new_state(self) -> TrainState:
-        solver = factory.backbone_cfg(self.cfg, self.arch).TRAIN.SOLVER
+        solver = solver_node(self.cfg, self.arch).SOLVER
         opt = adam(self.model.parameters(), self.plateau.lr, tuple(solver.BETAS),
-                   solver.WEIGHT_DECAY)
+                   solver.WEIGHT_DECAY, amsgrad=self.arch == "ConvRNN")
         return TrainState(self.model, opt, ema_decay=self.ema_decay)
 
     @property
@@ -199,6 +207,17 @@ class Trainer:
         """Loss closure ``(batch, draws) -> loss``; ``deterministic=True``
         is the eval variant: dropout and the CFG condition drop off."""
         model, sched, device = self.model, self.sched, self.device
+        if self.family == "ConvRNN":
+            tf = bool(self.cfg.MODEL.CONVRNN.TEACHER_FORCING)
+            eps = self.cfg.MACROPROPS.EPS
+
+            def convrnn(batch, draws: StepDraws) -> torch.Tensor:
+                past, future = (x.to(device) for x in batch)
+                pred = model(past, target=future, teacher_forcing=tf)
+                rho_loss, vel_loss, _, _ = convrnn_loss(pred, future, eps)
+                return rho_loss + vel_loss
+
+            return convrnn
         node = getattr(self.cfg.MODEL, self.family)  # MODEL.DDPM or MODEL.FM
         cfg_drop = float(node.get("CFG_DROP_PROB", 0.0))
 
@@ -504,13 +523,19 @@ class Trainer:
         with the configured sampler; returns ``(N, F, H, W, C)`` on the
         trainer's device.  Draws come from ``generator`` (a generator on that
         device) unless ``noise`` injects them (see
-        :mod:`crowdmod_tpu_torch.models.diffusion.ddpm`)."""
+        :mod:`crowdmod_tpu_torch.models.diffusion.ddpm`).  ConvRNN draws
+        nothing: its rollout is deterministic."""
         past = torch.as_tensor(past, dtype=torch.float32, device=self.device)
         return self._sample_impl(past, generator, noise=noise, history=history)
 
     def _sample_impl(self, past, generator, *, noise=None, history=False):
         _, f, h, w = self._grid_shapes()
         shape = (past.shape[0], f, h, w, self.mprops_count)
+        if self.family == "ConvRNN":
+            # The deterministic rollout, density and variance exp'd out of
+            # log space.
+            out = self._sample_model().eval()(past, future_len=f, teacher_forcing=False)
+            return exp_log_channels(out)
         if self.family == "FM":
             # The integrators keep no trajectory: ``history`` is ignored, as
             # in the JAX package.
@@ -546,10 +571,38 @@ class Trainer:
                 fn, self.sched, past, shape, taus,
                 eta=node.get("ETA", 1.0), **common,
             )
-        if node.SAMPLER in ("DPM-Solver", "Distilled"):
-            raise NotImplementedError(
-                f"the {node.SAMPLER} sampler is not ported to PyTorch yet: "
-                "ROADMAP.md Queue 1 item 11"
+        if node.SAMPLER == "DPM-Solver":
+            # Guidance is not implemented on this path: a guided config is
+            # refused rather than sampled unguided.
+            if node.GUIDANCE not in ("None", None):
+                raise ValueError(
+                    "the DPM-Solver sampler does not implement "
+                    f"guidance; got GUIDANCE={node.GUIDANCE!r} — use "
+                    "DDPM, DDIM, or DDIM-eta for guided sampling"
+                )
+            return dpm_solver_sample(
+                fn, self.sched, past, shape, steps=node.get("DPM_STEPS", 20),
+                noise=noise, generator=generator, device=self.device, history=history,
+            )
+        if node.SAMPLER == "Distilled":
+            # A distilled student jumps along the trajectories it was trained
+            # on; guidance (or a CFG-scaled denoiser) would push x off them.
+            if node.GUIDANCE not in ("None", None):
+                raise ValueError(
+                    "the Distilled sampler is guidance-free; trained "
+                    f"trajectories ignore GUIDANCE={node.GUIDANCE!r}"
+                )
+            if float(node.get("CFG_SCALE", 1.0)) != 1.0:
+                raise ValueError(
+                    "the Distilled sampler is guidance-free; a CFG-"
+                    "scaled denoiser would push x off the trajectory "
+                    f"the student was trained on (CFG_SCALE="
+                    f"{node.CFG_SCALE})"
+                )
+            return distilled_sample(
+                fn, self.sched, past, shape, node.get("DISTILL_STEPS", 8),
+                eta=float(node.get("DISTILL_ETA", 0.0)), noise=noise,
+                generator=generator, device=self.device, history=history,
             )
         if node.SAMPLER != "DDPM":
             raise ValueError(f"unknown DDPM sampler {node.SAMPLER!r}")

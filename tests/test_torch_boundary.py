@@ -59,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
         "import crowdmod_tpu_torch.models.flow_matching\n"
         "import crowdmod_tpu_torch.models.backbones.dit\n"
         "import crowdmod_tpu_torch.train.distiller\n"
-        "import crowdmod_tpu_torch.cli.reflow\n"
+        "import crowdmod_tpu_torch.cli.reflow, crowdmod_tpu_torch.cli.distill\n"
+        "import crowdmod_tpu_torch.models.convrnn, crowdmod_tpu_torch.utils.sampler_spec\n"
+        "import crowdmod_tpu_torch.models.diffusion.dpm_solver\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -82,7 +84,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config("4test/ATC.yml")
-    for arch in ("DDPM-DiT", "DDPM-UNet", "FM-DiT", "FM-UNet"):
+    for arch in ("DDPM-DiT", "DDPM-UNet", "FM-DiT", "FM-UNet", "ConvRNN"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Predictor(cfg, arch, str(tmp_path))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -91,17 +93,30 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 
 def test_unported_archs_name_their_roadmap_item():
+    """Every arch the JAX package builds is ported now (ConvRNN, the last,
+    builds the forecaster from ``MODEL.CONVRNN``); an unknown arch or cell
+    class still raises."""
     from crowdmod_tpu_torch.config import load_config
-    from crowdmod_tpu_torch.models.factory import build_backbone
+    from crowdmod_tpu_torch.models import factory
     from crowdmod_tpu_torch.train.trainer import Trainer
 
-    cfg = load_config("4test/ATC.yml")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        build_backbone(cfg, "ConvRNN")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        Trainer(cfg, "ConvRNN", device="cpu")
+    cfg = load_config("4test/ATC.yml").updated({"MODEL": {"CONVRNN": {
+        "ENC_HIDDEN_CH": [4, 6, 6, 8, 8, 8], "FORC_HIDDEN_CH": [8, 8, 8, 8, 8, 6, 4]}}})
+    assert not hasattr(factory, "_NOT_PORTED")
+    model = factory.build_backbone(cfg, "ConvRNN", 4)
+    assert type(model).__name__ == "Forecaster"
+    assert "encoder.encoder_cell_list.1.reset_gate.weight" in model.state_dict()
+    assert "forecaster_cell_list.6.weight" in model.state_dict()
+    tr = Trainer(cfg, "ConvRNN", device="cpu")
+    assert tr.mprops_count == 4 and tr.family == "ConvRNN"
     with pytest.raises(ValueError, match="unknown arch"):
-        build_backbone(cfg, "DDPM-Nope")
+        factory.build_backbone(cfg, "DDPM-Nope")
+    lstm = cfg.updated({"MODEL": {"CONVRNN": {"CELL_CLASS": "ConvLSTMCell"}}})
+    assert "encoder.encoder_cell_list.1.conv.weight" in factory.build_backbone(
+        lstm, "ConvRNN").state_dict()
+    with pytest.raises(ValueError, match="unknown cell class"):
+        factory.build_backbone(cfg.updated({"MODEL": {"CONVRNN": {"CELL_CLASS": "Nope"}}}),
+                               "ConvRNN")
 
 
 @pytest.mark.parametrize("arch,module", [("FM-UNet", "UNet3D"), ("FM-DiT", "DiT2D")])

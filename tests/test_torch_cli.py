@@ -1,11 +1,12 @@
 """The port's command line (``python -m crowdmod_tpu_torch.cli``) against
 the JAX package's on the tiny pickle workspace (``conftest.workspace``):
-``train`` then ``generate-metrics`` (DDPM-UNet, and FM-DiT followed by
-``reflow``), on the CPU, give the same checkpoint names, run files, metric
-CSV names, headers and columns and manifest keys as ``crowdmod_tpu.cli``'s
-run (the JAX run also writes ``losses.png`` and boxplot PNGs, which wait
-for the port's plotting module).  Commands not ported yet exit 2 and name
-their ROADMAP.md item."""
+``train`` then ``generate-metrics`` (DDPM-UNet, then ``distill``; FM-DiT
+followed by ``reflow``; ConvRNN on the pickles' 4 channels), on the CPU,
+give the same checkpoint names and metadata keys, run files, metric CSV
+names, headers and columns and manifest keys as ``crowdmod_tpu.cli``'s run
+(the JAX run also writes ``losses.png`` and boxplot PNGs, which wait for
+the port's plotting module).  Commands not ported yet exit 2 and name their
+ROADMAP.md item."""
 
 import json
 import os
@@ -16,20 +17,22 @@ import pytest
 import torch
 import yaml
 
+from crowdmod_tpu.cli import distill as jax_distill
 from crowdmod_tpu.cli import generate_metrics as jax_generate_metrics
 from crowdmod_tpu.cli import main as jax_main
 from crowdmod_tpu.cli import reflow as jax_reflow
 from crowdmod_tpu.cli import train as jax_train
 from crowdmod_tpu_torch import cli
-from crowdmod_tpu_torch.cli import generate_metrics, reflow, train
+from crowdmod_tpu_torch.cli import distill, generate_metrics, reflow, train
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _port_cli(*args):
+def _port_cli(*args, env=None):
     return subprocess.run(
         [sys.executable, "-m", "crowdmod_tpu_torch.cli", *args],
         capture_output=True, text=True, cwd=REPO_ROOT, timeout=300,
+        env=None if env is None else {**os.environ, **env},
     )
 
 
@@ -90,6 +93,22 @@ def test_train_then_generate_metrics_match_jax(workspace):
     assert not [p for p in os.listdir(ws["tmp"] / "metrics") if p.endswith(".png")]
     assert os.path.exists(ws["tmp"] / "out" / "logs" / "genMetrics.log")
 
+    # distill on the trained checkpoint (T = 5: one phase, 2 → 1 steps).
+    steps = ["--steps", "1", "--start-steps", "2", "--epochs-per-phase", "1"]
+    r = _port_cli("distill", *common, *steps, "--device", "cpu")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "distillation complete" in r.stdout and "kernel launches" in r.stdout
+    assert jax_distill.run(jcommon + steps) == 0
+    names = sorted(os.listdir(ws["tmp"] / "ckpts"))
+    assert names == sorted(os.listdir(ws["tmp"] / "jax_ckpts"))
+    d001 = [n for n in names if "_CED001" in n]
+    assert len(d001) == 1
+    meta = json.loads((ws["tmp"] / "ckpts" / d001[0] / "metadata.json").read_text())
+    jax_meta = json.loads((ws["tmp"] / "jax_ckpts" / d001[0] / "metadata.json").read_text())
+    assert sorted(meta) == sorted(jax_meta)
+    assert meta["distilled_steps"] == jax_meta["distilled_steps"] == 1
+    assert os.path.exists(ws["tmp"] / "out" / "logs" / "distill.log")
+
 
 def _fm_workspace(ws):
     """The workspace config with a small FM-DiT (hidden 32, depth 1) and a
@@ -141,6 +160,51 @@ def test_fm_dit_train_metrics_reflow_match_jax(workspace):
     assert os.path.exists(ws["tmp"] / "out" / "logs" / "reflow.log")
 
 
+def _convrnn_workspace(ws):
+    """The workspace config with a small ConvRNN (4–8 channels)."""
+    cfg = yaml.safe_load(open(ws["cfg"]))
+    cfg["MODEL"]["CONVRNN"].update({
+        "ENC_HIDDEN_CH": [4, 6, 6, 8, 8, 8], "FORC_HIDDEN_CH": [8, 8, 8, 8, 8, 6, 4],
+        "CHECKPOINTS_TO_KEEP": 0})
+    cfg["MODEL"]["CONVRNN"]["TRAIN"]["EPOCHS"] = 1
+    path = ws["tmp"] / "convrnn_cfg.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    return {**ws, "cfg": str(path)}
+
+
+def test_convrnn_train_then_generate_metrics_match_jax(workspace):
+    """ConvRNN through ``train → generate-metrics`` on the pickles' 4
+    channels (the metrics on the first 3): the same checkpoint names, CSVs
+    and manifest as the JAX package's run."""
+    ws = _convrnn_workspace(workspace)
+    common = ["--config-yml-file", ws["cfg"], "--configList-yml-file", ws["list"],
+              "--arch", "ConvRNN"]
+    one_thread = {"OMP_NUM_THREADS": "1"}  # small CPU convolutions
+    r = _port_cli("train", *common, "--device", "cpu", "--run-dir", str(ws["tmp"] / "run"),
+                  env=one_thread)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "mprops_count=4" in r.stdout
+    r = _port_cli("generate-metrics", *common, "--device", "cpu", "--metric", "ALL",
+                  "--output-dir", str(ws["tmp"] / "metrics"), env=one_thread)
+    assert r.returncode == 0, r.stdout + r.stderr
+    launches = json.loads(r.stdout.rsplit("kernel launches: ", 1)[1].splitlines()[0])
+    assert set(launches.values()) == {0}  # ConvRNN runs library convolutions only
+
+    jcommon = ["--config-yml-file", _jax_workspace(ws), "--configList-yml-file",
+               ws["list"], "--arch", "ConvRNN"]
+    assert jax_train.run(jcommon + ["--run-dir", str(ws["tmp"] / "jax_run")]) == 0
+    assert jax_generate_metrics.run(
+        jcommon + ["--metric", "ALL", "--output-dir", str(ws["tmp"] / "jax_metrics")]) == 0
+    names = sorted(os.listdir(ws["tmp"] / "ckpts"))
+    assert names == sorted(os.listdir(ws["tmp"] / "jax_ckpts")) and "GRU" in names[0]
+    port_csvs = _csvs(ws["tmp"] / "metrics")
+    assert len(port_csvs) == 20 and port_csvs == _csvs(ws["tmp"] / "jax_metrics")
+    manifest = json.loads((ws["tmp"] / "metrics" / "metrics_files.json").read_text())
+    jax_manifest = json.loads((ws["tmp"] / "jax_metrics" / "metrics_files.json").read_text())
+    assert manifest.keys() == jax_manifest.keys()
+    assert manifest["title"] == jax_manifest["title"] and "(ConvRNN)" in manifest["title"]
+
+
 def test_every_jax_command_is_ported_or_named(capsys):
     jax_main(["--help"])
     usage = capsys.readouterr().out
@@ -160,11 +224,11 @@ def test_help_unknown_and_module_entry(capsys):
     assert cli.main(["--help"]) == 0
     assert "generate-metrics" in capsys.readouterr().out
     assert cli.main(["bogus"]) == 2
-    r = _port_cli("distill")
-    assert r.returncode == 2 and "item 11" in r.stderr
+    r = _port_cli("serve")
+    assert r.returncode == 2 and "item 14" in r.stderr
 
 
-@pytest.mark.parametrize("module", [train, generate_metrics, reflow])
+@pytest.mark.parametrize("module", [train, generate_metrics, reflow, distill])
 def test_commands_default_to_the_card(module, workspace):
     args = module.build_parser().parse_args([])
     assert args.device == "cuda"
