@@ -88,6 +88,22 @@ non-zero without a result line:
      weights on the CPU; no kernel of the port on any of its paths (its
      convolutions are library calls, as they are XLA's in the JAX package).
 
+ 14. serving's deployment commands at the serving config's width, DDPM-DiT
+     and DDPM-UNet with seeded random weights: ``export`` (five processes
+     at once: each model's DDIM-eta 25 + Sparsity sampler at buckets 1 and
+     64, the DiT's T = 1000 ancestral chain at 64; export seconds, bytes,
+     the ``crowdmod::`` nodes of each graph), ``import-checkpoint`` and
+     ``params`` meanwhile; ``serve`` with both models as
+     a process (/healthz 503 then 200, HTTP p50 per bucket 1/8/64, a
+     concurrent burst coalesced, a seeded request twice, SIGTERM → drained,
+     exit 0, launches from its log); each artifact in this process against
+     the un-exported ``sampler_fn`` for the same seed (bitwise, else within
+     the bf16 tolerance, said so), its launches held to (steps + the scan's
+     extra body call) forwards, p50 in turns with the ``Predictor``, a
+     profiled batch-64 request; ``serve --artifact``.  The
+     ``import-checkpoint`` run takes a reference-format ``.pt`` of the DiT's
+     weights; the imported checkpoint serves the original's future.
+
 Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
 Each path is driven with the launch counts set to 0 just before it and read
@@ -95,9 +111,11 @@ just after: phases 3-4 (DiT), phases 6-7 (UNet), the tap-GEMM run of
 phase 8, each model's training (phases 9, 11 and 13), each model's protocol run
 (phase 10; the DiT's in its own process, FM-DiT's commands each in theirs),
 each FM model's serving (phase 11), each fast sampler's serving, the
-distillation runs and the D004 request (phase 12) and ConvRNN's serving and
-commands (phase 13); the counts are held to the launches each forward,
-training or distillation step makes (a CFG forward counts once).  The last two lines are a
+distillation runs and the D004 request (phase 12), ConvRNN's serving and
+commands (phase 13), and the serve process, the artifacts and the artifact
+server (phase 14, the processes' counts from their log lines); the counts
+are held to the launches each forward, training or distillation step makes
+(a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
 """
 
@@ -339,6 +357,7 @@ def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_m
     from crowdmod_tpu_torch.ops.kernels import (
         ancestral_update_reference,
         fused_ancestral_update,
+        step_coefficients,
     )
     from crowdmod_tpu_torch.ops.kernels.build import sm_count
     from crowdmod_tpu_torch.ops.kernels.fused_step import ancestral_update_plan
@@ -346,17 +365,18 @@ def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_m
     n = int(np.prod(shape))
     x, eps, z = (_randn((n + off,), gen)[off:].view(shape) for off in offsets)
     # Coefficients of step t = 500 of the ATC schedule (T = 1000, scale 0.5).
+    # (the kernel reads them from a (3,) tensor on the card, a row of the
+    # sampler's table).
     s = linear_schedule(1000, scale=0.5)
-    kw = dict(
-        inv_sqrt_alpha=float(s.one_by_sqrt_alpha[500]),
-        beta_over_somab=float(s.beta[500] / s.sqrt_one_minus_alpha_bar[500]),
-        sigma=float(np.sqrt(s.beta[500])), lambda_guidance=0.6,
-        sparsity=sparsity, rho_channel=rho,
-    )
-    out = fused_ancestral_update(x, eps, z, **kw)
-    again = fused_ancestral_update(x, eps, z, **kw)
+    coeffs = step_coefficients(s.one_by_sqrt_alpha[500],
+                               s.beta[500] / s.sqrt_one_minus_alpha_bar[500],
+                               np.sqrt(s.beta[500]), DEVICE)
+    kw = dict(lambda_guidance=0.6, sparsity=sparsity, rho_channel=rho)
+    twin = dict(inv_sqrt_alpha=coeffs[0], beta_over_somab=coeffs[1], sigma=coeffs[2], **kw)
+    out = fused_ancestral_update(x, eps, z, coeffs, **kw)
+    again = fused_ancestral_update(x, eps, z, coeffs, **kw)
     torch.cuda.synchronize()
-    err = (out - ancestral_update_reference(x, eps, z, **kw)).abs().max().item()
+    err = (out - ancestral_update_reference(x, eps, z, **twin)).abs().max().item()
     if not err <= TOL["step"]:
         raise AssertionError(f"ancestral step {label}: max abs err {err}")
     plan = ancestral_update_plan(n, shape[-1], sm_count(x.device),
@@ -364,12 +384,12 @@ def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_m
     if not torch.equal(out, again):
         raise AssertionError(f"ancestral step {label}: a second call gave other bits ({plan})")
     b_ms, b_by = bound(16 * n, (7 if sparsity else 5) * n, torch.float32)
-    ms, host_ms = cuda_ms(lambda: fused_ancestral_update(x, eps, z, **kw))
+    ms, host_ms = cuda_ms(lambda: fused_ancestral_update(x, eps, z, coeffs, **kw))
     res = dict(
         shape=list(shape), dtype="float32", sparsity=sparsity, offsets=list(offsets),
         plan=dataclasses.asdict(plan), max_abs_err=err, tolerance=TOL["step"],
         bitwise_repeat=True, ms=ms, host_ms=host_ms,
-        plain_ms=cuda_ms(lambda: ancestral_update_reference(x, eps, z, **kw))[0],
+        plain_ms=cuda_ms(lambda: ancestral_update_reference(x, eps, z, **twin))[0],
         bound_ms=b_ms, bound_by=b_by, library_ms=None, floor_ms=floor_ms,
     )
     log(f"kernel ancestral_update {label}", **res)
@@ -1793,7 +1813,7 @@ def phase_cli(workdir: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 FM_BUCKETS = (1, 64)
-FM_P50_REPS = 3
+FM_P50_REPS = 2  # PR 10: cut from 3 to make room for phase 14
 FM_F32_STEPS = 25      # the f32 Euler chain held against the twins
 RF_COUPLING_STEPS = 4  # the teacher's Euler steps in phase 10's reflow
 RF_EULER_STEPS = 4     # the RF1 checkpoint's sampler
@@ -2381,6 +2401,411 @@ def phase_convrnn(tmp: Path, cfg) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: serving's deployment commands
+# ---------------------------------------------------------------------------
+
+EXPORT_BUCKETS = (1, 64)
+SERVE_BUCKETS = (1, 8, 64)
+SERVE_REPS = 5       # sequential HTTP requests a bucket for the p50
+BURST = 16           # concurrent one-row requests a model (coalescing)
+ARTIFACT_REPS = 5    # artifact and Predictor requests a bucket, in turns
+DEPLOY_SEED = 3
+
+
+def scan_extra_calls() -> int:
+    """Body calls beyond one a step that this PyTorch's scan makes: torch
+    2.11's ``generic_scan`` runs the body once more on step 0 to learn the
+    outputs' shapes; every artifact request's launches count it."""
+    from torch._higher_order_ops.scan import scan
+
+    from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update, step_coefficients
+
+    x, c = torch.zeros(4, device=DEVICE), step_coefficients(1.0, 0.0, 0.0, DEVICE)
+    before = fused_ancestral_update.launches
+    scan(lambda x, xs: (fused_ancestral_update(x, x, x, c), []), x,
+         (torch.zeros(3, device=DEVICE),))
+    torch.cuda.synchronize()
+    return fused_ancestral_update.launches - before - 3
+
+
+def per_request(cfg, arch: str, forwards: int) -> dict:
+    """Launches of ``forwards`` denoiser forwards of ``arch``."""
+    return {k: v * forwards for k, v in PER_FORWARD[arch](cfg).items()}
+
+
+def add_launches(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def http(base: str, path: str, payload=None, timeout: float = 600):
+    """``(status, parsed JSON or text)`` of a GET or, with ``payload``, a
+    POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                    timeout=timeout) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    try:
+        return code, json.loads(body)
+    except json.JSONDecodeError:
+        return code, body
+
+
+def start_server(*args) -> tuple[subprocess.Popen, str, list]:
+    """``python -m crowdmod_tpu_torch.cli serve *args`` on a free port →
+    (process, base URL, the /healthz codes seen until it answered 200)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log_file = tempfile.TemporaryFile("w+")  # never a full pipe in front of the server
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crowdmod_tpu_torch.cli", "serve", *args, "--port",
+         str(port), "--device", DEVICE],
+        cwd=Path(__file__).resolve().parent, stdout=log_file,
+        stderr=subprocess.STDOUT, text=True)
+    proc.log_file = log_file
+    base, seen = f"http://127.0.0.1:{port}", []
+    deadline = time.perf_counter() + 300
+    while time.perf_counter() < deadline and proc.poll() is None:
+        try:
+            code = http(base, "/healthz", timeout=5)[0]
+        except OSError:
+            code = None  # not listening yet
+        if code is not None and (not seen or seen[-1] != code):
+            seen.append(code)
+        if code == 200:
+            return proc, base, seen
+        time.sleep(0.05)
+    proc.kill()
+    raise RuntimeError(f"serve never became ready:\n{server_log(proc)[-4000:]}")
+
+
+def server_log(proc) -> str:
+    proc.wait(timeout=120)
+    proc.log_file.seek(0)
+    return proc.log_file.read()
+
+
+def stop_server(proc) -> str:
+    """SIGTERM; the server drains and must exit 0 → its output."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    out = server_log(proc)
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve exited {proc.returncode} on SIGTERM:\n{out[-4000:]}")
+    return out
+
+
+def model_metric(text: str, name: str, model: str) -> float:
+    label = f'{name}{{model="{model}"}} '
+    return float(next(ln for ln in text.splitlines() if ln.startswith(label)).split()[-1])
+
+
+def phase_serve_command(cfg, cfg_path: Path, walkers, f_shape) -> dict:
+    """``serve`` with both DDPM models: /healthz 503 then 200; p50 of the
+    HTTP latency per bucket; a concurrent burst (coalescing, from
+    /metrics); a seeded request twice; SIGTERM → drained, exit 0; the
+    launches from its log line held to 25 forwards a predictor call."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    archs = ("DDPM-DiT", "DDPM-UNet")
+    proc, base, seen = start_server(
+        "--arch", archs[0], "--extra-arch", archs[1], "--config-yml-file", str(cfg_path),
+        "--batch-buckets", *map(str, SERVE_BUCKETS))
+    try:
+        if seen[0] != 503:
+            raise AssertionError(f"/healthz before warmup: {seen} (expected 503 first)")
+        res = {"healthz": seen, "p50_ms": {}}
+        for arch in archs:
+            model, p50 = arch.lower(), {}
+            for b in SERVE_BUCKETS:
+                lat = []
+                for _ in range(SERVE_REPS):
+                    t0 = time.perf_counter()
+                    code, body = http(base, "/predict", {"past": walkers[:b].tolist(),
+                                                         "model": model})
+                    lat.append(1e3 * (time.perf_counter() - t0))
+                    out = np.asarray(body["future"]) if code == 200 else None
+                    if out is None or out.shape != (b,) + f_shape or not np.isfinite(out).all():
+                        raise AssertionError(f"serve {arch} b{b}: {code} {str(body)[:300]}")
+                p50[str(b)] = statistics.median(lat)
+            res["p50_ms"][arch] = p50
+            with ThreadPoolExecutor(BURST) as pool:
+                codes = list(pool.map(lambda i: http(base, "/predict", {
+                    "past": walkers[i:i + 1].tolist(), "model": model})[0], range(BURST)))
+            if codes != [200] * BURST:
+                raise AssertionError(f"serve {arch} burst: {codes}")
+            a, b_ = (http(base, "/predict", {"past": walkers[:2].tolist(), "model": model,
+                                             "seed": 7})[1]["future"] for _ in range(2))
+            if a != b_:
+                raise AssertionError(f"serve {arch}: a seeded request gave two futures")
+        metrics = http(base, "/metrics")[1]
+    except BaseException:
+        proc.kill()
+        raise
+    out = stop_server(proc)
+    steps = cfg.MODEL.DDPM.ETA_STEPS
+    calls = {a: int(model_metric(metrics, "crowdmod_requests_total", a.lower())) for a in archs}
+    launches = hold_launches("serve DiT + UNet", json.loads(logged(out, "kernel launches: ")),
+                             add_launches(*(per_request(cfg, a, steps * calls[a])
+                                            for a in archs)), 1)
+    res.update(
+        predictor_calls=calls, launches=launches,
+        dispatches={a: model_metric(metrics, "crowdmod_dispatches_total", a.lower())
+                    for a in archs},
+        coalesced={a: model_metric(metrics, "crowdmod_coalesced_requests_total", a.lower())
+                   for a in archs})
+    log("serve command DDPM-DiT + DDPM-UNet", **res)
+    return res
+
+
+def start_exports(workdir: Path, cfg_path: Path, anc_path: Path) -> dict:
+    """``export`` as five processes at once, one an artifact: each model's
+    serving sampler at buckets 1 and 64, the DiT's T = 1000 ancestral chain
+    at 64 → {(name, bucket): (process, output path)}."""
+    jobs = [("DDPM-DiT", "DDPM-DiT", cfg_path, b) for b in EXPORT_BUCKETS]
+    jobs += [("DDPM-UNet", "DDPM-UNet", cfg_path, b) for b in EXPORT_BUCKETS]
+    jobs.append(("DDPM-DiT T1000", "DDPM-DiT", anc_path, 64))
+    procs = {}
+    for name, arch, path, b in jobs:
+        out = workdir / "artifacts" / f"{name.replace(' ', '_')}.b{b}.pt2"
+        log_file = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "crowdmod_tpu_torch.cli", "export", "--arch", arch,
+             "--config-yml-file", str(path), "--batch", str(b), "--output", str(out),
+             "--device", DEVICE],
+            cwd=Path(__file__).resolve().parent, stdout=log_file,
+            stderr=subprocess.STDOUT, text=True)
+        proc.log_file = log_file
+        procs[(name, b)] = (proc, out)
+    return procs
+
+
+def finish_exports(procs: dict) -> dict:
+    """Wait for :func:`start_exports`' processes → each artifact's path,
+    export seconds (from the command's log) and sidecar."""
+    artifacts = {}
+    for key, (proc, out) in procs.items():
+        stdout = server_log(proc)
+        if proc.returncode:
+            raise RuntimeError(f"export {key} exited {proc.returncode}:\n{stdout[-4000:]}")
+        line = logged(stdout, f"exported {out} in ")
+        artifacts[key] = dict(path=out, export_s=float(line.split(" s: ", 1)[0]),
+                              meta=json.loads(out.with_name(out.name + ".json").read_text()))
+    return artifacts
+
+
+def crowdmod_nodes(path: Path) -> dict:
+    """``crowdmod::`` operator nodes of an exported program, by operator."""
+    program = torch.export.load(str(path))
+    counts: dict[str, int] = {}
+    for gm in program.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for n in gm.graph.nodes:
+                if n.op == "call_function" and str(n.target).startswith("crowdmod."):
+                    key = str(n.target).split(".")[1]
+                    counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def hold_artifact(label, out, ref) -> dict:
+    """An artifact's output against the un-exported ``sampler_fn``'s for the
+    same seed: bitwise, else (said so) within the bf16 tolerance."""
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: artifact output is not finite")
+    if torch.equal(out, ref):
+        return {"bitwise": True, "max_abs_diff": 0.0}
+    diff = (out - ref).abs().max().item()
+    if not diff <= TOL["bf16"] * ref.abs().max().item():
+        raise AssertionError(f"{label}: artifact vs sampler_fn {diff}")
+    return {"bitwise": False, "max_abs_diff": diff}
+
+
+def phase_artifacts(cfg, anc_cfg, ckpts: dict, artifacts: dict, walkers, extra: int) -> dict:
+    """Each artifact in this process: its crowdmod:: nodes, load seconds,
+    one request's launches held to (steps + ``extra``) forwards, its output
+    against the un-exported ``sampler_fn`` (same seed), p50 per bucket in
+    turns with the ``Predictor`` on the same checkpoint, the busy share of a
+    batch-64 request; then the DiT's T = 1000 ancestral artifact.  → each
+    artifact's numbers."""
+    from crowdmod_tpu_torch.export_artifact import load_sampler, sampler_fn
+    from crowdmod_tpu_torch.serving import Predictor
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    res = {}
+    for name, c in (("DDPM-DiT", cfg), ("DDPM-UNet", cfg), ("DDPM-DiT T1000", anc_cfg)):
+        arch = name.split()[0]
+        node = c.MODEL.DDPM
+        steps = node.TIMESTEPS if node.SAMPLER == "DDPM" else node.ETA_STEPS
+        trainer = Trainer(c, arch, device=DEVICE)
+        trainer.load(ckpts[arch])
+        direct = sampler_fn(trainer)
+        buckets = [b for (n, b) in artifacts if n == name]
+        pred = (Predictor(c, arch, ckpts[arch], device=DEVICE, batch_buckets=tuple(buckets))
+                if node.SAMPLER != "DDPM" else None)
+        for b in buckets:
+            art = artifacts[(name, b)]
+            t0 = time.perf_counter()
+            sample, _ = load_sampler(art["path"])
+            load_s = time.perf_counter() - t0
+            past = torch.from_numpy(walkers[:b]).to(DEVICE)
+            before = launch_counts()
+            out = sample(past, DEPLOY_SEED)
+            torch.cuda.synchronize()
+            want = per_request(c, arch, steps + extra)
+            if arch == "DDPM-DiT" and node.SAMPLER == "DDPM":
+                want["fused_ancestral_update"] = steps + extra
+            launches = check_launches(f"artifact {name} b{b}", before, want, 1)
+            ref = direct(past, torch.tensor(DEPLOY_SEED))
+            torch.cuda.synchronize()
+            entry = dict(export_s=art["export_s"], bytes=art["meta"]["bytes"], load_s=load_s,
+                         nodes=crowdmod_nodes(art["path"]), launches=launches,
+                         **hold_artifact(f"{name} b{b}", out, ref))
+            if pred is not None:
+                lat_a, lat_p = [], []
+                for _ in range(ARTIFACT_REPS):
+                    for fn, lat in ((lambda: sample(past, DEPLOY_SEED), lat_a),
+                                    (lambda: pred.predict(walkers[:b], seed=DEPLOY_SEED), lat_p)):
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        lat.append(1e3 * (time.perf_counter() - t0))
+                entry.update(p50_ms=statistics.median(lat_a),
+                             predictor_p50_ms=statistics.median(lat_p))
+            if b == 64 and pred is not None:
+                entry["profile"] = profile_busy(
+                    lambda: (sample(past, DEPLOY_SEED), torch.cuda.synchronize()),
+                    f"profile artifact {name} b64")
+            res[f"{name} b{b}"] = entry
+            log(f"artifact {name} b{b}", **{k: v for k, v in entry.items() if k != "profile"})
+    return res
+
+
+def phase_artifact_server(cfg, artifacts: dict, walkers, f_shape, extra: int) -> dict:
+    """``serve --artifact`` with the DiT's two buckets: one request of 2
+    rows (padded to 64), SIGTERM → exit 0, launches from its log."""
+    paths = [str(artifacts[("DDPM-DiT", b)]["path"]) for b in EXPORT_BUCKETS]
+    proc, base, seen = start_server("--arch", "DDPM-DiT", "--artifact", *paths)
+    try:
+        code, body = http(base, "/predict", {"past": walkers[:2].tolist(), "seed": 5})
+        out = np.asarray(body["future"]) if code == 200 else None
+        if out is None or out.shape != (2,) + f_shape or not np.isfinite(out).all():
+            raise AssertionError(f"serve --artifact: {code} {str(body)[:300]}")
+        info = http(base, "/models")[1]
+    except BaseException:
+        proc.kill()
+        raise
+    stdout = stop_server(proc)
+    calls = len(EXPORT_BUCKETS) + 1  # warmup, then the request
+    launches = hold_launches(
+        "serve --artifact", json.loads(logged(stdout, "kernel launches: ")),
+        per_request(cfg, "DDPM-DiT", (cfg.MODEL.DDPM.ETA_STEPS + extra) * calls), 1)
+    res = dict(healthz=seen, models=info, launches=launches)
+    log("serve --artifact DDPM-DiT", **res)
+    return res
+
+
+def phase_import(cfg, workdir: Path, ckpt_path: str, walkers) -> dict:
+    """A reference-format ``.pt`` of the DiT checkpoint's sampling (EMA)
+    weights through ``import-checkpoint`` (tag 001), then served: its
+    future equals the original checkpoint's for the same seed."""
+    from crowdmod_tpu_torch.serving import Predictor
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    payload, _ = ckpt.load_checkpoint(ckpt_path)
+    ref_pt = workdir / "reference_dit.pt"
+    torch.save({"opt": {}, "model": payload["ema_params"]}, ref_pt)
+    cfg_path = workdir / "ATC.yml"
+    wall, out = run_cli("import-checkpoint", "--arch", "DDPM-DiT", "--config-yml-file",
+                        str(cfg_path), "--torch-ckpt", str(ref_pt), "--epoch-label", "001")
+    imported = out.strip().splitlines()[-1]
+    meta = ckpt.read_metadata(imported)
+    if meta["source"] != f"torch-import:{ref_pt.resolve()}":
+        raise AssertionError(f"import-checkpoint metadata: {meta}")
+    past = walkers[:8]
+    got = Predictor(cfg, "DDPM-DiT", imported, device=DEVICE, batch_buckets=(8,)).predict(
+        past, seed=11)
+    want = Predictor(cfg, "DDPM-DiT", ckpt_path, device=DEVICE, batch_buckets=(8,)).predict(
+        past, seed=11)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"imported checkpoint's future differs: "
+                             f"{np.abs(got - want).max()}")
+    res = dict(wall_s=wall, path=imported, future_equal=True)
+    log("import-checkpoint DDPM-DiT", **res)
+    return res
+
+
+def phase_params(cfg_path: Path) -> dict:
+    wall, out = run_cli("params", "--all-archs", "--config-yml-file", str(cfg_path))
+    totals = {ln.split(":")[0]: int(ln.split(":")[1].split()[0].replace(",", ""))
+              for ln in out.splitlines() if "trainable params" in ln}
+    if len(totals) != 5 or not all(totals.values()):
+        raise AssertionError(f"params --all-archs: {out[-2000:]}")
+    res = dict(wall_s=wall, totals=totals)
+    log("params --all-archs", **res)
+    return res
+
+
+def phase_deploy(tmp: Path, cfg) -> dict:
+    """Phase 14 → its paths' launch counts (each read from its own run)."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    work = tmp / "deploy"
+    work.mkdir()
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    ckpts = {}
+    for arch in ("DDPM-DiT", "DDPM-UNet"):
+        cfg_path, ckpts[arch] = write_checkpoint(cfg, arch, work)
+    cfg = load_config(str(cfg_path))
+    anc_cfg = cfg.updated({"MODEL": {"DDPM": {"SAMPLER": "DDPM"}}})
+    anc_path = write_config(anc_cfg, work / "ancestral.yml")
+    p, f, h, w = (cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS,
+                  cfg.MACROPROPS.COLS)
+    walkers = synthetic_walkers(64, h, w, p + f)[:, :p]
+    extra = scan_extra_calls()
+    log("scan", extra_body_calls=extra, torch=torch.__version__)
+
+    # The exports trace on the host; import-checkpoint and params run
+    # meanwhile.  Nothing timed runs until they are done.
+    t0 = time.perf_counter()
+    procs = start_exports(work, cfg_path, anc_path)
+    try:
+        phase_import(cfg, work, ckpts["DDPM-DiT"], walkers)
+        phase_params(cfg_path)
+    finally:
+        artifacts = finish_exports(procs)
+    export_wall = time.perf_counter() - t0
+    paths = {}
+    serve = phase_serve_command(cfg, cfg_path, walkers, f_shape)
+    paths["serve command"] = serve["launches"]
+    reset_launch_counts()  # the artifacts' path, in this process
+    phase_artifacts(cfg, anc_cfg, ckpts, artifacts, walkers, extra)
+    paths["artifacts"] = launch_counts()
+    paths["serve --artifact"] = phase_artifact_server(cfg, artifacts, walkers, f_shape,
+                                                      extra)["launches"]
+    log("deploy exports", wall_s=export_wall, processes=len(artifacts),
+        export_s={f"{n} b{b}": a["export_s"] for (n, b), a in artifacts.items()},
+        bytes={f"{n} b{b}": a["meta"]["bytes"] for (n, b), a in artifacts.items()})
+    paths = {f"14 {k}": v for k, v in paths.items()}
+    log("phase 14 launches", **add_launches(*paths.values()))
+    return paths
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -2465,6 +2890,7 @@ def main() -> int:
         paths.update(timed("11 fm", phase_fm, Path(tmp), cfg))
         paths.update(timed("12 fast", phase_fast, Path(tmp), cfg))
         paths.update(timed("13 convrnn", phase_convrnn, Path(tmp), cfg))
+        paths.update(timed("14 deploy", phase_deploy, Path(tmp), cfg))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

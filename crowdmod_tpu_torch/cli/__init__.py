@@ -9,7 +9,14 @@
   * ``reflow``           — rectify a trained FM model (ReFlow) → its ``RF<n>``
     checkpoint, which samples in a few Euler steps;
   * ``distill``          — progressively distill a trained DDPM → its
-    ``D<steps>`` checkpoint, which samples with the Distilled sampler.
+    ``D<steps>`` checkpoint, which samples with the Distilled sampler;
+  * ``serve``            — HTTP inference server (batching, health, metrics),
+    from checkpoints or from exported artifacts (``--artifact``);
+  * ``export``           — the configured sampler as ``torch.export``
+    artifacts, one a batch bucket, that call the port's kernels;
+  * ``import-checkpoint`` — migrate a reference torch checkpoint into a port
+    checkpoint that ``serve`` and ``generate-metrics`` resolve;
+  * ``params``           — trainable parameters per architecture.
 
 Each runs on the GPU unless given ``--device cpu``.  The JAX package's other
 commands are not ported yet; each exits with status 2 and names its
@@ -29,6 +36,10 @@ COMMANDS = {
     "generate-metrics": "crowdmod_tpu_torch.cli.generate_metrics",
     "reflow": "crowdmod_tpu_torch.cli.reflow",
     "distill": "crowdmod_tpu_torch.cli.distill",
+    "serve": "crowdmod_tpu_torch.cli.serve",
+    "export": "crowdmod_tpu_torch.export_artifact",
+    "import-checkpoint": "crowdmod_tpu_torch.cli.import_checkpoint",
+    "params": "crowdmod_tpu_torch.utils.model_info",
 }
 
 # The JAX package's other commands → the ROADMAP.md Queue 1 item that ports
@@ -37,12 +48,8 @@ NOT_PORTED = {
     "etl": "item 15 (data at scale)",
     "generate-samples": "item 17 (viz: its output is plots)",
     "sweep": "item 17",
-    "serve": "item 14 (serving)",
-    "import-checkpoint": "item 17",
-    "export": "item 14 (serving)",
     "compare": "item 17 (viz)",
     "view": "item 17 (viz)",
-    "params": "item 17",
     "doctor": "item 17",
 }
 

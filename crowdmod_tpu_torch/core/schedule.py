@@ -38,14 +38,20 @@ class DiffusionSchedule:
         return self.beta.shape[0]
 
     def on(self, device) -> dict[str, torch.Tensor]:
-        """The buffers as float32 tensors on ``device`` (made once each)."""
+        """The buffers as float32 tensors on ``device``, made once each.
+        Under a trace (``torch.export``, a scan body) a made copy is used
+        and not kept: the trace's tensors are fakes that must not outlive
+        it; copies made before the trace are read as constants."""
         device = torch.device(device)
-        if device not in self._on_device:
-            self._on_device[device] = {
+        buffers = self._on_device.get(device)
+        if buffers is None:
+            buffers = {
                 name: torch.from_numpy(getattr(self, name)).to(device)
                 for name in _BUFFERS
             }
-        return self._on_device[device]
+            if not torch.compiler.is_compiling():
+                self._on_device[device] = buffers
+        return buffers
 
 
 def linear_schedule(

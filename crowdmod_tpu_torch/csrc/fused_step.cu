@@ -2,8 +2,10 @@
 //     x' = a * (x - b * eps) + sigma * z
 //     x' = x' - (lambda * sigma) * sign(x')     on channel rho only (Sparsity)
 // with a = 1/sqrt(alpha_t), b = beta_t / sqrt(1 - alpha_bar_t),
-// sigma = sqrt(beta_t), per-step scalars passed as floats from the host
-// schedule.
+// sigma = sqrt(beta_t): the per-step scalars, read from a float32 (3,)
+// device buffer (a row of the sampler's table, as the TPU kernel reads them
+// from SMEM), so a step needs no host float; lambda is a host float and
+// lambda * sigma a float32 product.
 //
 // Replaces the TPU kernel crowdmod_tpu/ops/pallas/fused_step.py
 // (fused_ancestral_update, kernel _step_kernel).
@@ -40,6 +42,13 @@ struct Coefs {
   float a, b, sigma, lam_sigma;
 };
 
+// The three scalars of the step from `coeffs`, and lambda * sigma; every
+// thread reads the same 12 bytes (one cached line).
+__device__ __forceinline__ Coefs load_coefs(const float* __restrict__ coeffs, float lam) {
+  const float sigma = __ldg(coeffs + 2);
+  return Coefs{__ldg(coeffs), __ldg(coeffs + 1), sigma, __fmul_rn(lam, sigma)};
+}
+
 __device__ __forceinline__ float step(float x, float e, float z, const Coefs& c) {
   return __fadd_rn(__fmul_rn(c.a, __fsub_rn(x, __fmul_rn(c.b, e))), __fmul_rn(c.sigma, z));
 }
@@ -64,9 +73,11 @@ template <typename I>
 __global__ void ancestral_update_kernel(const float* __restrict__ x,
                                         const float* __restrict__ eps,
                                         const float* __restrict__ z,
+                                        const float* __restrict__ coeffs,
                                         float* __restrict__ out, I n, I head,
-                                        I vectors, int channels, int rho, Coefs c,
+                                        I vectors, int channels, int rho, float lam,
                                         int sparsity) {
+  const Coefs c = load_coefs(coeffs, lam);
   const I stride = (I)gridDim.x * blockDim.x;
   const I tid = (I)blockIdx.x * blockDim.x + threadIdx.x;
   for (I v = tid; v < vectors; v += stride) {
@@ -99,16 +110,16 @@ __global__ void ancestral_update_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// All pointers are float32 device buffers of n contiguous elements.  The
+// x, eps, z and out are float32 device buffers of n contiguous elements,
+// coeffs one of 3 (a, b, sigma), 4-byte aligned.  The
 // plan (ancestral_update_plan): `head` scalar elements, then `vectors`
 // float4 vectors (x + head, eps + head, z + head and out + head 16-byte
 // aligned), then the rest scalar; `blocks` of `threads`; index64 = 1 when
 // n >= 2^31.  Returns a cudaError_t value.
 extern "C" int crowdmod_ancestral_update(const void* x, const void* eps,
-                                         const void* z, void* out, long long n,
-                                         int channels, int rho, float a,
-                                         float b, float sigma, float lam_sigma,
-                                         int sparsity, long long head,
+                                         const void* z, const void* coeffs,
+                                         void* out, long long n, int channels,
+                                         int rho, float lam, int sparsity, long long head,
                                          long long vectors, int blocks,
                                          int threads, int index64,
                                          void* stream) {
@@ -122,8 +133,10 @@ extern "C" int crowdmod_ancestral_update(const void* x, const void* eps,
     if (addr % 4 || (vectors > 0 && (addr + 4 * head) % 16))
       return (int)cudaErrorInvalidValue;
   }
+  if (coeffs == nullptr || reinterpret_cast<uintptr_t>(coeffs) % 4)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  const Coefs c{a, b, sigma, lam_sigma};
+  const float* cf = static_cast<const float*>(coeffs);
   const float* xf = static_cast<const float*>(x);
   const float* ef = static_cast<const float*>(eps);
   const float* zf = static_cast<const float*>(z);
@@ -131,10 +144,10 @@ extern "C" int crowdmod_ancestral_update(const void* x, const void* eps,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (index64)
     ancestral_update_kernel<long long><<<blocks, threads, 0, s>>>(
-        xf, ef, zf, of, n, head, vectors, channels, rho, c, sparsity);
+        xf, ef, zf, cf, of, n, head, vectors, channels, rho, lam, sparsity);
   else
     ancestral_update_kernel<unsigned><<<blocks, threads, 0, s>>>(
-        xf, ef, zf, of, (unsigned)n, (unsigned)head, (unsigned)vectors, channels, rho, c,
-        sparsity);
+        xf, ef, zf, cf, of, (unsigned)n, (unsigned)head, (unsigned)vectors, channels, rho,
+        lam, sparsity);
   return (int)cudaGetLastError();
 }

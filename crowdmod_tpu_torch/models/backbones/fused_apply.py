@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from crowdmod_tpu_torch.ops.attention import dense
 from crowdmod_tpu_torch.ops.conv3d import jax_kernel, weights_key
 from crowdmod_tpu_torch.ops.kernels import fused_resblock
-from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock
+from crowdmod_tpu_torch.ops.kernels.resblock import PACKED, pack_resblock
 
 # Minimum (T·H·W) volume routed to the kernel: level 0 of the ATC geometry
 # is 8·12·36 = 3456; one downsample divides it by 8.
@@ -63,13 +63,30 @@ def weights_from_block(block) -> dict:
 @torch.no_grad()
 def _packed(block, w: dict, dtype: torch.dtype) -> dict:
     """:func:`pack_resblock` of the block's weights, cached on the block and
-    rebuilt only when a parameter changed."""
+    rebuilt only when a parameter changed; under a trace made in the traced
+    program and not kept, unless :func:`pin_pack` fixed it."""
+    if getattr(block, "fused_w1", None) is not None:
+        return {**block.fused_meta, **{k: getattr(block, f"fused_{k}") for k in PACKED}}
+    if torch.compiler.is_compiling():
+        return pack_resblock(w, dtype)
     key = weights_key(*w.values()) + (dtype,)
     cached = getattr(block, "_fused_pack", (None, None))
     if cached[0] != key:
         cached = (key, pack_resblock(w, dtype))
         block._fused_pack = cached
     return cached[1]
+
+
+@torch.no_grad()
+def pin_pack(block) -> None:
+    """Pack the block's fused-kernel weights now and use that pack from here
+    on, under a trace too: for a copy whose weights no longer change.  The
+    packed tensors are (non-persistent) buffers of the block, so a trace
+    reads them as the module's own."""
+    packed = pack_resblock(weights_from_block(block), block.dtype)
+    for k in PACKED:
+        block.register_buffer(f"fused_{k}", packed[k], persistent=False)
+    block.fused_meta = {k: v for k, v in packed.items() if k not in PACKED}
 
 
 def fused_forward(block, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:

@@ -225,6 +225,17 @@ class UNet3D(nn.Module):
                 lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 nn.init.zeros_(m.bias)
 
+    def pin_packs(self) -> None:
+        """Pack every conv's and fused block's kernel weights once, now, and
+        keep those packs (for a frozen copy, e.g. an exported sampler's:
+        under a trace no pack can be cached, so each would be rebuilt in
+        every step of the traced program)."""
+        for m in self.modules():
+            if isinstance(m, Conv3DSame):
+                m.pin_pack()
+            elif isinstance(m, ResnetBlock3D) and m.attention is None:
+                fused_apply.pin_pack(m)
+
     def _block(self, blk, h, temb, generator) -> torch.Tensor:
         keep = blk.keep_mask(h.shape[0], generator)
         if self.remat and torch.is_grad_enabled():

@@ -27,7 +27,7 @@ from crowdmod_tpu_torch.models.guidance import (
     mass_preservation_gradient,
     sparsity_gradient,
 )
-from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update
+from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update, step_coefficients
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], torch.Tensor]
 Noise = Callable[["int | None"], torch.Tensor]
@@ -145,6 +145,15 @@ def _finish(x, traj, history):
     return (x, torch.stack(traj)) if history else x
 
 
+def ancestral_coefficients(sched: DiffusionSchedule, device) -> torch.Tensor:
+    """The ``(T, 3)`` float32 table of the fused step's coefficients on
+    ``device``: row t is (1/√α_t, β_t/√(1−ᾱ_t), √β_t), from the host
+    schedule's float32 arithmetic."""
+    beta = sched.beta
+    return step_coefficients(sched.one_by_sqrt_alpha,
+                             beta / sched.sqrt_one_minus_alpha_bar, np.sqrt(beta), device)
+
+
 def ddpm_sample(
     denoise_fn: DenoiseFn,
     sched: DiffusionSchedule,
@@ -171,17 +180,14 @@ def ddpm_sample(
     x = noise(None)
     traj = [x] if history else None
     b = sample_shape[0]
+    table = ancestral_coefficients(sched, device)  # one upload a chain
     for t in range(sched.timesteps - 1, -1, -1):
         eps = denoise_fn(x, _t_vec(t, b, device), past)
         z = noise(t) if t > 0 else torch.zeros_like(x)
         beta = sched.beta[t]
         if guidance in ("None", None, "Sparsity"):
             x = fused_ancestral_update(
-                x, eps, z,
-                inv_sqrt_alpha=float(sched.one_by_sqrt_alpha[t]),
-                beta_over_somab=float(beta / sched.sqrt_one_minus_alpha_bar[t]),
-                sigma=float(np.sqrt(beta)),
-                lambda_guidance=lambda_guidance,
+                x, eps, z, table[t], lambda_guidance=lambda_guidance,
                 sparsity=(guidance == "Sparsity"),
             )
         else:  # mass_preservation
@@ -195,6 +201,48 @@ def ddpm_sample(
         if history:
             traj.append(x)
     return _finish(x, traj, history)
+
+
+def ddim_update(x, eps, z, c, guidance: str = "None"):
+    """One DDIM-form transition of both DDIM samplers, with ``c`` = (√(1−ᾱ),
+    √ᾱ of the current level, √ᾱ of the next, the direction coefficient, σ,
+    the guidance strength), floats or float32 scalar tensors (a row of an
+    exported chain's table):
+
+        x' = c₂·(x − c₀·ε̂)/c₁ + c₃·ε̂ + c₄·z − c₅·∇guidance(x')
+
+    ``z`` None adds no noise (the last step, σ = 0)."""
+    pred_x0 = (x - c[0] * eps) / c[1]
+    x = c[2] * pred_x0 + c[3] * eps
+    if z is not None:
+        x = x + c[4] * z
+    if guidance == "Sparsity":
+        x = x - c[5] * sparsity_gradient(x)
+    elif guidance == "mass_preservation":
+        x = x - c[5] * mass_preservation_gradient(x, 1.0, 1.0)
+    return x
+
+
+def ddim_coefficients(sched: DiffusionSchedule, taus: np.ndarray, sigma: float,
+                      lambda_guidance: float) -> list[tuple[int, tuple]]:
+    """The reference DDIM recurrence's steps, ``(t, c)`` for each tau from
+    the last (see :func:`ddim_update`): the "current" coefficients start at
+    t = T-1 and each step takes the previous step's tau's, with the
+    constant ``sigma``."""
+    last = sched.timesteps - 1
+    beta_c = sched.beta[last]
+    sab_c = sched.sqrt_alpha_bar[last]
+    somab_c = sched.sqrt_one_minus_alpha_bar[last]
+    sigma32 = _f32(sigma)
+    steps = []
+    for t in np.asarray(taus)[::-1]:
+        t = int(t)
+        sab_p = sched.sqrt_alpha_bar[t]
+        direction = np.sqrt(_f32(1.0) - sab_p**2 - _f32(sigma**2))
+        guide = _f32(lambda_guidance) * np.sqrt(beta_c)
+        steps.append((t, (somab_c, sab_c, sab_p, direction, sigma32, guide)))
+        beta_c, sab_c, somab_c = sched.beta[t], sab_p, sched.sqrt_one_minus_alpha_bar[t]
+    return steps
 
 
 def ddim_sample(
@@ -212,10 +260,24 @@ def ddim_sample(
     lambda_guidance: float = 0.0,
     history: bool = False,
 ):
-    """DDIM sampling with the reference's exact recurrence: the "current"
-    coefficients start at t = T-1 and each iteration consumes the previous
-    iteration's tau coefficients, with a constant sigma noise term.  Only
+    """DDIM sampling with the reference's exact recurrence
+    (:func:`ddim_coefficients`), with a constant sigma noise term.  Only
     Sparsity guidance participates, as in the reference."""
+    check_ddim_guidance(guidance)
+    noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
+    x = noise(None)
+    traj = [x] if history else None
+    b = sample_shape[0]
+    for t, c in ddim_coefficients(sched, taus, sigma, lambda_guidance):
+        eps = denoise_fn(x, _t_vec(t, b, device), past)
+        x = ddim_update(x, eps, noise(t), [float(v) for v in c], guidance)
+        if history:
+            traj.append(x)
+    return _finish(x, traj, history)
+
+
+def check_ddim_guidance(guidance) -> None:
+    """The reference DDIM's guidance modes: Sparsity or None."""
     if guidance == "mass_preservation":
         raise ValueError(
             "the DDIM path supports Sparsity/None guidance only "
@@ -225,32 +287,6 @@ def ddim_sample(
         raise ValueError(
             f"unknown guidance {guidance!r}; expected ('None', 'Sparsity')"
         )
-    noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
-    x = noise(None)
-    traj = [x] if history else None
-    b = sample_shape[0]
-    last = sched.timesteps - 1
-    beta_c = sched.beta[last]
-    sab_c = sched.sqrt_alpha_bar[last]
-    somab_c = sched.sqrt_one_minus_alpha_bar[last]
-    sigma32 = _f32(sigma)
-    for t in np.asarray(taus)[::-1]:
-        t = int(t)
-        eps = denoise_fn(x, _t_vec(t, b, device), past)
-        beta_p = sched.beta[t]
-        sab_p = sched.sqrt_alpha_bar[t]
-        pred_x0 = (x - float(somab_c) * eps) / float(sab_c)
-        direction = float(
-            np.sqrt(_f32(1.0) - sab_p**2 - _f32(sigma**2))
-        ) * eps
-        x = float(sab_p) * pred_x0 + direction + float(sigma32) * noise(t)
-        if guidance == "Sparsity":
-            c = _f32(lambda_guidance) * np.sqrt(beta_c)
-            x = x - float(c) * sparsity_gradient(x)
-        beta_c, sab_c, somab_c = beta_p, sab_p, sched.sqrt_one_minus_alpha_bar[t]
-        if history:
-            traj.append(x)
-    return _finish(x, traj, history)
 
 
 def ddim_eta_sample(
@@ -294,6 +330,24 @@ def ddim_eta_sample(
     return _finish(x, traj, history)
 
 
+def ddim_eta_coefficients(sched: DiffusionSchedule, t: int, tp: int, eta: float,
+                          lambda_guidance: float, guidance: str = "None") -> tuple:
+    """The coefficients (see :func:`ddim_update`) of one transition of
+    :func:`ddim_eta_sample`, from level ``t`` to ``tp`` (−1: the clean x0
+    prediction, σ = 0), in the host schedule's float32 arithmetic."""
+    one, zero = _f32(1.0), _f32(0.0)
+    ab_t = sched.alpha_bar[t]
+    ab_p = sched.alpha_bar[tp] if tp >= 0 else one
+    sigma = (
+        _f32(eta) * np.sqrt(np.maximum((one - ab_p) / (one - ab_t), zero))
+        * np.sqrt(np.maximum(one - ab_t / ab_p, zero))
+    )
+    direction = np.sqrt(np.maximum(one - ab_p - sigma**2, zero))
+    guide = (one - ab_t / ab_p if guidance == "mass_preservation"
+             else _f32(lambda_guidance) * np.sqrt(sched.beta[t]))
+    return (np.sqrt(one - ab_t), np.sqrt(ab_t), np.sqrt(ab_p), direction, sigma, guide)
+
+
 def ddim_eta_step(
     denoise_fn: DenoiseFn,
     sched: DiffusionSchedule,
@@ -309,26 +363,7 @@ def ddim_eta_step(
 ) -> torch.Tensor:
     """One transition of :func:`ddim_eta_sample`, from ``x`` at level ``t``
     to level ``tp`` (−1: the clean x0 prediction, with no noise drawn)."""
-    one, zero = _f32(1.0), _f32(0.0)
+    c = ddim_eta_coefficients(sched, t, tp, eta, lambda_guidance, guidance)
     eps = denoise_fn(x, _t_vec(t, x.shape[0], x.device), past)
-    ab_t = sched.alpha_bar[t]
-    ab_p = sched.alpha_bar[tp] if tp >= 0 else one
-    sigma = (
-        _f32(eta) * np.sqrt(np.maximum((one - ab_p) / (one - ab_t), zero))
-        * np.sqrt(np.maximum(one - ab_t / ab_p, zero))
-    )
-    pred_x0 = (x - float(np.sqrt(one - ab_t)) * eps) / float(np.sqrt(ab_t))
-    direction = float(
-        np.sqrt(np.maximum(one - ab_p - sigma**2, zero))
-    ) * eps
-    x = float(np.sqrt(ab_p)) * pred_x0 + direction
-    if tp >= 0:
-        x = x + float(sigma) * noise(t)
-    if guidance == "Sparsity":
-        c = _f32(lambda_guidance) * np.sqrt(sched.beta[t])
-        x = x - float(c) * sparsity_gradient(x)
-    elif guidance == "mass_preservation":
-        x = x - float(one - ab_t / ab_p) * mass_preservation_gradient(
-            x, 1.0, 1.0
-        )
-    return x
+    z = noise(t) if tp >= 0 else None
+    return ddim_update(x, eps, z, [float(v) for v in c], guidance)

@@ -14,7 +14,10 @@ The kernel's weight layout is packed once per weight load (in the compute
 dtype), not per call: the pack is cached and rebuilt only when the weight
 tensor changes (a new tensor, or an in-place write such as
 ``load_state_dict`` or an optimizer step).  The pack is made without
-autograd: the kernels are forward only.  :func:`conv3d_same` gives the
+autograd: the kernels are forward only.  Under a trace (``torch.export``, a
+scan body) a weight has no storage to key the cache on, so the pack is made
+in the traced program and not kept, unless :meth:`Conv3DSame.pin_pack` has
+fixed it beforehand (an exported sampler's frozen copy).  :func:`conv3d_same` gives the
 conv its gradient (:class:`Conv3DSameFunction`): the kernel forward on the
 pack, and the VJP of the plain conv (:func:`conv3d_same_vjp`, the library's
 convolution backward) with respect to the input, the reference-layout
@@ -116,20 +119,35 @@ class Conv3DSame(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self._packed = (None, None)
+        self.register_buffer("pinned", None, persistent=False)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         lecun_normal_(self.weight, 27 * self.weight.shape[1], generator)
         nn.init.zeros_(self.bias)
 
+    def _pack(self) -> torch.Tensor:
+        pack = pack_im2col if self.impl == "im2col" else pack_tapgemm
+        return pack(jax_kernel(self.weight)).to(self.dtype)
+
+    @torch.no_grad()
+    def pin_pack(self) -> None:
+        """Pack the weight now and use that pack from here on, under a trace
+        too: for a copy whose weights no longer change.  The pack is a
+        (non-persistent) buffer, so a trace reads it as the module's own."""
+        self.pinned = self._pack()
+
     @torch.no_grad()
     def packed_weight(self) -> torch.Tensor:
         """The kernel's weight layout in ``dtype``, rebuilt only when the
-        weight changed."""
+        weight changed (made in the traced program under a trace)."""
+        if self.pinned is not None:
+            return self.pinned
+        if torch.compiler.is_compiling():
+            return self._pack()
         key = weights_key(self.weight) + (self.dtype, self.impl)
         if self._packed[0] != key:
-            pack = pack_im2col if self.impl == "im2col" else pack_tapgemm
-            self._packed = (key, pack(jax_kernel(self.weight)).to(self.dtype))
+            self._packed = (key, self._pack())
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for Hopper, one module each, with their twins.
 
 Each wrapper runs its plain PyTorch twin on CPU tensors and its kernel on
-CUDA tensors (or raises); ``<wrapper>.launches`` counts the wrapper's kernel
-calls.  Kernels build from ``crowdmod_tpu_torch/csrc`` at first use
-(:mod:`.build`).
+CUDA tensors (or raises).  Each kernel is a ``crowdmod::`` operator
+(:mod:`.library`), defined when this package is imported;
+``<wrapper>.launches`` counts the operator's kernel calls, whoever makes
+them (a wrapper, or an exported program).  Kernels build from
+``crowdmod_tpu_torch/csrc`` at first use (:mod:`.build`).
 """
 
 from crowdmod_tpu_torch.ops.kernels.attention import (
@@ -18,6 +20,7 @@ from crowdmod_tpu_torch.ops.kernels.conv3d import (
 from crowdmod_tpu_torch.ops.kernels.fused_step import (
     ancestral_update_reference,
     fused_ancestral_update,
+    step_coefficients,
 )
 from crowdmod_tpu_torch.ops.kernels.groupnorm import (
     fused_group_norm,
@@ -46,6 +49,7 @@ __all__ = [
     "fused_attention",
     "ancestral_update_reference",
     "fused_ancestral_update",
+    "step_coefficients",
     "group_norm_reference",
     "fused_group_norm",
     "conv3d_same_reference",

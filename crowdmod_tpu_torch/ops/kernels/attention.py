@@ -21,6 +21,7 @@ dimension must be contiguous), so the ``(B, S, H, Dh)`` views that
 ``MultiHeadAttention`` makes are read in place, and it writes its output in
 ``(B, S, H, Dh)`` memory order, returned as a ``(B, H, S, Dh)`` view: the
 caller's move back to ``(B, S, H·Dh)`` is a free reshape, not a copy.
+The kernel is the ``crowdmod::attention`` operator (:mod:`.library`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
-from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels import build, library
 
 # Limits of the kernel (csrc/attention.cu): the head dims it is compiled for
 # and the shared memory a block can have.
@@ -230,12 +231,22 @@ def fused_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
 def _forward(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
+    return torch.ops.crowdmod.attention(q, k, v, scale)
+
+
+def _empty_out(q) -> torch.Tensor:
+    """The ``(B, H, Sq, Dh)`` output, laid out ``(B, Sq, H, Dh)`` in
+    memory."""
+    b, h, sq, dh = q.shape
+    return q.new_empty_strided((b, h, sq, dh), (sq * h * dh, dh, h * dh, 1))
+
+
+def _attention_cuda(q, k, v, scale: float) -> torch.Tensor:
+    """``crowdmod::attention`` on CUDA tensors: check, plan, launch."""
     _check(q, k, v)
     b, h, sq, dh = q.shape
     sk = k.shape[2]
-    out = torch.empty(
-        (b, sq, h, dh), dtype=q.dtype, device=q.device
-    ).transpose(1, 2)
+    out = _empty_out(q)
     if out.numel() == 0:
         return out
     plan = attention_plan(b, h, sq, sk, dh, q.dtype)
@@ -265,4 +276,6 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     return out
 
 
+library.define("attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+               _attention_cuda, lambda q, k, v, scale: _empty_out(q))
 fused_attention.launches = 0

@@ -24,7 +24,8 @@ raises.
 (tile widths, K chunk, split-K) from its shape and dtype; the wrapper passes
 the plan to the kernel, so the plan is testable without a card.  A split-K
 call is two launches (the splits, then their sum) and counts as one launch
-of the wrapper.
+of the wrapper.  The kernels are the ``crowdmod::conv3d_im2col`` and
+``crowdmod::conv3d_tapgemm`` operators (:mod:`.library`).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels import build, library
 from crowdmod_tpu_torch.ops.kernels.build import SMS, sm_count
 
 SIMT_BK = 16  # csrc/common.cuh, kBK: the f32 kernels' K chunk
@@ -183,16 +184,15 @@ def unpack_tapgemm(w_taps: torch.Tensor) -> torch.Tensor:
 
 
 def conv3d_same_reference(x, kernel, bias=None) -> torch.Tensor:
-    """Plain twin: pad once, gather the 27 shifted slices in (kd, kh, kw, ci)
-    order, one f32 matmul with the folded kernel, + bias, cast to x's
-    dtype."""
+    """Plain twin: pad once, gather the 27 shifted windows in (kd, kh, kw,
+    ci) order (three unfolds: a handful of views, quick to trace), one f32
+    matmul with the folded kernel, + bias, cast to x's dtype."""
     b, t, h, w, cin = x.shape
     cout = kernel.shape[-1]
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    patches = torch.cat([
-        xp[:, kd:kd + t, kh:kh + h, kw:kw + w]
-        for kd in range(3) for kh in range(3) for kw in range(3)
-    ], dim=-1)
+    # (b, t, h, w, ci, kd, kh, kw) → (…, kd, kh, kw, ci)
+    patches = xp.unfold(1, 3, 1).unfold(2, 3, 1).unfold(3, 3, 1).permute(
+        0, 1, 2, 3, 5, 6, 7, 4)
     out = torch.matmul(
         patches.reshape(-1, 27 * cin), kernel.float().reshape(27 * cin, cout)
     )
@@ -255,6 +255,11 @@ def conv3d_same_im2col(x, w_mat, bias=None) -> torch.Tensor:
     CPU tensors take the plain twin; CUDA tensors the kernel."""
     if x.device.type == "cpu":
         return conv3d_same_reference(x, unpack_im2col(w_mat), bias)
+    return torch.ops.crowdmod.conv3d_im2col(x, w_mat, bias)
+
+
+def _im2col_cuda(x, w_mat, bias):
+    """``crowdmod::conv3d_im2col`` on CUDA tensors: check, plan, launch."""
     cin = x.shape[-1]
     _check("conv3d_same_im2col", x, w_mat, bias, (27 * cin, w_mat.shape[-1]))
     cout = w_mat.shape[-1]
@@ -275,6 +280,11 @@ def conv3d_same_tapgemm(x, w_taps, bias=None) -> torch.Tensor:
     weight.  CPU tensors take the plain twin; CUDA tensors the kernel."""
     if x.device.type == "cpu":
         return conv3d_same_reference(x, unpack_tapgemm(w_taps), bias)
+    return torch.ops.crowdmod.conv3d_tapgemm(x, w_taps, bias)
+
+
+def _tapgemm_cuda(x, w_taps, bias):
+    """``crowdmod::conv3d_tapgemm`` on CUDA tensors: check, plan, launch."""
     cin = x.shape[-1]
     _check("conv3d_same_tapgemm", x, w_taps, bias, (9, cin, w_taps.shape[-1]))
     if w_taps.shape[-1] % 3:
@@ -293,5 +303,14 @@ def conv3d_same_tapgemm(x, w_taps, bias=None) -> torch.Tensor:
     return out
 
 
+def _conv_fake(x, w, bias):
+    cout = w.shape[-1] if w.dim() == 2 else w.shape[-1] // 3
+    return x.new_empty((*x.shape[:-1], cout))
+
+
+library.define("conv3d_im2col(Tensor x, Tensor w, Tensor? bias) -> Tensor",
+               _im2col_cuda, _conv_fake)
+library.define("conv3d_tapgemm(Tensor x, Tensor w, Tensor? bias) -> Tensor",
+               _tapgemm_cuda, _conv_fake)
 conv3d_same_im2col.launches = 0
 conv3d_same_tapgemm.launches = 0

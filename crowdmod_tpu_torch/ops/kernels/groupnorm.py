@@ -16,7 +16,8 @@ tensors it runs :func:`group_norm_reference`; on CUDA tensors it launches
 the kernel or raises.  Where a gradient is needed it runs as
 :class:`FusedGroupNorm`, whose backward is :func:`group_norm_vjp`, the
 closed-form VJP of the plain math in f32 (the JAX package's ``custom_vjp``
-takes the oracle's VJP; no TPU kernel has a backward kernel).
+takes the oracle's VJP; no TPU kernel has a backward kernel).  The kernel is
+the ``crowdmod::group_norm`` operator (:mod:`.library`).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
-from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels import build, library
 from crowdmod_tpu_torch.ops.kernels.build import SMS, sm_count
 
 # Limits of the cluster route (csrc/groupnorm.cu): cluster sizes, groups,
@@ -280,6 +281,11 @@ def fused_group_norm(
 def _forward(x, gamma, beta, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return group_norm_reference(x, gamma, beta, num_groups, eps, silu)
+    return torch.ops.crowdmod.group_norm(x, gamma, beta, num_groups, float(eps), bool(silu))
+
+
+def _group_norm_cuda(x, gamma, beta, num_groups: int, eps: float, silu: bool):
+    """``crowdmod::group_norm`` on CUDA tensors: check, plan, launch."""
     _check(x, gamma, beta)
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -292,4 +298,8 @@ def _forward(x, gamma, beta, num_groups: int, eps: float, silu: bool) -> torch.T
     return out
 
 
+library.define(
+    "group_norm(Tensor x, Tensor gamma, Tensor beta, int num_groups, float eps, "
+    "bool silu) -> Tensor",
+    _group_norm_cuda, lambda x, *args: torch.empty_like(x))
 fused_group_norm.launches = 0

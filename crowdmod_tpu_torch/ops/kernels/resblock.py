@@ -21,7 +21,8 @@ the weights passes the packed form as ``packed=`` so no call repacks.
 the kernel on CUDA tensors, or raises; it never falls back to the twin.
 The kernel is forward only, like the JAX package's inference path: on CUDA
 it raises where autograd would need a graph (an input that requires grad
-while grad is enabled) rather than return an output without one.
+while grad is enabled) rather than return an output without one.  The
+kernel is the ``crowdmod::resblock`` operator (:mod:`.library`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
-from crowdmod_tpu_torch.ops.kernels import build
+from crowdmod_tpu_torch.ops.kernels import build, library
 from crowdmod_tpu_torch.ops.kernels.conv3d import (
     conv3d_same_reference,
     pack_im2col,
@@ -44,6 +45,8 @@ MIN_VOLUME = 128
 MAX_GROUPS = 32
 SIMT_BM, SIMT_BK = 128, 16  # csrc/common.cuh, kBM and kBK: the f32 loops' tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The packed tensors, in the operator's order.
+PACKED = ("w1", "w2", "b1", "gamma1", "beta1", "gamma2", "beta2", "bias2")
 _SIGNATURES = {
     "crowdmod_resblock": (
         ctypes.c_int,
@@ -211,6 +214,15 @@ def fused_resblock(
             "torch.no_grad()"
         )
     p = packed if packed is not None else pack_resblock(w, x.dtype)
+    return torch.ops.crowdmod.resblock(
+        x, temb_proj, *(p[k] for k in PACKED), p["has_skip"], num_groups, float(eps))
+
+
+def _resblock_cuda(x, temb_proj, w1, w2, b1, gamma1, beta1, gamma2, beta2, bias2,
+                   has_skip, num_groups, eps):
+    """``crowdmod::resblock`` on CUDA tensors: check, plan, launch."""
+    p = dict(zip(PACKED, (w1, w2, b1, gamma1, beta1, gamma2, beta2, bias2)),
+             has_skip=has_skip, cin=w1.shape[0] // 27, cout=w1.shape[1])
     _check(x, temb_proj, p, num_groups)
     b, t, h, wd, cin = x.shape
     cout = p["cout"]
@@ -240,4 +252,9 @@ def fused_resblock(
     return out
 
 
+library.define(
+    "resblock(Tensor x, Tensor temb_proj, Tensor w1, Tensor w2, Tensor b1, "
+    "Tensor gamma1, Tensor beta1, Tensor gamma2, Tensor beta2, Tensor bias2, "
+    "bool has_skip, int num_groups, float eps) -> Tensor",
+    _resblock_cuda, lambda x, temb_proj, w1, *args: x.new_empty((*x.shape[:-1], w1.shape[1])))
 fused_resblock.launches = 0

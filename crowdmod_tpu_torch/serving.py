@@ -21,10 +21,13 @@ from collections import deque
 from concurrent.futures import Future, TimeoutError as FuturesTimeoutError
 from dataclasses import dataclass
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
-from crowdmod_tpu_torch.config import FrozenConfig
+if TYPE_CHECKING:  # a served artifact loads no config module
+    from crowdmod_tpu_torch.config import FrozenConfig
 
 
 @dataclass
@@ -134,11 +137,21 @@ def load_predictor(
     *,
     datafiles_yml: str | None = None,
     epoch_tag: str | int = "000",
+    data_parallel: bool = False,
     **kwargs,
 ) -> Predictor:
-    """Convenience constructor from config paths + checkpoint tag."""
+    """Convenience constructor from config paths + checkpoint tag; keywords
+    ``device``, ``batch_buckets`` and ``seed`` go to :class:`Predictor`.
+    ``data_parallel`` (one request batch sharded over the cards) is not
+    ported yet and raises."""
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    if data_parallel:
+        raise NotImplementedError(
+            "data_parallel serving is not ported to PyTorch yet: ROADMAP.md "
+            "Queue 1 item 16 (the parallel paths)"
+        )
 
     cfg = load_config(config_yml, datafiles_yml)
     path = os.path.join(

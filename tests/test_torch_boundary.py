@@ -62,6 +62,10 @@ def test_importing_the_port_loads_no_jax():
         "import crowdmod_tpu_torch.cli.reflow, crowdmod_tpu_torch.cli.distill\n"
         "import crowdmod_tpu_torch.models.convrnn, crowdmod_tpu_torch.utils.sampler_spec\n"
         "import crowdmod_tpu_torch.models.diffusion.dpm_solver\n"
+        "import crowdmod_tpu_torch.cli.serve, crowdmod_tpu_torch.cli.import_checkpoint\n"
+        "import crowdmod_tpu_torch.export_artifact, crowdmod_tpu_torch.utils.model_info\n"
+        "import crowdmod_tpu_torch.compat.torch_import\n"
+        "import crowdmod_tpu_torch.ops.kernels.library\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

@@ -6,7 +6,8 @@ give the same checkpoint names and metadata keys, run files, metric CSV
 names, headers and columns and manifest keys as ``crowdmod_tpu.cli``'s run
 (the JAX run also writes ``losses.png`` and boxplot PNGs, which wait for
 the port's plotting module).  Commands not ported yet exit 2 and name their
-ROADMAP.md item."""
+ROADMAP.md item; every command runs on the card unless given ``--device
+cpu``; ``params`` totals equal the JAX command's."""
 
 import json
 import os
@@ -22,8 +23,16 @@ from crowdmod_tpu.cli import generate_metrics as jax_generate_metrics
 from crowdmod_tpu.cli import main as jax_main
 from crowdmod_tpu.cli import reflow as jax_reflow
 from crowdmod_tpu.cli import train as jax_train
-from crowdmod_tpu_torch import cli
-from crowdmod_tpu_torch.cli import distill, generate_metrics, reflow, train
+from crowdmod_tpu_torch import cli, export_artifact
+from crowdmod_tpu_torch.cli import (
+    distill,
+    generate_metrics,
+    import_checkpoint,
+    reflow,
+    serve,
+    train,
+)
+from crowdmod_tpu_torch.utils import model_info
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -224,20 +233,40 @@ def test_help_unknown_and_module_entry(capsys):
     assert cli.main(["--help"]) == 0
     assert "generate-metrics" in capsys.readouterr().out
     assert cli.main(["bogus"]) == 2
-    r = _port_cli("serve")
-    assert r.returncode == 2 and "item 14" in r.stderr
+    r = _port_cli("etl")
+    assert r.returncode == 2 and "item 15" in r.stderr
 
 
-@pytest.mark.parametrize("module", [train, generate_metrics, reflow, distill])
+# Each command's required arguments besides the config.
+REQUIRED = {serve: [], export_artifact: ["--output", "x.pt2"], model_info: [],
+            import_checkpoint: ["--torch-ckpt", "x.pt"]}
+
+
+@pytest.mark.parametrize("module", [train, generate_metrics, reflow, distill, serve,
+                                    export_artifact, import_checkpoint, model_info])
 def test_commands_default_to_the_card(module, workspace):
-    args = module.build_parser().parse_args([])
+    args = module.build_parser().parse_args(REQUIRED.get(module, []))
     assert args.device == "cuda"
     if torch.cuda.is_available():
         return
     argv = ["--config-yml-file", workspace["cfg"], "--configList-yml-file",
-            workspace["list"]]
+            workspace["list"], *REQUIRED.get(module, [])]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         module.run(argv)
+
+
+def test_params_totals_match_jax(workspace, capsys):
+    """``params --all-archs``: every arch's total equals the JAX command's."""
+    from crowdmod_tpu.utils import model_info as jax_model_info
+
+    argv = ["--config-yml-file", workspace["cfg"], "--all-archs"]
+    assert jax_model_info.run(argv) == 0
+    want = [line for line in capsys.readouterr().out.splitlines() if "trainable" in line]
+    assert cli.main(["params", *argv, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    got = [line for line in out.splitlines() if "trainable" in line]
+    assert got == want and len(got) == 5
+    assert "  encoder_blocks:" in out  # the port's top-level modules
 
 
 def test_train_exits_1_on_a_nan_abort(workspace, monkeypatch):

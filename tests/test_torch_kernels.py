@@ -24,6 +24,7 @@ from crowdmod_tpu_torch.ops.kernels import (
     attention_reference,
     fused_ancestral_update,
     fused_attention,
+    step_coefficients,
 )
 from crowdmod_tpu_torch.ops.kernels.attention import (
     _check as check_attention_inputs,
@@ -111,11 +112,12 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
         rtol=0, atol=0,
     )
     x = torch.randn(2, 3, 12, 36, 3, generator=torch.Generator().manual_seed(0))
-    kw = dict(inv_sqrt_alpha=1.01, beta_over_somab=0.05, sigma=0.1,
-              lambda_guidance=0.6, sparsity=True)
+    coeffs = step_coefficients(1.01, 0.05, 0.1, "cpu")
     torch.testing.assert_close(
-        fused_ancestral_update(x, x, x, **kw),
-        ancestral_update_reference(x, x, x, **kw), rtol=0, atol=0,
+        fused_ancestral_update(x, x, x, coeffs, lambda_guidance=0.6, sparsity=True),
+        ancestral_update_reference(
+            x, x, x, inv_sqrt_alpha=coeffs[0], beta_over_somab=coeffs[1],
+            sigma=coeffs[2], lambda_guidance=0.6, sparsity=True), rtol=0, atol=0,
     )
     assert fused_attention.launches == 0
     assert fused_ancestral_update.launches == 0
