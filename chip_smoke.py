@@ -89,20 +89,37 @@ non-zero without a result line:
      convolutions are library calls, as they are XLA's in the JAX package).
 
  14. serving's deployment commands at the serving config's width, DDPM-DiT
-     and DDPM-UNet with seeded random weights: ``export`` (five processes
+     and DDPM-UNet with seeded random weights: ``export`` (eight processes
      at once: each model's DDIM-eta 25 + Sparsity sampler at buckets 1 and
-     64, the DiT's T = 1000 ancestral chain at 64; export seconds, bytes,
-     the ``crowdmod::`` nodes of each graph), ``import-checkpoint`` and
+     64, the DiT's T = 1000 ancestral chain at 64, the DiT's DPM-Solver 20
+     at 64, the UNet's Distilled-eta:1.0:8 at 64, the DiT's DDIM-eta 25
+     with mass-preservation guidance at 1; export seconds, bytes, the
+     ``crowdmod::`` nodes of each graph), ``import-checkpoint`` and
      ``params`` meanwhile; ``serve`` with both models as
      a process (/healthz 503 then 200, HTTP p50 per bucket 1/8/64, a
      concurrent burst coalesced, a seeded request twice, SIGTERM → drained,
      exit 0, launches from its log); each artifact in this process against
      the un-exported ``sampler_fn`` for the same seed (bitwise, else within
-     the bf16 tolerance, said so), its launches held to (steps + the scan's
-     extra body call) forwards, p50 in turns with the ``Predictor``, a
-     profiled batch-64 request; ``serve --artifact``.  The
-     ``import-checkpoint`` run takes a reference-format ``.pt`` of the DiT's
-     weights; the imported checkpoint serves the original's future.
+     the bf16 tolerance, said so), its launches held to (forwards + the
+     scan's extra body call) forwards, p50 in turns with the ``Predictor``
+     of the same sampler, a profiled batch-64 request; ``serve
+     --artifact``, its seeded request held to a seeded ``Predictor``
+     request of the same checkpoint (bitwise, else within the bf16
+     tolerance with the reason).  The ``import-checkpoint`` run takes a
+     reference-format ``.pt`` of the DiT's weights; the imported checkpoint
+     serves the original's future.
+ 15. the data path at the size of one hour of one ATC recording day:
+     synthetic raw trajectories (``configs/ATC.yml``'s 12 × 36 geometry, 7200
+     frames, 8 walkers a row, 2 readings a 500 ms bin: 1,382,400 rows)
+     written as a headerless raw CSV; ``python -m crowdmod_tpu_torch.cli
+     etl`` on the card (seconds of aggregate, read, preprocess and filter,
+     bin, windows and pickle; the windows written); the aggregated file
+     binned again in this process twice on the card (bitwise equal, and
+     equal to the command's pickle) and once on the CPU (density equal,
+     the rest within 1e-5·max|ref|); the pickle through ``load_pickles``
+     twice, the second time from its ``.cmb`` sidecar (the native library
+     built with g++); one DDPM-UNet ``Trainer.fit`` epoch of phase 9's
+     length on the windows, its launches held to phase 9's a step.
 
 Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
@@ -112,8 +129,9 @@ phase 8, each model's training (phases 9, 11 and 13), each model's protocol run
 (phase 10; the DiT's in its own process, FM-DiT's commands each in theirs),
 each FM model's serving (phase 11), each fast sampler's serving, the
 distillation runs and the D004 request (phase 12), ConvRNN's serving and
-commands (phase 13), and the serve process, the artifacts and the artifact
-server (phase 14, the processes' counts from their log lines); the counts
+commands (phase 13), the serve process, the artifacts and the artifact
+server (phase 14, the processes' counts from their log lines), and the
+training run on the ETL's windows (phase 15); the counts
 are held to the launches each forward, training or distillation step makes
 (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
@@ -1813,7 +1831,7 @@ def phase_cli(workdir: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 FM_BUCKETS = (1, 64)
-FM_P50_REPS = 2  # PR 10: cut from 3 to make room for phase 14
+FM_P50_REPS = 1  # cut from 3, then 2, to make room for phases 14-15
 FM_F32_STEPS = 25      # the f32 Euler chain held against the twins
 RF_COUPLING_STEPS = 4  # the teacher's Euler steps in phase 10's reflow
 RF_EULER_STEPS = 4     # the RF1 checkpoint's sampler
@@ -2409,8 +2427,16 @@ EXPORT_BUCKETS = (1, 64)
 SERVE_BUCKETS = (1, 8, 64)
 SERVE_REPS = 5       # sequential HTTP requests a bucket for the p50
 BURST = 16           # concurrent one-row requests a model (coalescing)
-ARTIFACT_REPS = 5    # artifact and Predictor requests a bucket, in turns
+ARTIFACT_REPS = 3    # artifact and Predictor requests a bucket, in turns (cut from 5)
 DEPLOY_SEED = 3
+# Exports beside each model's serving sampler and the DiT's T = 1000 chain:
+# name → (arch, the sampler's config overrides, bucket).
+MASS = {"MODEL": {"DDPM": {"GUIDANCE": "mass_preservation"}}}  # DDIM-eta 25
+EXTRA_EXPORTS = {
+    "DDPM-DiT DPM-20": ("DDPM-DiT", "DPM-Solver", 64),
+    "DDPM-UNet Distilled-eta:1.0:8": ("DDPM-UNet", "Distilled-eta:1.0:8", 64),
+    "DDPM-DiT DDIM-eta mass": ("DDPM-DiT", MASS, 1),
+}
 
 
 def scan_extra_calls() -> int:
@@ -2427,6 +2453,16 @@ def scan_extra_calls() -> int:
          (torch.zeros(3, device=DEVICE),))
     torch.cuda.synchronize()
     return fused_ancestral_update.launches - before - 3
+
+
+def request_forwards(cfg) -> int:
+    """Denoiser forwards of one DDPM request with ``cfg``'s sampler."""
+    node = cfg.MODEL.DDPM
+    if node.SAMPLER == "DDPM":
+        return node.TIMESTEPS
+    if node.SAMPLER == "DDIM-eta":
+        return node.ETA_STEPS
+    return sampler_forwards(cfg)
 
 
 def per_request(cfg, arch: str, forwards: int) -> dict:
@@ -2572,13 +2608,10 @@ def phase_serve_command(cfg, cfg_path: Path, walkers, f_shape) -> dict:
     return res
 
 
-def start_exports(workdir: Path, cfg_path: Path, anc_path: Path) -> dict:
-    """``export`` as five processes at once, one an artifact: each model's
-    serving sampler at buckets 1 and 64, the DiT's T = 1000 ancestral chain
-    at 64 → {(name, bucket): (process, output path)}."""
-    jobs = [("DDPM-DiT", "DDPM-DiT", cfg_path, b) for b in EXPORT_BUCKETS]
-    jobs += [("DDPM-UNet", "DDPM-UNet", cfg_path, b) for b in EXPORT_BUCKETS]
-    jobs.append(("DDPM-DiT T1000", "DDPM-DiT", anc_path, 64))
+def start_exports(workdir: Path, jobs) -> dict:
+    """``export`` as one process an artifact, all at once; ``jobs`` are
+    (name, arch, config path, bucket) → {(name, bucket): (process, output
+    path)}."""
     procs = {}
     for name, arch, path, b in jobs:
         out = workdir / "artifacts" / f"{name.replace(' ', '_')}.b{b}.pt2"
@@ -2634,28 +2667,30 @@ def hold_artifact(label, out, ref) -> dict:
     return {"bitwise": False, "max_abs_diff": diff}
 
 
-def phase_artifacts(cfg, anc_cfg, ckpts: dict, artifacts: dict, walkers, extra: int) -> dict:
-    """Each artifact in this process: its crowdmod:: nodes, load seconds,
-    one request's launches held to (steps + ``extra``) forwards, its output
-    against the un-exported ``sampler_fn`` (same seed), p50 per bucket in
-    turns with the ``Predictor`` on the same checkpoint, the busy share of a
-    batch-64 request; then the DiT's T = 1000 ancestral artifact.  → each
-    artifact's numbers."""
+def phase_artifacts(configs: dict, ckpts: dict, artifacts: dict, walkers, extra: int) -> dict:
+    """Each artifact in this process (``configs``: export name → its
+    config): its crowdmod:: nodes, load seconds, one request's launches held
+    to (forwards + ``extra``) forwards, its output against the un-exported
+    ``sampler_fn`` (same seed), p50 per bucket in turns with the
+    ``Predictor`` on the same checkpoint and sampler (not the T = 1000
+    chain), the busy share of a batch-64 request.  → each artifact's
+    numbers."""
     from crowdmod_tpu_torch.export_artifact import load_sampler, sampler_fn
     from crowdmod_tpu_torch.serving import Predictor
     from crowdmod_tpu_torch.train.trainer import Trainer
 
     res = {}
-    for name, c in (("DDPM-DiT", cfg), ("DDPM-UNet", cfg), ("DDPM-DiT T1000", anc_cfg)):
+    for name, c in configs.items():
         arch = name.split()[0]
-        node = c.MODEL.DDPM
-        steps = node.TIMESTEPS if node.SAMPLER == "DDPM" else node.ETA_STEPS
-        trainer = Trainer(c, arch, device=DEVICE)
-        trainer.load(ckpts[arch])
-        direct = sampler_fn(trainer)
+        ancestral = c.MODEL.DDPM.SAMPLER == "DDPM"
+        steps = request_forwards(c)
         buckets = [b for (n, b) in artifacts if n == name]
-        pred = (Predictor(c, arch, ckpts[arch], device=DEVICE, batch_buckets=tuple(buckets))
-                if node.SAMPLER != "DDPM" else None)
+        pred = (None if ancestral else
+                Predictor(c, arch, ckpts[arch], device=DEVICE, batch_buckets=tuple(buckets)))
+        if pred is None:
+            trainer = Trainer(c, arch, device=DEVICE)
+            trainer.load(ckpts[arch])
+        direct = sampler_fn(trainer if pred is None else pred._trainer)
         for b in buckets:
             art = artifacts[(name, b)]
             t0 = time.perf_counter()
@@ -2666,13 +2701,14 @@ def phase_artifacts(cfg, anc_cfg, ckpts: dict, artifacts: dict, walkers, extra: 
             out = sample(past, DEPLOY_SEED)
             torch.cuda.synchronize()
             want = per_request(c, arch, steps + extra)
-            if arch == "DDPM-DiT" and node.SAMPLER == "DDPM":
+            if arch == "DDPM-DiT" and ancestral:
                 want["fused_ancestral_update"] = steps + extra
             launches = check_launches(f"artifact {name} b{b}", before, want, 1)
             ref = direct(past, torch.tensor(DEPLOY_SEED))
             torch.cuda.synchronize()
-            entry = dict(export_s=art["export_s"], bytes=art["meta"]["bytes"], load_s=load_s,
-                         nodes=crowdmod_nodes(art["path"]), launches=launches,
+            entry = dict(sampler=c.MODEL.DDPM.SAMPLER, guidance=c.MODEL.DDPM.GUIDANCE,
+                         forwards=steps, export_s=art["export_s"], bytes=art["meta"]["bytes"],
+                         load_s=load_s, nodes=crowdmod_nodes(art["path"]), launches=launches,
                          **hold_artifact(f"{name} b{b}", out, ref))
             if pred is not None:
                 lat_a, lat_p = [], []
@@ -2694,9 +2730,32 @@ def phase_artifacts(cfg, anc_cfg, ckpts: dict, artifacts: dict, walkers, extra: 
     return res
 
 
-def phase_artifact_server(cfg, artifacts: dict, walkers, f_shape, extra: int) -> dict:
-    """``serve --artifact`` with the DiT's two buckets: one request of 2
-    rows (padded to 64), SIGTERM → exit 0, launches from its log."""
+def hold_seeded(label, got, want) -> dict:
+    """A seeded ``Predictor`` request (the eager sampler) against the
+    artifact's future for the same seed: bitwise, else within the bf16
+    tolerance with the reason.  Both draw ``normal(seed, step)``; the eager
+    DDIM step takes its coefficients as a device tensor, as the scan does,
+    so the two run the same arithmetic."""
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{label}: seeded Predictor output is not finite")
+    if np.array_equal(got, want):
+        return {"bitwise": True, "max_abs_diff": 0.0}
+    diff = float(np.abs(got - want).max())
+    if not diff <= TOL["bf16"] * float(np.abs(want).max()):
+        raise AssertionError(f"{label}: seeded Predictor vs serve --artifact {diff}")
+    return {"bitwise": False, "max_abs_diff": diff,
+            "reason": "the eager chain and the exported scan differ in the last bits "
+                      "(bf16 compute), and the chain carries the difference"}
+
+
+def phase_artifact_server(cfg, ckpt_path: str, artifacts: dict, walkers, f_shape,
+                          extra: int) -> dict:
+    """``serve --artifact`` with the DiT's two buckets: one seeded request of
+    2 rows (padded to 64), held to the same request to a ``Predictor`` of
+    the checkpoint the artifacts came from (the seed check), SIGTERM → exit
+    0, launches from its log."""
+    from crowdmod_tpu_torch.serving import Predictor
+
     paths = [str(artifacts[("DDPM-DiT", b)]["path"]) for b in EXPORT_BUCKETS]
     proc, base, seen = start_server("--arch", "DDPM-DiT", "--artifact", *paths)
     try:
@@ -2713,7 +2772,9 @@ def phase_artifact_server(cfg, artifacts: dict, walkers, f_shape, extra: int) ->
     launches = hold_launches(
         "serve --artifact", json.loads(logged(stdout, "kernel launches: ")),
         per_request(cfg, "DDPM-DiT", (cfg.MODEL.DDPM.ETA_STEPS + extra) * calls), 1)
-    res = dict(healthz=seen, models=info, launches=launches)
+    pred = Predictor(cfg, "DDPM-DiT", ckpt_path, device=DEVICE, batch_buckets=EXPORT_BUCKETS)
+    seed = hold_seeded("seed 5", pred.predict(walkers[:2], seed=5), out.astype(np.float32))
+    res = dict(healthz=seen, models=info, launches=launches, seeded_predictor=seed)
     log("serve --artifact DDPM-DiT", **res)
     return res
 
@@ -2772,8 +2833,16 @@ def phase_deploy(tmp: Path, cfg) -> dict:
     for arch in ("DDPM-DiT", "DDPM-UNet"):
         cfg_path, ckpts[arch] = write_checkpoint(cfg, arch, work)
     cfg = load_config(str(cfg_path))
-    anc_cfg = cfg.updated({"MODEL": {"DDPM": {"SAMPLER": "DDPM"}}})
-    anc_path = write_config(anc_cfg, work / "ancestral.yml")
+    configs = {"DDPM-DiT": cfg, "DDPM-UNet": cfg,
+               "DDPM-DiT T1000": cfg.updated({"MODEL": {"DDPM": {"SAMPLER": "DDPM"}}})}
+    jobs = [(arch, arch, cfg_path, b) for arch in ("DDPM-DiT", "DDPM-UNet")
+            for b in EXPORT_BUCKETS]
+    jobs.append(("DDPM-DiT T1000", "DDPM-DiT", write_config(configs["DDPM-DiT T1000"],
+                                                            work / "ancestral.yml"), 64))
+    for k, (name, (arch, sampler, b)) in enumerate(EXTRA_EXPORTS.items()):
+        configs[name] = (cfg.updated(sampler) if isinstance(sampler, dict)
+                         else fast_config(cfg, sampler))
+        jobs.append((name, arch, write_config(configs[name], work / f"extra{k}.yml"), b))
     p, f, h, w = (cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS,
                   cfg.MACROPROPS.COLS)
     walkers = synthetic_walkers(64, h, w, p + f)[:, :p]
@@ -2783,7 +2852,7 @@ def phase_deploy(tmp: Path, cfg) -> dict:
     # The exports trace on the host; import-checkpoint and params run
     # meanwhile.  Nothing timed runs until they are done.
     t0 = time.perf_counter()
-    procs = start_exports(work, cfg_path, anc_path)
+    procs = start_exports(work, jobs)
     try:
         phase_import(cfg, work, ckpts["DDPM-DiT"], walkers)
         phase_params(cfg_path)
@@ -2794,16 +2863,143 @@ def phase_deploy(tmp: Path, cfg) -> dict:
     serve = phase_serve_command(cfg, cfg_path, walkers, f_shape)
     paths["serve command"] = serve["launches"]
     reset_launch_counts()  # the artifacts' path, in this process
-    phase_artifacts(cfg, anc_cfg, ckpts, artifacts, walkers, extra)
+    phase_artifacts(configs, ckpts, artifacts, walkers, extra)
     paths["artifacts"] = launch_counts()
-    paths["serve --artifact"] = phase_artifact_server(cfg, artifacts, walkers, f_shape,
-                                                      extra)["launches"]
+    paths["serve --artifact"] = phase_artifact_server(cfg, ckpts["DDPM-DiT"], artifacts,
+                                                      walkers, f_shape, extra)["launches"]
     log("deploy exports", wall_s=export_wall, processes=len(artifacts),
         export_s={f"{n} b{b}": a["export_s"] for (n, b), a in artifacts.items()},
         bytes={f"{n} b{b}": a["meta"]["bytes"] for (n, b), a in artifacts.items()})
     paths = {f"14 {k}": v for k, v in paths.items()}
     log("phase 14 launches", **add_launches(*paths.values()))
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the data path at the size of one hour of one ATC recording day
+# ---------------------------------------------------------------------------
+
+ETL_FRAMES = 7200     # one hour at TIME_RES 0.5 s
+ETL_WALKERS = 8       # pedestrians a grid row
+ETL_SUBSAMPLES = 2    # sensor readings a pedestrian a 500 ms bin
+
+
+def held_macroprops(label, got, ref) -> dict:
+    """Card windows against the CPU's: density exactly, the other channels
+    within 1e-5·max|ref|."""
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: {got.shape} vs {ref.shape}, finite "
+                             f"{np.isfinite(got).all()}")
+    if not np.array_equal(got[..., 0], ref[..., 0]):
+        raise AssertionError(f"{label}: density differs at "
+                             f"{int((got[..., 0] != ref[..., 0]).sum())} elements")
+    diff = float(np.abs(got[..., 1:] - ref[..., 1:]).max(initial=0.0))
+    scale = float(np.abs(ref[..., 1:]).max(initial=0.0))
+    if not diff <= 1e-5 * scale:
+        raise AssertionError(f"{label}: velocity/variance channels differ by {diff}")
+    return {"density_equal": True, "max_abs_diff": diff, "bitwise": bool(np.array_equal(got, ref))}
+
+
+def phase_data(tmp: Path) -> dict:
+    """Phase 15: raw trajectories of an hour at the ATC geometry →
+    ``python -m crowdmod_tpu_torch.cli etl`` on the card (stage seconds from
+    its log) → the same aggregated file binned again on the card (bitwise
+    equal) and on the CPU (density equal, the rest within 1e-5·max|ref|) →
+    the pickle loaded twice through ``load_pickles`` (the second time from
+    its ``.cmb`` sidecar) → one ``Trainer.fit`` epoch of phase 9's length on
+    the windows.  → the training run's launch counts."""
+    import pickle
+
+    from crowdmod_tpu_torch.data import etl
+    from crowdmod_tpu_torch.data.ingest import load_pickles
+    from crowdmod_tpu_torch.data.synthetic import synthetic_raw_trajectories, write_atc_raw_csv
+    from crowdmod_tpu_torch.data.windows import WindowDataset
+    from crowdmod_tpu_torch.native import build, native_available
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    work = tmp / "data"
+    raw_dir, agg_dir, pkl_dir = work / "raw", work / "agg", work / "pkl"
+    raw_dir.mkdir(parents=True)
+    base = training_config(work)
+    window = base.DATASET.PAST_LEN + base.DATASET.FUTURE_LEN
+    cfg = base.updated({"DATASET": {"RAW_SEQ_LEN": window}})  # a pickle row is a window
+    m = cfg.MACROPROPS
+    t0 = time.perf_counter()
+    raw = synthetic_raw_trajectories(
+        n_frames=ETL_FRAMES, rows=m.ROWS, cols=m.COLS, lu=list(m.LU), theta=m.THETA,
+        dx=m.DX, dy=m.DY, time_res=m.TIME_RES, walkers_per_row=ETL_WALKERS,
+        subsamples=ETL_SUBSAMPLES, seed=SEED)
+    t1 = time.perf_counter()
+    write_atc_raw_csv(raw, str(raw_dir / "ATC_hour.csv"))
+    res = dict(raw_rows=len(raw["time"]), generate_s=t1 - t0,
+               write_raw_csv_s=time.perf_counter() - t1,
+               raw_csv_bytes=(raw_dir / "ATC_hour.csv").stat().st_size)
+    cfg_path = write_config(cfg, work / "ATC.yml")
+    wall, out = run_cli("etl", "--config-yml-file", str(cfg_path), "--raw-dir", str(raw_dir),
+                        "--agg-dir", str(agg_dir), "--pickle-dir", str(pkl_dir),
+                        "--data-list-out", str(work / "list.yml"))
+    stages = json.loads(logged(out, "etl stages ATC_hour.csv: "))
+    res.update(etl_wall_s=wall, aggregate_s=float(logged(out, "aggregate: ").split()[0]),
+               **{f"card_{k}": v for k, v in stages.items()})
+    pkl = pkl_dir / "ATC_hour.pkl"
+    with open(pkl, "rb") as f:
+        card = pickle.load(f).transpose(0, 4, 2, 3, 1)  # → (N, T, H, W, 4)
+    if card.shape != (stages["windows"], window, m.ROWS, m.COLS, 4) or not card.shape[0]:
+        raise AssertionError(f"etl windows {card.shape}, stages {stages}")
+
+    df = etl.read_aggregated_csv(str(agg_dir / "ATC_hour.csv"))
+    pre, rlu = etl.preprocess_trajectories(df, cfg)
+    filt = etl.filter_by_grid(pre, cfg, rlu)
+    span = dict(t_init=pre["time"].min(), t_final=pre["time"].max())
+    binned, seconds = {}, {}
+    for device in (DEVICE, DEVICE, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = etl.macroprop_frames(filt, cfg, rlu, device=device, **span)
+        torch.cuda.synchronize()
+        seconds.setdefault(device, []).append(time.perf_counter() - t0)
+        binned.setdefault(device, []).append(etl.macroprop_windows(frames, cfg))
+    if not np.array_equal(binned[DEVICE][0], binned[DEVICE][1]):
+        raise AssertionError("the card's second binning differs from its first")
+    if not np.array_equal(binned[DEVICE][0], card):
+        raise AssertionError("the card's binning in process differs from the etl command's")
+    res.update(aggregated_rows=len(df["time"]), in_grid_rows=len(filt["time"]),
+               bin_card_s=seconds[DEVICE], bin_cpu_s=seconds["cpu"][0], card_repeat_bitwise=True,
+               card_vs_cpu=held_macroprops("etl card vs CPU", card, binned["cpu"][0]))
+
+    if not native_available():
+        raise AssertionError("the native library did not build")
+    loads = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loads.append(load_pickles([(str(pkl), len(card))], 4, (m.ROWS, m.COLS, window)))
+        loads[-1] += (time.perf_counter() - t0, Path(str(pkl) + ".cmb").exists())
+    (first, _, first_s, cmb_after_first), (second, _, second_s, _) = loads
+    if not (cmb_after_first and np.array_equal(first, second) and np.array_equal(first, card)):
+        raise AssertionError(f"load_pickles: sidecar {cmb_after_first}, equal "
+                             f"{np.array_equal(first, second)}, {np.array_equal(first, card)}")
+    res.update(load_pickle_s=first_s, load_cmb_s=second_s, native_library=build.library_path().name)
+
+    batch = cfg.DATASET.BATCH_SIZE
+    ds = WindowDataset(torch.from_numpy(np.ascontiguousarray(first[:TRAIN_STEPS * batch, ..., :3]))
+                       .to(DEVICE), past_len=cfg.DATASET.PAST_LEN,
+                       future_len=cfg.DATASET.FUTURE_LEN, stride=m.STRIDE)
+    tr = Trainer(cfg, "DDPM-UNet", device=DEVICE, seed=SEED, run_dir=str(work / "run"))
+    reset_launch_counts()  # the data path's training run
+    before = launch_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit(ds, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = check_launches("fit on the etl windows", before,
+                              TRAIN_PER_STEP["DDPM-UNet"](cfg), TRAIN_STEPS)
+    losses = hist["train_loss"]
+    if not (np.isfinite(losses).all() and tr.state.step == TRAIN_STEPS):
+        raise AssertionError(f"fit on the etl windows: losses {losses}, step {tr.state.step}")
+    res.update(fit_steps=tr.state.step, fit_s=fit_s, train_loss=losses)
+    log("data path ATC hour", **res)
+    return {"15 data fit": launches}
 
 
 def kernel_entry(name, route, measured, launches) -> dict:
@@ -2891,6 +3087,7 @@ def main() -> int:
         paths.update(timed("12 fast", phase_fast, Path(tmp), cfg))
         paths.update(timed("13 convrnn", phase_convrnn, Path(tmp), cfg))
         paths.update(timed("14 deploy", phase_deploy, Path(tmp), cfg))
+        paths.update(timed("15 data", phase_data, Path(tmp)))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

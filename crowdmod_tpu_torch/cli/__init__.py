@@ -16,7 +16,9 @@
     artifacts, one a batch bucket, that call the port's kernels;
   * ``import-checkpoint`` — migrate a reference torch checkpoint into a port
     checkpoint that ``serve`` and ``generate-metrics`` resolve;
-  * ``params``           — trainable parameters per architecture.
+  * ``params``           — trainable parameters per architecture;
+  * ``etl``              — raw trajectory CSVs → aggregated CSVs → macroprop
+    pickles (binned on the device) and their DATA_LIST.
 
 Each runs on the GPU unless given ``--device cpu``.  The JAX package's other
 commands are not ported yet; each exits with status 2 and names its
@@ -40,12 +42,12 @@ COMMANDS = {
     "export": "crowdmod_tpu_torch.export_artifact",
     "import-checkpoint": "crowdmod_tpu_torch.cli.import_checkpoint",
     "params": "crowdmod_tpu_torch.utils.model_info",
+    "etl": "crowdmod_tpu_torch.cli.etl",
 }
 
 # The JAX package's other commands → the ROADMAP.md Queue 1 item that ports
 # them.
 NOT_PORTED = {
-    "etl": "item 15 (data at scale)",
     "generate-samples": "item 17 (viz: its output is plots)",
     "sweep": "item 17",
     "compare": "item 17 (viz)",

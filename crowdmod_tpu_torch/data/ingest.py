@@ -2,13 +2,15 @@
 ``data/ingest.py``, its pickle path).
 
 Macroprop pickles hold reference-layout arrays ``(N, C, H, W, L)``.  They
-load with ``pickle`` into one preallocated host array, are transposed once
-in numpy to the native ``(N, L, H, W, C)``, and become one tensor on the
-requested device that a :class:`WindowDataset` gathers from.  The splits
-draw from the same Python ``random`` and numpy seeds as the JAX package, so
-both packages pick the same files and windows.  The JAX package's ``.cmb``
-sidecar cache and native reader are not ported (ROADMAP.md Queue 1 item 15):
-the port neither reads nor writes a sidecar.
+load into one preallocated host array, are transposed once by the native
+library (:mod:`crowdmod_tpu_torch.native`) to the native ``(N, L, H, W, C)``,
+and become one tensor on the requested device that a :class:`WindowDataset`
+gathers from.  The first load of a pickle writes a ``<file>.cmb`` sidecar
+(the JAX package's binary format, so either package reads the other's);
+later loads read it with the native reader, no unpickling.
+``CROWDMOD_CMB_CACHE=0`` turns the sidecar off.  The splits draw from the
+same Python ``random`` and numpy seeds as the JAX package, so both packages
+pick the same files and windows.
 
 Split strategies (``DATASET.DATASET_TYPE``):
   * ``ByFilenames``  — shuffle files, TRAIN/VAL/TEST_FILE_COUNT partition;
@@ -75,16 +77,44 @@ def channel_stats(data: np.ndarray) -> np.ndarray:
     return stats
 
 
-def _load_one(path: str) -> np.ndarray:
-    """One macroprop pickle as a float32 array (reference layout)."""
+def _use_cmb() -> bool:
+    return os.environ.get("CROWDMOD_CMB_CACHE", "1") != "0"
+
+
+def _load_one(path: str, use_cmb: bool) -> np.ndarray:
+    """One macroprop file as a float32 array (reference layout), through its
+    ``.cmb`` sidecar: the first load unpickles and writes ``<file>.cmb``,
+    later loads read the sidecar while it is not older than the pickle.  A
+    corrupt sidecar (a crash mid-write) is dropped and rebuilt."""
+    from crowdmod_tpu_torch import native
+
+    cmb = str(path) + ".cmb"
+    if use_cmb and os.path.exists(cmb) and os.path.getmtime(cmb) >= os.path.getmtime(path):
+        try:
+            return native.read_tensor(cmb)
+        except (OSError, ValueError) as e:
+            logging.warning("corrupt cmb cache %s (%s); rebuilding", cmb, e)
+            try:
+                os.remove(cmb)
+            except OSError:
+                pass
     with open(path, "rb") as f:
-        return np.asarray(pickle.load(f), np.float32)
+        arr = np.asarray(pickle.load(f), np.float32)
+    if use_cmb:
+        try:
+            native.write_tensor(cmb, arr)
+        except OSError:
+            logging.info("could not write cmb cache next to %s", path)
+    return arr
 
 
-def _to_native(data: np.ndarray) -> np.ndarray:
-    """``(N, C, H, W, L)`` → a contiguous ``(N, L, H, W, C)`` (the channel
-    stats' numpy sums then run in the JAX package's order)."""
-    return np.ascontiguousarray(data.transpose(0, 4, 2, 3, 1))
+def load_pickle_native(path: str, mprops_count: int = 4) -> np.ndarray:
+    """ONE macroprop pickle → native ``(n, L, H, W, C)`` float32, through
+    the ``.cmb`` sidecar and the native transpose."""
+    from crowdmod_tpu_torch.native import transpose_to_native
+
+    arr = _load_one(path, _use_cmb())
+    return np.ascontiguousarray(transpose_to_native(arr)[..., :mprops_count])
 
 
 def load_pickles(
@@ -97,19 +127,22 @@ def load_pickles(
     allocated once."""
     h, w, L = per_sample_shape
     total = sum(n for _, n in files_and_counts)
+    from crowdmod_tpu_torch.native import transpose_to_native
+
     data = np.empty((total, 4, h, w, L), np.float32)
     at = 0
+    use_cmb = _use_cmb()
     for k, (path, n) in enumerate(files_and_counts):
         logging.info("loading %s (%d/%d)", path, k + 1, len(files_and_counts))
         try:
-            data[at : at + n] = _load_one(path)
+            data[at : at + n] = _load_one(path, use_cmb)
         except MemoryError:
             # As the reference: log, and leave this file's samples zero
             # rather than abort the run.
             logging.error("MemoryError loading %s; slots left zeroed", path)
             data[at : at + n] = 0.0
         at += n
-    native = _to_native(data)[..., :mprops_count]
+    native = transpose_to_native(data)[..., :mprops_count]
     return np.ascontiguousarray(native), channel_stats(native)
 
 
@@ -206,8 +239,7 @@ def fixed_past_dataset(cfg: FrozenConfig, mprops_count: int = 4,
     sees them), then cut to ``mprops_count``."""
     d = Path(cfg.DATA_FS.PICKLE_DIR) / "4sampling"
     filename = sorted(os.listdir(d))[0]
-    return _window_ds(cfg, _to_native(_load_one(str(d / filename))),
-                      mprops_count, device)
+    return _window_ds(cfg, load_pickle_native(str(d / filename)), mprops_count, device)
 
 
 def get_training_dataset(cfg: FrozenConfig, mprops_count: int, seed=None,

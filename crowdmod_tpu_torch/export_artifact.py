@@ -26,13 +26,16 @@ checkpoint.  On the card the program calls the port's kernels as the
     float32 arithmetic of the eager samplers (:mod:`..models.diffusion`).
     The model is a frozen copy whose conv and fused-block packs are made
     once, before the trace (``UNet3D.pin_packs``).
-  * ``--device`` (the JAX ``--platform``): an artifact exported on the card
-    runs on a card; one exported on the CPU runs the kernels' plain twins.
+  * ``--device``: an artifact exported on the card runs on a card; one
+    exported on the CPU runs the kernels' plain twins.
 
-Exportable samplers: DDPM (ancestral, guidance None or Sparsity), DDIM and
-DDIM-eta (None or Sparsity), the flow-matching Euler and Heun integrators,
-and the ConvRNN rollout.  DPM-Solver, Distilled and mass-preservation
-guidance are refused (ROADMAP.md Queue 1 item 14).
+Every sampler exports: DDPM (ancestral; guidance None, Sparsity or mass
+preservation, its closed-form gradient in the loop), DDIM (None or
+Sparsity), DDIM-eta (any guidance), DPM-Solver++(2M) (the carry holds the
+previous x0 prediction), Distilled (η = 0 or η > 0), the flow-matching Euler
+and Heun integrators, and the ConvRNN rollout.  An artifact is exported for
+the device the command runs on: ``--platform`` (the JAX package's
+cross-device export) exits 2 naming ROADMAP.md Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import sys
 import threading
 import time
 from typing import Callable, Sequence
@@ -50,9 +54,6 @@ from torch import nn
 
 from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update
 from crowdmod_tpu_torch.ops.kernels.library import normal
-
-NOT_EXPORTABLE = "not exportable yet (ROADMAP.md Queue 1 item 14)"
-
 
 class SamplerModule(nn.Module):
     """A trainer's configured sampler as ``(past, seed) → future``, over a
@@ -68,6 +69,7 @@ class SamplerModule(nn.Module):
         self.family = trainer.family
         _, f, h, w = trainer._grid_shapes()
         self.future_shape = (f, h, w, trainer.mprops_count)
+        self.x0_prev = False  # DPM-Solver's carry holds the previous x0
         if self.family != "ConvRNN":
             device = next(model.parameters()).device
             self._register("start", np.int64(-1))  # x_T's draw
@@ -97,8 +99,9 @@ class SamplerModule(nn.Module):
         return as_eps_fn(fn, _BufferSchedule(self), node.get("PRED_TYPE", "eps"))
 
     def _build(self, trainer, fn, device) -> tuple[Callable, tuple[str, ...]]:
-        """The configured sampler's step ``(x, past, draw, *row) → x`` over
-        the denoiser ``fn``, and the buffers whose rows the scan walks."""
+        """The configured sampler's step ``(carry, past, draw, *row) →
+        carry`` over the denoiser ``fn``, and the buffers whose rows the scan
+        walks.  The carry is ``(x,)``, or ``(x, x0_prev)`` for DPM-Solver."""
         if self.family == "FM":
             from crowdmod_tpu_torch.models.flow_matching.fm import _time_grid
 
@@ -109,13 +112,15 @@ class SamplerModule(nn.Module):
             self._register("ts", _time_grid(n, node.TIME_MAX_POS)[1], device)
             delta = 1.0 / n
 
-            def euler(x, past, draw, t):
-                return x + delta * fn(x, t.expand(x.shape[0]), past)
+            def euler(carry, past, draw, t):
+                (x,) = carry
+                return (x + delta * fn(x, t.expand(x.shape[0]), past),)
 
-            def heun(x, past, draw, t):
+            def heun(carry, past, draw, t):
+                (x,) = carry
                 k1 = fn(x, t.expand(x.shape[0]), past)
                 k2 = fn(x + delta * k1, (t + 1.0).expand(x.shape[0]), past)
-                return x + 0.5 * delta * (k1 + k2)
+                return (x + 0.5 * delta * (k1 + k2),)
 
             return (euler if node.INTEGRATOR == "Euler" else heun), ("ts",)
 
@@ -127,26 +132,52 @@ class SamplerModule(nn.Module):
             ddim_eta_coefficients,
             ddim_update,
         )
+        from crowdmod_tpu_torch.models.guidance import mass_preservation_gradient
+        from crowdmod_tpu_torch.train.trainer import check_sampler_guidance
 
         node, sched = trainer.cfg.MODEL.DDPM, trainer.sched
         sampler, guidance = node.SAMPLER, node.GUIDANCE
         lam = float(node.get("LAMBDA_GUIDANCE", 0.0))
-        if guidance == "mass_preservation":
-            raise ValueError(f"mass-preservation guidance is {NOT_EXPORTABLE}: "
-                             "its gradient needs autograd inside the loop")
+        check_sampler_guidance(node)
         if sampler == "DDPM":
             ts = np.arange(sched.timesteps - 1, -1, -1)
             self._register("rows", ancestral_coefficients(sched, device).flip(0))
             self._register("z_scale", (ts > 0).astype(np.float32), device)  # z = 0 at t = 0
+            if guidance == "mass_preservation":
+                # The composite step of ``ddpm_sample``: strength 1 − α_t = β_t.
+                self._register("strength", (np.float32(1.0) - (np.float32(1.0) - sched.beta))[ts],
+                               device)
 
-            def ancestral(x, past, draw, row, t, step, z_scale):
+                def ancestral(carry, past, draw, row, t, step, z_scale, strength):
+                    (x,) = carry
+                    eps = fn(x, t.expand(x.shape[0]), past)
+                    x = row[0] * (x - row[1] * eps) + row[2] * (draw(step) * z_scale)
+                    return (x - strength * mass_preservation_gradient(x, 1.0, 1.0),)
+
+                step, tables = ancestral, ("rows", "ts", "steps", "z_scale", "strength")
+            else:
+                def ancestral(carry, past, draw, row, t, step, z_scale):
+                    (x,) = carry
+                    eps = fn(x, t.expand(x.shape[0]), past)
+                    return (fused_ancestral_update(x, eps, draw(step) * z_scale, row,
+                                                   lambda_guidance=lam,
+                                                   sparsity=guidance == "Sparsity"),)
+
+                step, tables = ancestral, ("rows", "ts", "steps", "z_scale")
+        elif sampler == "DPM-Solver":
+            ts, rows = dpm_rows(sched, node.get("DPM_STEPS", 20))
+            self._register("rows", rows, device)
+            self.x0_prev = True
+
+            def dpm(carry, past, draw, row, t):
+                x, x0_prev = carry
                 eps = fn(x, t.expand(x.shape[0]), past)
-                return fused_ancestral_update(x, eps, draw(step) * z_scale, row,
-                                              lambda_guidance=lam,
-                                              sparsity=guidance == "Sparsity")
+                x0 = (x - row[4] * eps) * row[5]
+                return row[0] * x - row[1] * (row[2] * x0 - row[3] * x0_prev), x0
 
-            step, tables = ancestral, ("rows", "ts", "steps", "z_scale")
+            step, tables = dpm, ("rows", "ts")
         else:
+            noisy = True
             if sampler == "DDIM-eta":
                 ts = respaced_taus(node.TIMESTEPS, node.get("ETA_STEPS", 50))[::-1]
                 rows = [ddim_eta_coefficients(sched, t, tp, node.get("ETA", 1.0), lam, guidance)
@@ -155,15 +186,18 @@ class SamplerModule(nn.Module):
                 check_ddim_guidance(guidance)
                 ts, rows = zip(*ddim_coefficients(
                     sched, ddim_tau_schedule(node.TIMESTEPS, node.DDIM_DIVIDER), node.SIGMA, lam))
+            elif sampler == "Distilled":
+                eta = float(node.get("DISTILL_ETA", 0.0))
+                ts, rows = distilled_rows(sched, node.get("DISTILL_STEPS", 8), eta)
+                noisy = eta != 0.0  # η = 0 draws nothing but x_T
             else:
-                raise ValueError(
-                    f"the {sampler} sampler is {NOT_EXPORTABLE}; DDPM, DDIM and "
-                    "DDIM-eta export")
+                raise ValueError(f"unknown DDPM sampler {sampler!r}")
             self._register("rows", np.array(rows, np.float32), device)
 
-            def ddim(x, past, draw, row, t, step):
+            def ddim(carry, past, draw, row, t, step):
+                (x,) = carry
                 eps = fn(x, t.expand(x.shape[0]), past)
-                return ddim_update(x, eps, draw(step), row, guidance)
+                return (ddim_update(x, eps, draw(step) if noisy else None, row, guidance),)
 
             step, tables = ddim, ("rows", "ts", "steps")
         self._register("ts", np.array(ts, np.int64), device)
@@ -184,11 +218,70 @@ class SamplerModule(nn.Module):
             def draw(step):
                 return normal(seed, step, shape, past.device)
 
-            def body(x, row):
-                return self.step(x, past, draw, *row), []
+            def body(carry, row):
+                return self.step(carry, past, draw, *row), []
 
+            x = draw(self.start)
+            carry = (x, torch.zeros_like(x)) if self.x0_prev else (x,)
             xs = tuple(getattr(self, name) for name in self.tables)
-            return scan(body, draw(self.start), xs)[0]
+            return scan(body, carry, xs)[0][0]
+
+
+def dpm_rows(sched, steps: int) -> tuple[np.ndarray, np.ndarray]:
+    """DPM-Solver++(2M)'s ``steps`` timesteps (the model's t, from T−1) and
+    its ``(steps, 6)`` float32 rows, from ``dpm_timesteps`` with the eager
+    sampler's float32 arithmetic: (σ ratio, α·expm1(−h), 1 + c, c,
+    σ_t, 1/α_t) of x' = r₀·x − r₁·(r₂·x0 − r₃·x0_prev), x0 = (x − r₄·ε̂)·r₅
+    (the product with the reciprocal is what CUDA computes for the eager
+    sampler's division by a Python float).  The first step is first order:
+    r₂ = 1, r₃ = 0."""
+    from crowdmod_tpu_torch.models.diffusion.dpm_solver import check_dpm_steps, dpm_timesteps
+
+    check_dpm_steps(sched, steps)
+    ts = [int(t) for t in dpm_timesteps(sched.timesteps, steps)]
+    alpha, sigma = sched.sqrt_alpha_bar, sched.sqrt_one_minus_alpha_bar
+    lam = np.log(alpha) - np.log(sigma)
+    one = np.float32(1.0)
+    rows = []
+    for idx in range(steps):
+        t, t_im1 = ts[idx + 1], ts[idx]
+        h = lam[t] - lam[t_im1]
+        if idx == 0:
+            w1, w2 = one, np.float32(0.0)
+        else:
+            c = one / (np.float32(2.0) * ((lam[t_im1] - lam[ts[idx - 1]]) / h))
+            w1, w2 = one + c, c
+        rows.append((sigma[t] / sigma[t_im1], alpha[t] * np.expm1(-h), w1, w2,
+                     sigma[t_im1], one / alpha[t_im1]))
+    return np.array(ts[:-1], np.int64), np.array(rows, np.float32)
+
+
+def distilled_rows(sched, n_steps: int, eta: float) -> tuple[np.ndarray, list]:
+    """The Distilled sampler's ``n_steps`` timesteps t_hi (the model's t and
+    the key of the step's draw) and its :func:`ddim_update` rows over
+    ``distill_grid``: at η = 0 ``ddim_det_step``'s coefficients (σ = 0), at
+    η > 0 the respaced posterior's, σ = 0 on the last step, to clean data."""
+    from crowdmod_tpu_torch.models.diffusion.distill import distill_grid
+
+    grid = [int(t) for t in distill_grid(sched.timesteps, n_steps)]
+    one, zero = np.float32(1.0), np.float32(0.0)
+    ts, rows = [], []
+    for k in range(n_steps, 0, -1):
+        t_hi, t_lo = grid[k], grid[k - 1]
+        ts.append(t_hi)
+        if eta == 0.0:
+            sab_lo, somab_lo = ((one, zero) if t_lo < 0 else
+                                (sched.sqrt_alpha_bar[t_lo], sched.sqrt_one_minus_alpha_bar[t_lo]))
+            rows.append((sched.sqrt_one_minus_alpha_bar[t_hi], one / sched.sqrt_alpha_bar[t_hi],
+                         sab_lo, somab_lo, zero, zero))
+            continue
+        ab_hi = sched.alpha_bar[t_hi]
+        ab_lo = sched.alpha_bar[t_lo] if t_lo >= 0 else one
+        sigma = (np.float32(eta) * np.sqrt(np.maximum((one - ab_lo) / (one - ab_hi), zero))
+                 * np.sqrt(np.maximum(one - ab_hi / ab_lo, zero)))
+        rows.append((np.sqrt(one - ab_hi), one / np.sqrt(ab_hi), np.sqrt(ab_lo),
+                     np.sqrt(np.maximum(one - ab_lo - sigma**2, zero)), sigma, zero))
+    return np.array(ts, np.int64), rows
 
 
 class _BufferSchedule:
@@ -347,6 +440,10 @@ def build_parser():
     p.add_argument("--output", type=str, required=True,
                    help="Artifact path; a .json metadata sidecar is written "
                         "next to it (with several --batch, NAME.b<B>.EXT).")
+    p.add_argument("--platform", action="append", default=None,
+                   help="export for another device than --device (not ported "
+                        "yet: ROADMAP.md Queue 1 item 14); export on the "
+                        "target device instead")
     return p
 
 
@@ -362,6 +459,11 @@ def run(argv=None) -> int:
     from crowdmod_tpu_torch.train.trainer import Trainer
 
     args = build_parser().parse_args(argv)
+    if args.platform:
+        print("--platform (cross-device export) is not ported to PyTorch yet: "
+              "ROADMAP.md Queue 1 item 14; every sampler exports for the device "
+              "the command runs on (--device)", file=sys.stderr)
+        return 2
     cfg = load_config(args.config_yml_file, args.configList_yml_file)
     require_valid(cfg, args.arch)
     setup_logging(os.path.join(cfg.DATA_FS.OUTPUT_DIR, "logs", "export.log"))

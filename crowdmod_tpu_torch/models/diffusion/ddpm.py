@@ -172,7 +172,7 @@ def ddpm_sample(
     ``history=True`` also returns the ``(T+1, B, F, H, W, C)`` trajectory:
     the initial x_T followed by each denoised state.  With guidance None or
     Sparsity each step is one fused kernel launch; mass-preservation takes
-    the composite path (it needs autograd).
+    the composite path (the update, then its closed-form gradient step).
     """
     if guidance not in GUIDANCE_MODES and guidance is not None:
         raise ValueError(f"unknown guidance {guidance!r}; expected {GUIDANCE_MODES}")
@@ -205,14 +205,19 @@ def ddpm_sample(
 
 def ddim_update(x, eps, z, c, guidance: str = "None"):
     """One DDIM-form transition of both DDIM samplers, with ``c`` = (√(1−ᾱ),
-    √ᾱ of the current level, √ᾱ of the next, the direction coefficient, σ,
-    the guidance strength), floats or float32 scalar tensors (a row of an
-    exported chain's table):
+    1/√ᾱ of the current level, √ᾱ of the next, the direction coefficient, σ,
+    the guidance strength), a float32 row on the sample's device (the eager
+    samplers' :func:`ddim_rows`, or a row of an exported chain's table: the
+    same bits on either path):
 
-        x' = c₂·(x − c₀·ε̂)/c₁ + c₃·ε̂ + c₄·z − c₅·∇guidance(x')
+        x' = c₂·(x − c₀·ε̂)·c₁ + c₃·ε̂ + c₄·z − c₅·∇guidance(x')
+
+    The division by √ᾱ is a product with its float32 reciprocal, taken on
+    the host: what CUDA computes for a division by a Python float, so the
+    card's chains keep the bits they had with host-float coefficients.
 
     ``z`` None adds no noise (the last step, σ = 0)."""
-    pred_x0 = (x - c[0] * eps) / c[1]
+    pred_x0 = (x - c[0] * eps) * c[1]
     x = c[2] * pred_x0 + c[3] * eps
     if z is not None:
         x = x + c[4] * z
@@ -221,6 +226,13 @@ def ddim_update(x, eps, z, c, guidance: str = "None"):
     elif guidance == "mass_preservation":
         x = x - c[5] * mass_preservation_gradient(x, 1.0, 1.0)
     return x
+
+
+def ddim_rows(c, device) -> torch.Tensor:
+    """:func:`ddim_update` coefficients (one row, or a chain's rows) as a
+    float32 tensor on ``device``, uploaded at once: the eager samplers read
+    a device tensor's entries, as the exported scan does."""
+    return torch.tensor(np.array(c, np.float32), device=device)
 
 
 def ddim_coefficients(sched: DiffusionSchedule, taus: np.ndarray, sigma: float,
@@ -240,7 +252,7 @@ def ddim_coefficients(sched: DiffusionSchedule, taus: np.ndarray, sigma: float,
         sab_p = sched.sqrt_alpha_bar[t]
         direction = np.sqrt(_f32(1.0) - sab_p**2 - _f32(sigma**2))
         guide = _f32(lambda_guidance) * np.sqrt(beta_c)
-        steps.append((t, (somab_c, sab_c, sab_p, direction, sigma32, guide)))
+        steps.append((t, (somab_c, _f32(1.0) / sab_c, sab_p, direction, sigma32, guide)))
         beta_c, sab_c, somab_c = sched.beta[t], sab_p, sched.sqrt_one_minus_alpha_bar[t]
     return steps
 
@@ -268,9 +280,10 @@ def ddim_sample(
     x = noise(None)
     traj = [x] if history else None
     b = sample_shape[0]
-    for t, c in ddim_coefficients(sched, taus, sigma, lambda_guidance):
+    ts, rows = zip(*ddim_coefficients(sched, taus, sigma, lambda_guidance))
+    for t, c in zip(ts, ddim_rows(rows, device)):  # one upload a chain
         eps = denoise_fn(x, _t_vec(t, b, device), past)
-        x = ddim_update(x, eps, noise(t), [float(v) for v in c], guidance)
+        x = ddim_update(x, eps, noise(t), c, guidance)
         if history:
             traj.append(x)
     return _finish(x, traj, history)
@@ -322,9 +335,13 @@ def ddim_eta_sample(
     x = noise(None)
     traj = [x] if history else None
     ts = [int(t) for t in np.asarray(taus)[::-1]]
-    for t, tp in zip(ts, ts[1:] + [-1]):
-        x = ddim_eta_step(denoise_fn, sched, past, x, t, tp, noise=noise, eta=eta,
-                          guidance=guidance, lambda_guidance=lambda_guidance)
+    steps = list(zip(ts, ts[1:] + [-1]))
+    table = ddim_rows([ddim_eta_coefficients(sched, t, tp, eta, lambda_guidance, guidance)
+                       for t, tp in steps], device)  # one upload a chain
+    b = sample_shape[0]
+    for (t, tp), c in zip(steps, table):
+        eps = denoise_fn(x, _t_vec(t, b, device), past)
+        x = ddim_update(x, eps, noise(t) if tp >= 0 else None, c, guidance)
         if history:
             traj.append(x)
     return _finish(x, traj, history)
@@ -345,7 +362,7 @@ def ddim_eta_coefficients(sched: DiffusionSchedule, t: int, tp: int, eta: float,
     direction = np.sqrt(np.maximum(one - ab_p - sigma**2, zero))
     guide = (one - ab_t / ab_p if guidance == "mass_preservation"
              else _f32(lambda_guidance) * np.sqrt(sched.beta[t]))
-    return (np.sqrt(one - ab_t), np.sqrt(ab_t), np.sqrt(ab_p), direction, sigma, guide)
+    return (np.sqrt(one - ab_t), one / np.sqrt(ab_t), np.sqrt(ab_p), direction, sigma, guide)
 
 
 def ddim_eta_step(
@@ -366,4 +383,4 @@ def ddim_eta_step(
     c = ddim_eta_coefficients(sched, t, tp, eta, lambda_guidance, guidance)
     eps = denoise_fn(x, _t_vec(t, x.shape[0], x.device), past)
     z = noise(t) if tp >= 0 else None
-    return ddim_update(x, eps, z, [float(v) for v in c], guidance)
+    return ddim_update(x, eps, z, ddim_rows(c, x.device), guidance)

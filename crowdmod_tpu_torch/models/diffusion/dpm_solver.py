@@ -64,6 +64,17 @@ def dpm_timesteps(timesteps: int, steps: int) -> np.ndarray:
     return np.rint(np.append(points, _f32(0.0))).astype(np.int32)
 
 
+def check_dpm_steps(sched: DiffusionSchedule, steps: int) -> None:
+    """Refuse a step count the ladder cannot take: with more solver steps
+    than discrete timesteps the rounded ladder repeats a timestep, h becomes
+    0 and r = h_prev/h divides by zero."""
+    if not 2 <= steps <= sched.timesteps - 1:
+        raise ValueError(
+            f"DPM_STEPS must be in [2, TIMESTEPS-1] = "
+            f"[2, {sched.timesteps - 1}]; got {steps}"
+        )
+
+
 def dpm_solver_sample(
     denoise_fn: DenoiseFn,
     sched: DiffusionSchedule,
@@ -80,13 +91,7 @@ def dpm_solver_sample(
 
     ``history=True`` also returns the ``(steps+1, B, ...)`` trajectory: x_T,
     the first-order step's state, then each later state."""
-    if not 2 <= steps <= sched.timesteps - 1:
-        # With more solver steps than discrete timesteps the rounded ladder
-        # repeats a timestep, h becomes 0 and r = h_prev/h divides by zero.
-        raise ValueError(
-            f"DPM_STEPS must be in [2, TIMESTEPS-1] = "
-            f"[2, {sched.timesteps - 1}]; got {steps}"
-        )
+    check_dpm_steps(sched, steps)
     noise, device = _noise_and_device(noise, generator, sample_shape, past, device)
     b = sample_shape[0]
     ts = [int(t) for t in dpm_timesteps(sched.timesteps, steps)]  # descending

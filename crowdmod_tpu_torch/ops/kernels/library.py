@@ -19,7 +19,8 @@ request.
 randomness: standard-normal draws of a given size from a ``torch.Generator``
 seeded from ``(seed, step)``, so an artifact called twice with one seed
 gives the same sample, and one sampler step's draws do not depend on any
-other's.
+other's.  :func:`seeded_noise` is the same draws as a sampler's ``noise``
+callable, so a seeded eager request gives what the artifact gives.
 """
 
 from __future__ import annotations
@@ -70,3 +71,16 @@ def normal(seed: torch.Tensor, step: torch.Tensor, size, device) -> torch.Tensor
     seeded by :func:`draw_seed` of the int64 scalars ``seed`` and ``step``
     (host tensors: reading them costs no device round trip)."""
     return torch.ops.crowdmod.normal(seed, step, list(size), torch.device(device))
+
+
+def seeded_noise(seed: int, shape, device):
+    """A sampler's ``noise(t)`` callable (``t=None`` is x_T) drawing what an
+    exported sampler draws for ``seed``: one :func:`normal` call a step,
+    keyed −1 for x_T and the step's timestep otherwise, made when the
+    sampler asks for it (a chain's draws are never held at once)."""
+    seed = torch.tensor(int(seed), dtype=torch.int64)
+
+    def draw(t):
+        return normal(seed, torch.tensor(-1 if t is None else int(t)), shape, device)
+
+    return draw

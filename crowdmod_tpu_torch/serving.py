@@ -5,10 +5,12 @@ JAX package's ``serving.py``: ``Predictor``, ``load_predictor`` and
   * **Static shape buckets** — requests are padded up to the nearest
     registered batch size, so the card only ever sees those shapes;
     ``warmup()`` runs each bucket once (which also builds the kernels).
-  * **Explicit randomness** — a request either carries a ``seed`` (its own
-    generator: the output is deterministic) or draws from the predictor's
-    device generator, seeded once from ``seed`` and advanced by every
-    keyless request, as the JAX package splits its key per request.
+  * **Explicit randomness** — a request either carries a ``seed`` (the
+    draws ``normal(seed, step)`` that an exported artifact makes, so the
+    output is deterministic and equals ``serve --artifact``'s, as both paths
+    of the JAX package sample from ``PRNGKey(seed)``) or draws from the
+    predictor's device generator, seeded once from ``seed`` and advanced by
+    every keyless request, as the JAX package splits its key per request.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+from crowdmod_tpu_torch.ops.kernels.library import seeded_noise
 
 if TYPE_CHECKING:  # a served artifact loads no config module
     from crowdmod_tpu_torch.config import FrozenConfig
@@ -116,11 +120,12 @@ class Predictor:
             past = np.concatenate([past, pad])
         with self._lock:
             t0 = time.perf_counter()
-            gen = (
-                self._generator if seed is None
-                else torch.Generator(device=self.device).manual_seed(seed)
-            )
-            out = self._trainer.sample(past, gen)
+            if seed is None:
+                out = self._trainer.sample(past, self._generator)
+            else:
+                p, f, h, w, c = self._shape
+                out = self._trainer.sample(
+                    past, noise=seeded_noise(seed, (bucket, f, h, w, c), self.device))
             out = out[:n].cpu().numpy()
             self.stats.record(n, time.perf_counter() - t0)
         return out

@@ -73,6 +73,33 @@ def solver_node(cfg: FrozenConfig, arch: str) -> FrozenConfig:
     return factory.backbone_cfg(cfg, arch).TRAIN
 
 
+def check_sampler_guidance(node) -> None:
+    """Refuse the fast samplers' guided configs (the eager sampler and an
+    export alike), rather than sample them unguided: DPM-Solver implements
+    no guidance; a distilled student jumps along the trajectories it was
+    trained on, and guidance or a CFG-scaled denoiser would push x off
+    them."""
+    if node.SAMPLER == "DPM-Solver" and node.GUIDANCE not in ("None", None):
+        raise ValueError(
+            "the DPM-Solver sampler does not implement "
+            f"guidance; got GUIDANCE={node.GUIDANCE!r} — use "
+            "DDPM, DDIM, or DDIM-eta for guided sampling"
+        )
+    if node.SAMPLER == "Distilled":
+        if node.GUIDANCE not in ("None", None):
+            raise ValueError(
+                "the Distilled sampler is guidance-free; trained "
+                f"trajectories ignore GUIDANCE={node.GUIDANCE!r}"
+            )
+        if float(node.get("CFG_SCALE", 1.0)) != 1.0:
+            raise ValueError(
+                "the Distilled sampler is guidance-free; a CFG-"
+                "scaled denoiser would push x off the trajectory "
+                f"the student was trained on (CFG_SCALE="
+                f"{node.CFG_SCALE})"
+            )
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
     absent (the port runs on the card unless told to use the CPU)."""
@@ -571,34 +598,13 @@ class Trainer:
                 fn, self.sched, past, shape, taus,
                 eta=node.get("ETA", 1.0), **common,
             )
+        check_sampler_guidance(node)
         if node.SAMPLER == "DPM-Solver":
-            # Guidance is not implemented on this path: a guided config is
-            # refused rather than sampled unguided.
-            if node.GUIDANCE not in ("None", None):
-                raise ValueError(
-                    "the DPM-Solver sampler does not implement "
-                    f"guidance; got GUIDANCE={node.GUIDANCE!r} — use "
-                    "DDPM, DDIM, or DDIM-eta for guided sampling"
-                )
             return dpm_solver_sample(
                 fn, self.sched, past, shape, steps=node.get("DPM_STEPS", 20),
                 noise=noise, generator=generator, device=self.device, history=history,
             )
         if node.SAMPLER == "Distilled":
-            # A distilled student jumps along the trajectories it was trained
-            # on; guidance (or a CFG-scaled denoiser) would push x off them.
-            if node.GUIDANCE not in ("None", None):
-                raise ValueError(
-                    "the Distilled sampler is guidance-free; trained "
-                    f"trajectories ignore GUIDANCE={node.GUIDANCE!r}"
-                )
-            if float(node.get("CFG_SCALE", 1.0)) != 1.0:
-                raise ValueError(
-                    "the Distilled sampler is guidance-free; a CFG-"
-                    "scaled denoiser would push x off the trajectory "
-                    f"the student was trained on (CFG_SCALE="
-                    f"{node.CFG_SCALE})"
-                )
             return distilled_sample(
                 fn, self.sched, past, shape, node.get("DISTILL_STEPS", 8),
                 eta=float(node.get("DISTILL_ETA", 0.0)), noise=noise,

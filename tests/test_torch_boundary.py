@@ -1,5 +1,6 @@
-"""The port's boundary: it imports nothing of JAX or of the JAX package, and
-its entry points run on the card unless asked for the CPU.
+"""The port's boundary: it imports nothing of JAX, of the JAX package or of
+pandas (the card's machine has none), and its entry points run on the card
+unless asked for the CPU.
 
 Module names are matched exactly (``crowdmod_tpu`` or ``crowdmod_tpu.*``),
 never by prefix: ``crowdmod_tpu_torch`` starts with ``crowdmod_tpu``.
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crowdmod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crowdmod_tpu", "pandas")
 PORT_FILES = sorted((REPO / "crowdmod_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
@@ -66,6 +67,9 @@ def test_importing_the_port_loads_no_jax():
         "import crowdmod_tpu_torch.export_artifact, crowdmod_tpu_torch.utils.model_info\n"
         "import crowdmod_tpu_torch.compat.torch_import\n"
         "import crowdmod_tpu_torch.ops.kernels.library\n"
+        "import crowdmod_tpu_torch.data.etl, crowdmod_tpu_torch.data.synthetic\n"
+        "import crowdmod_tpu_torch.data.ingest, crowdmod_tpu_torch.native\n"
+        "import crowdmod_tpu_torch.cli.etl\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

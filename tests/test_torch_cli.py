@@ -233,8 +233,8 @@ def test_help_unknown_and_module_entry(capsys):
     assert cli.main(["--help"]) == 0
     assert "generate-metrics" in capsys.readouterr().out
     assert cli.main(["bogus"]) == 2
-    r = _port_cli("etl")
-    assert r.returncode == 2 and "item 15" in r.stderr
+    r = _port_cli("sweep")
+    assert r.returncode == 2 and "item 17" in r.stderr
 
 
 # Each command's required arguments besides the config.

@@ -9,8 +9,10 @@ the JAX sidecar's keys but for the renamed ones; the CLI.  Besides: each
 operator's fake implementation on ``meta`` tensors gives its twin's shape
 and dtype; ``sampler_fn`` is the trainer's sampler on the same draws; a
 trainer samples as before after an export; the T = 1000 ancestral chain
-of a tiny UNet exports within :data:`T1000_EXPORT_S`; the samplers not
-exportable yet are refused by name."""
+of a tiny UNet exports within :data:`T1000_EXPORT_S`.  Every DDPM sampler
+(DPM-Solver, Distilled, mass preservation included) is held to
+``Trainer.sample`` here, and its artifact to ``sampler_fn`` in
+``test_torch_export_samplers.py``."""
 
 import json
 import os
@@ -167,15 +169,31 @@ def test_draws_depend_on_seed_and_step_only():
 # ---------------------------------------------------------------------------
 # sampler_fn: the trainer's sampler, one scan
 
+# The DDPM samplers beyond the serving default's: each with its guidance.
+DDPM_CASES = {
+    "DDIM-eta": {}, "DDIM": {}, "DDPM": {},
+    "DPM-Solver": {"GUIDANCE": "None", "DPM_STEPS": 5},
+    "Distilled-eta0": {"SAMPLER": "Distilled", "GUIDANCE": "None", "DISTILL_STEPS": 4},
+    "Distilled-eta1": {"SAMPLER": "Distilled", "GUIDANCE": "None", "DISTILL_STEPS": 4,
+                       "DISTILL_ETA": 1.0},
+    "DDPM-mass": {"SAMPLER": "DDPM", "GUIDANCE": "mass_preservation"},
+    "DDIM-eta-mass": {"SAMPLER": "DDIM-eta", "GUIDANCE": "mass_preservation"},
+}
+
+
+def ddpm_case(name: str) -> dict:
+    return {"SAMPLER": name, "TIMESTEPS": 12, **DDPM_CASES[name]}
+
+
 @pytest.mark.parametrize("arch,sampler", [
-    ("DDPM-DiT", "DDIM-eta"), ("DDPM-DiT", "DDIM"), ("DDPM-DiT", "DDPM"),
+    *(("DDPM-DiT", name) for name in DDPM_CASES),
     ("FM-DiT", "Euler"), ("FM-DiT", "Heun"), ("ConvRNN", None),
 ])
 def test_sampler_fn_is_the_trainers_sampler(arch, sampler):
     """``sampler_fn`` on the seed's draws equals ``Trainer.sample`` given
     the same draws (the scan's coefficient tables are the eager samplers'
     float32 arithmetic)."""
-    kw = {"SAMPLER": sampler, "TIMESTEPS": 12} if arch == "DDPM-DiT" else {}
+    kw = ddpm_case(sampler) if arch == "DDPM-DiT" else {}
     trainer = tiny_trainer(arch, **kw)
     if arch == "FM-DiT":
         trainer.cfg = trainer.cfg.updated({"MODEL": {"FM": {"INTEGRATOR": sampler}}})
@@ -188,16 +206,6 @@ def test_sampler_fn_is_the_trainers_sampler(arch, sampler):
         seed, torch.tensor(-1 if t is None else t), shape, "cpu"))
     assert got.shape == shape and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=ROUND_TRIP_ATOL)
-
-
-@pytest.mark.parametrize("over,match", [
-    ({"SAMPLER": "DPM-Solver", "GUIDANCE": "None"}, "DPM-Solver sampler is not exportable"),
-    ({"SAMPLER": "Distilled", "GUIDANCE": "None"}, "Distilled sampler is not exportable"),
-    ({"GUIDANCE": "mass_preservation"}, "mass-preservation guidance is not exportable"),
-])
-def test_samplers_not_exportable_yet_are_refused_by_name(over, match):
-    with pytest.raises(ValueError, match=match + r".*item 14"):
-        sampler_fn(tiny_trainer(**over))
 
 
 # ---------------------------------------------------------------------------
