@@ -12,6 +12,11 @@
     python3 chip_smoke.py --serving [DIR]       # phases 1, 3-4 and 6-7 only, with
                                    # the port package of checkout DIR (default:
                                    # this one): serving paths of two trees, A/B
+    python3 chip_smoke.py --parallel            # phases 1, 10 and 16 only (16 on
+                                   # every visible card: a process or replica each)
+    python3 chip_smoke.py --train-time DIR...   # phase 1, then phase 10's train
+                                   # command (and the UNet's) from each checkout
+                                   # DIR, in turns: wall and fit seconds
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
@@ -59,14 +64,16 @@ non-zero without a result line:
      card held bitwise to a second run and to the CPU's within the CPU
      tests' tolerances; each model's ``generate_metrics`` profiled (device
      busy share) and one f32 forward at batch 1280, kernels vs twins; then
-     flow matching: FM-DiT through ``train``, ``generate-metrics`` (the
-     configured 1000 Euler steps, 1280 samples) and ``reflow`` (one round),
+     flow matching: FM-DiT through ``train``, ``generate-metrics`` (250
+     Euler steps, cut from the configured 1000, 1280 samples) and
+     ``reflow`` (one round),
      its ``RF1`` checkpoint served at Euler 4, and FM-UNet's
      ``Trainer.generate_metrics`` in this process at 50 Euler steps;
  11. flow matching, each of FM-DiT (DiT2D, 216 tokens) and FM-UNet at the
      serving config's width with seeded random weights: serving through
      ``load_predictor``/``BatchingQueue`` at Euler 1000 (buckets 1 and 64,
-     p50, a profiled batch-64 request) and one Heun-500 request; one f32
+     the p50 of batch 64, a profiled batch-64 request) and one Heun-50
+     request (the configured 500 steps cut for time); one f32
      forward and one 25-step Euler chain, kernels vs twins; one short
      training epoch (phase 9's, without its gradient check) and
      ``evaluate``;
@@ -121,6 +128,27 @@ non-zero without a result line:
      built with g++); one DDPM-UNet ``Trainer.fit`` epoch of phase 9's
      length on the windows, its launches held to phase 9's a step.
 
+ 16. the parallel paths over NCCL, a process (or a replica) a visible card
+     (a world of one on one card), on phase 10's workspace: ``train --arch
+     DDPM-UNet --data-parallel`` through ``--multihost`` and the CROWDMOD_*
+     variables (DDP) and through the command's own spawn with ``--fsdp``
+     (FSDP), at the same time, each run's per-step losses, checkpoint
+     (params and EMA) and launches a step held to a plain ``Trainer.fit`` of
+     the same seed and data (bitwise, or within 1e-6 with the reason
+     printed; on more cards within ``WORLD_TOL``), ms a step (CUDA events,
+     the trainer's history) and peak memory; ``generate-metrics
+     --data-parallel`` on phase 10's DDPM-DiT checkpoint, every CSV bitwise
+     equal to phase 10's; the data-parallel predictor (two replicas on one
+     card, ``load_predictor(data_parallel=True)`` on more), a seeded
+     bucket-8 request bitwise equal to its replicas' rows sampled plainly
+     and held to the plain predictor's, p50 at batch 64 beside the plain
+     one's; a ``FileWindowStream`` of phase 10's pickles through
+     ``device_prefetch``, every batch bitwise equal to the resident
+     dataset's, and one UNet ``fit`` epoch of phase 9's length fed from a
+     stream (launches held a step, ms a step against resident, the busy
+     share of a streamed step).  Every check of the phase runs; it fails at
+     its end if any did.
+
 Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
 Each path is driven with the launch counts set to 0 just before it and read
@@ -130,8 +158,9 @@ phase 8, each model's training (phases 9, 11 and 13), each model's protocol run
 each FM model's serving (phase 11), each fast sampler's serving, the
 distillation runs and the D004 request (phase 12), ConvRNN's serving and
 commands (phase 13), the serve process, the artifacts and the artifact
-server (phase 14, the processes' counts from their log lines), and the
-training run on the ETL's windows (phase 15); the counts
+server (phase 14, the processes' counts from their log lines), the
+training run on the ETL's windows (phase 15), and each parallel path
+(phase 16: the commands' counts from their log lines); the counts
 are held to the launches each forward, training or distillation step makes
 (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
@@ -156,6 +185,10 @@ import torch
 
 DEVICE = "cuda"
 SEED = 0
+# PyTorch's TF32 switches as a fresh process has them (the phases below turn
+# TF32 off for their f32 checks): the in-process references of phase 16 run
+# under these, as the commands they are held to do.
+PRECISION_DEFAULTS = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -285,13 +318,18 @@ def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
 # Phase 1
 # ---------------------------------------------------------------------------
 
-def phase_device() -> dict:
-    from crowdmod_tpu_torch.ops.kernels import build
-
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    from crowdmod_tpu_torch.ops.kernels import build
+
+    smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     seconds = build.build_all()
@@ -1832,10 +1870,13 @@ def phase_cli(workdir: Path) -> dict:
 
 FM_BUCKETS = (1, 64)
 FM_P50_REPS = 1  # cut from 3, then 2, to make room for phases 14-15
+FM_P50_BUCKETS = (64,)  # cut from (1, 64) to make room for phase 16
+FM_HEUN_STEPS = 50  # the Heun request's steps, cut from the configured 500 for phase 16
 FM_F32_STEPS = 25      # the f32 Euler chain held against the twins
 RF_COUPLING_STEPS = 4  # the teacher's Euler steps in phase 10's reflow
 RF_EULER_STEPS = 4     # the RF1 checkpoint's sampler
 FM_UNET_METRIC_STEPS = 50  # FM-UNet's protocol: Euler cut from 1000
+FM_DIT_METRIC_STEPS = 250  # FM-DiT's generate-metrics: Euler cut from 1000 for phase 16
 
 
 def fm_forwards(cfg, requests: int) -> int:
@@ -1846,11 +1887,12 @@ def fm_forwards(cfg, requests: int) -> int:
     return requests * steps * (2 if node.INTEGRATOR == "Heun" else 1)
 
 
-def serve_buckets(pred, arch: str, f_shape, buckets, label: str) -> dict:
+def serve_buckets(pred, arch: str, f_shape, buckets, label: str, p50_buckets=None) -> dict:
     """A ``BatchingQueue`` over ``pred`` taking three small clients beside
-    one request of the largest bucket, then the p50 of each bucket over
-    ``FM_P50_REPS`` requests and one profiled request of the largest
-    bucket; every output finite and of ``f_shape``."""
+    one request of the largest bucket, then the p50 of each of
+    ``p50_buckets`` (default: every bucket) over ``FM_P50_REPS`` requests
+    and one profiled request of the largest bucket; every output finite and
+    of ``f_shape``."""
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
     from crowdmod_tpu_torch.serving import BatchingQueue
 
@@ -1885,7 +1927,7 @@ def serve_buckets(pred, arch: str, f_shape, buckets, label: str) -> dict:
         if out.shape != (n,) + f_shape or not np.isfinite(out).all():
             raise AssertionError(f"{arch}: bad output {out.shape} for a batch of {n}")
     p50 = {}
-    for b in buckets:
+    for b in p50_buckets or buckets:
         lat = []
         for _ in range(FM_P50_REPS):
             t0 = time.perf_counter()
@@ -1903,20 +1945,22 @@ def serve_buckets(pred, arch: str, f_shape, buckets, label: str) -> dict:
 
 def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) -> dict:
     """``load_predictor`` at buckets 1 and 64 and a ``BatchingQueue`` at
-    Euler 1000, p50 per bucket, a profiled batch-64 request, then one
-    Heun-500 request; launches held per forward."""
+    Euler 1000, the p50 of ``FM_P50_BUCKETS``, a profiled batch-64 request,
+    then one Heun request of ``FM_HEUN_STEPS``; launches held per
+    forward."""
     from crowdmod_tpu_torch.serving import Predictor, load_predictor
 
     per_forward = PER_FORWARD[arch](cfg)
     before = launch_counts()
     pred = load_predictor(str(cfg_path), arch, device=DEVICE, batch_buckets=FM_BUCKETS)
     big_b = FM_BUCKETS[-1]
-    served = serve_buckets(pred, arch, f_shape, FM_BUCKETS, f"{arch} Euler")
+    served = serve_buckets(pred, arch, f_shape, FM_BUCKETS, f"{arch} Euler", FM_P50_BUCKETS)
     walkers, profile = served["walkers"], served["profile"]
     euler = check_launches(f"{arch} serving Euler", before, per_forward,
                            fm_forwards(cfg, pred.stats.requests))
 
-    heun_cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR": "Heun"}}})
+    heun_cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR": "Heun",
+                                             "INTEGRATOR_STEPS": {"HEUN": FM_HEUN_STEPS}}}})
     heun = Predictor(heun_cfg, arch, ckpt_path, device=DEVICE, batch_buckets=(big_b,))
     before = launch_counts()
     t0 = time.perf_counter()
@@ -1933,7 +1977,7 @@ def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) ->
                predictions=pred.stats.requests,
                p50_ms_per_bucket=served["p50_ms_per_bucket"],
                out_abs_mean=served["out_abs_mean"], launches=euler,
-               heun_steps=node.INTEGRATOR_STEPS.HEUN, heun_s=heun_s,
+               heun_steps=heun_cfg.MODEL.FM.INTEGRATOR_STEPS.HEUN, heun_s=heun_s,
                heun_launches=heun_launches, busy_share=profile["busy_share"],
                device_busy_ms=profile["device_busy_ms"],
                kernel_launches_profiled=profile["kernel_launches"])
@@ -1993,7 +2037,7 @@ def phase_fm_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
 
 def phase_fm(tmp: Path, cfg) -> dict:
     """Phase 11, each FM model at the serving config's width: serving
-    (Euler 1000 and Heun 500), the f32 check, then training; → each
+    (Euler 1000 and Heun), the f32 check, then training; → each
     model's path launches (serving, then training)."""
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
 
@@ -2013,8 +2057,8 @@ def phase_fm(tmp: Path, cfg) -> dict:
 
 
 def phase_cli_fm(workdir: Path) -> dict:
-    """Phase 10 for FM: FM-DiT through ``train``, ``generate-metrics`` (the
-    configured 1000 Euler steps, 1280 samples) and ``reflow`` as
+    """Phase 10 for FM: FM-DiT through ``train``, ``generate-metrics``
+    (``FM_DIT_METRIC_STEPS`` Euler steps, 1280 samples) and ``reflow`` as
     subprocesses, launches from each command's log line; the ``RF1``
     checkpoint served at Euler ``RF_EULER_STEPS``; FM-UNet's
     ``Trainer.generate_metrics`` in this process at
@@ -2039,13 +2083,16 @@ def phase_cli_fm(workdir: Path) -> dict:
     paths["cli train FM-DiT"] = hold_launches(
         "FM-DiT train", json.loads(logged(train_out, "kernel launches: ")),
         per_forward, batches)
+    gm_cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR_STEPS": {
+        "EULER": FM_DIT_METRIC_STEPS}}}})
     gen_s, gen_out = run_cli(
         "generate-metrics", "--metric", "ALL", "--chunk-repd-past-seq", str(METRIC_CHUNK),
-        "--batches-to-use", "1", "--output-dir", str(workdir / "metrics_fm_dit"), *common)
+        "--batches-to-use", "1", "--output-dir", str(workdir / "metrics_fm_dit"), *common,
+        "--config-yml-file", str(write_config(gm_cfg, workdir / "ATC_metrics.yml")))
     files = check_metric_files(workdir / "metrics_fm_dit", cfg, arch, nsamples)
     paths["cli generate-metrics FM-DiT"] = hold_launches(
         "FM-DiT generate-metrics", json.loads(logged(gen_out, "kernel launches: ")),
-        per_forward, fm_forwards(cfg, 1))
+        per_forward, fm_forwards(gm_cfg, 1))
     rf_s, rf_out = run_cli("reflow", "--rounds", "1", "--epochs-per-round", "1",
                            "--coupling-steps", str(RF_COUPLING_STEPS), *common)
     # The teacher's coupling forwards and the student's training forwards
@@ -3002,6 +3049,643 @@ def phase_data(tmp: Path) -> dict:
     return {"15 data fit": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the parallel paths, a world of one on the card
+# ---------------------------------------------------------------------------
+
+STREAM_SEQS = 96  # sequences a stream file: 192 windows, 3 batches of 64
+DP_P50_REPS = 3   # batch-64 requests a predictor, each predictor's in a block
+# Why a data-parallel series may part from its plain reference in the last
+# bits (held then within 1e-6 relative, the reason printed with the numbers).
+DP_REASON = {
+    "DDP": "DDP copies the gradients through its buckets and all-reduces them",
+    "FSDP": "FSDP all-gathers the parameters into fresh buffers, reduce-scatters "
+            "the gradients and steps Adam on DTensor shards",
+}
+# FSDP's reference is the plain fit with FSDP's autograd graph
+# (:func:`fsdp_graph`), which only reorders the sums of the gradients that
+# several blocks share: the plain losses move by it within this relative
+# bound (4.3e-5 measured), else the graph is not only a reordering.
+FSDP_GRAPH_TOL = 1e-4
+# A world of W > 1 cards: each process's backward sums over its 64/W rows
+# (its weight gradients rounded to bf16 before the sum) and NCCL adds the
+# processes' sums in its own order; in bf16 those last-bit differences flip
+# roundings in the later steps (the FSDP graph alone, which reorders only the
+# time embedding's sums, moves the losses by 4.3e-5).  So the loss series is
+# held within "loss" relative, the samples within "sample"·max|ref| and each
+# metric cell within "metric" relative ("metric_abs" near 0).  The weights
+# and EMA: Adam's first steps are sign-like, so an element whose gradient's
+# parts nearly cancel parts by up to 2·lr a step (4 cards: 1.9e-4·max|p| in
+# 20 steps); each element is held within 2·lr·steps, and the whole state's
+# parting, ‖p_W − p_1‖, within "state_share" of how far training moved it,
+# ‖p_1 − p_0‖.  A process training on other rows, or without the
+# all-reduce, parts the losses by 1e-2 and more and the state by a share of
+# order 1.
+WORLD_TOL = {"loss": 1e-3, "state_share": 0.1, "sample": 1e-3, "metric": 1e-3,
+             "metric_abs": 1e-5}
+WORLD_REASON = ("each process sums its own rows and NCCL adds the sums in "
+                "another order")
+_FAILURES: list | None = None  # phase 16 collects its failures, then raises
+
+
+def fail(msg: str) -> None:
+    """Raise ``msg``, or, inside :func:`collecting`, keep it for the end."""
+    if _FAILURES is None:
+        raise AssertionError(msg)
+    print(f"[FAILED] {msg}", flush=True)
+    _FAILURES.append(msg)
+
+
+@contextlib.contextmanager
+def collecting(label: str):
+    """Run every check of a phase before failing: each failure is printed
+    as it comes, and the phase raises with all of them at the end."""
+    global _FAILURES
+    _FAILURES = []
+    try:
+        yield
+    finally:
+        failures, _FAILURES = _FAILURES, None
+    if failures:
+        raise AssertionError(f"{label}: {len(failures)} checks failed: {failures}")
+
+
+@contextlib.contextmanager
+def command_precision():
+    """TF32 as a fresh process has it (:data:`PRECISION_DEFAULTS`), restored
+    after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = PRECISION_DEFAULTS
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+class _UnitInputs(torch.autograd.Function):
+    """The identity on a block's inputs, as FSDP2 puts one in front of each
+    unit (to run its reduce-scatter when their gradients arrive)."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return xs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return gs
+
+
+def fsdp_graph(model) -> list:
+    """Give a plain ``model`` FSDP's autograd graph: the identity of
+    :class:`_UnitInputs` on each unit's inputs that require grad.  Tensors
+    that several blocks read (the time embedding) then sum their gradients
+    in FSDP's order, so the plain run computes FSDP's gradients bit for bit
+    (the graph alone moves them in the last bits; FSDP with the root as its
+    only unit equals the plain model).  → the hooks' handles."""
+    from crowdmod_tpu_torch.parallel.sharding import fsdp_units
+
+    def pre(mod, args):
+        live = [a for a in args if torch.is_tensor(a) and a.requires_grad]
+        if not live:
+            return None
+        out = iter(_UnitInputs.apply(*live))
+        return tuple(next(out) if torch.is_tensor(a) and a.requires_grad else a for a in args)
+
+    return [unit.register_forward_pre_hook(pre) for unit in fsdp_units(model)]
+
+
+def start_cli(*args, env=None) -> subprocess.Popen:
+    """``python -m crowdmod_tpu_torch.cli *args --device DEVICE`` started from
+    this checkout in a session of its own (so that its spawned processes end
+    with it), its output in a temporary file (never a full pipe)."""
+    import os
+
+    log_file = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crowdmod_tpu_torch.cli", *args, "--device", DEVICE],
+        cwd=Path(__file__).resolve().parent, stdout=log_file, stderr=subprocess.STDOUT,
+        text=True, env={**os.environ, **(env or {})}, start_new_session=True)
+    proc.log_file = log_file
+    return proc
+
+
+def finish_cli(proc, label: str, timeout: float = 600) -> str:
+    """The output of a :func:`start_cli` process; raises unless it exits 0
+    within ``timeout`` s (then it is killed)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:  # the command and the processes it spawned
+            import os
+            import signal
+
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    proc.log_file.seek(0)
+    out = proc.log_file.read()
+    if proc.returncode:
+        raise RuntimeError(f"{label} exited {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def hold_series(label, got, want, reason: str, scale=None, tol: float = 1e-6,
+                quiet: bool = False) -> dict:
+    """``got`` against ``want`` (arrays or tensors): bitwise, or else within
+    ``tol`` of ``scale`` (default: each element's own magnitude), the reason
+    printed beside the numbers (unless ``quiet``); :func:`fail` beyond."""
+    g = torch.as_tensor(np.asarray(got, np.float64) if not torch.is_tensor(got) else got)
+    w = torch.as_tensor(np.asarray(want, np.float64) if not torch.is_tensor(want) else want)
+    g, w = g.double().cpu(), w.double().cpu()
+    if g.shape != w.shape:
+        fail(f"{label}: shape {tuple(g.shape)} against {tuple(w.shape)}")
+        return {"bitwise": False, "max_rel": float("inf"), "reason": "shape"}
+    if torch.equal(g, w):
+        return {"bitwise": True}
+    err = (g - w).abs()
+    ref = w.abs() if scale is None else torch.full_like(w, float(scale))
+    rel = float((err / ref.clamp_min(1e-30)).max())
+    if not rel <= tol:
+        fail(f"{label}: relative difference {rel} > {tol}")
+    elif not quiet:
+        print(f"[{label}] not bitwise, within {tol} (max relative {rel}): {reason}",
+              flush=True)
+    return {"bitwise": False, "max_rel": rel, "reason": reason}
+
+
+def hold_state(label, sd, want, reason: str, noise: dict, noise_bound: float) -> dict:
+    """Every tensor of state_dict ``sd`` against ``want`` under
+    :func:`hold_series` (within 1e-6), scaled by the state's max|p|,
+    except the elements ``noise`` marks: there the step-1 gradient is float
+    noise (the key bias of attention, whose true gradient is 0), Adam's step
+    is sign-like, and two runs whose gradients differ in the last bits part
+    by up to ``noise_bound`` (2·lr·steps).  One line for the state."""
+    scale = max(float(v.abs().max()) for v in want.values())
+    held, noisy = [], 0
+    for k, v in want.items():
+        got = sd[k].double().cpu()
+        mask = noise[k].cpu() if k in noise else torch.zeros(v.shape, dtype=torch.bool)
+        diff = (got - v.double().cpu()).abs()
+        if mask.any() and not float(diff[mask].max()) <= noise_bound:
+            fail(f"{label} {k}: a float-noise element moved past {noise_bound}")
+        noisy += int((diff[mask] > 0).sum())
+        held.append(hold_series(f"{label} {k}", torch.where(mask, v.double().cpu(), got), v,
+                                reason, scale, quiet=True))
+    res = {"tensors": len(held), "bitwise": all(h["bitwise"] for h in held),
+           "max_rel": max(h.get("max_rel", 0.0) for h in held),
+           "float_noise_elements_differing": noisy, "max_p": scale}
+    if not res["bitwise"] and res["max_rel"] <= 1e-6:
+        print(f"[{label}] not bitwise, within 1e-6·max|p| (max {res['max_rel']}): "
+              f"{reason}", flush=True)
+    return res
+
+
+def hold_state_share(label, sd, want, init, bound: float) -> dict:
+    """A W-card run's state_dict ``sd`` against the plain run's ``want``
+    (both trained from ``init``): every element within ``bound``
+    (2·lr·steps), and ‖sd − want‖ within ``WORLD_TOL["state_share"]`` of
+    ‖want − init‖ over the whole state."""
+    parted = moved = 0.0
+    worst = 0.0
+    for k, v in want.items():
+        w, i = v.double().cpu(), init[k].double().cpu()
+        diff = sd[k].double().cpu() - w
+        worst = max(worst, float(diff.abs().max()))
+        parted += float((diff * diff).sum())
+        moved += float(((w - i) ** 2).sum())
+    share = (parted / moved) ** 0.5
+    if not worst <= bound:
+        fail(f"{label}: an element parted by {worst} > {bound} (2·lr·steps)")
+    if not share <= WORLD_TOL["state_share"]:
+        fail(f"{label}: parted by {share} of the training's movement "
+             f"> {WORLD_TOL['state_share']}")
+    return {"bitwise": parted == 0.0, "share_of_movement": share, "max_abs": worst,
+            "element_bound": bound, "share_tol": WORLD_TOL["state_share"]}
+
+
+def dp_training(cli_cfg, workdir: Path, world: int) -> dict:
+    """(a) DDP through ``--multihost`` with the CROWDMOD_* variables (one
+    process a card, ``world`` of them) and (b) FSDP through the command's
+    own spawn (one process a card), both ``train --arch DDPM-UNet
+    --data-parallel --epochs 1`` on phase 10's pickles at the serving width
+    (batch 64, bf16, EMA 0.999), at the same time; then the plain
+    ``Trainer.fit`` of the same seed and data in this process, under the
+    commands' TF32 switches: DDP's reference as it is, FSDP's with FSDP's
+    autograd graph (:func:`fsdp_graph`, which moves the plain losses within
+    :data:`FSDP_GRAPH_TOL`).  Each run's per-step losses, its checkpoint in
+    a plain ``Trainer`` and its launches a step are held to its reference:
+    bitwise or within 1e-6 on one card, within :data:`WORLD_TOL` on more."""
+    import socket
+
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    list_path = workdir / "ATC_datafiles.yml"
+    cfgs = {}
+    for name in ("ddp", "fsdp", "plain"):
+        (workdir / name).mkdir()
+        cfgs[name] = write_config(cli_cfg.updated({
+            "DATA_FS": {"SAVE_DIR": str(workdir / name / "ckpts"),
+                        "OUTPUT_DIR": str(workdir / name / "out")},
+            "MODEL": {"DDPM": {"UNET": {"TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.999}}}}}),
+            workdir / name / "ATC.yml")
+    common = ["--arch", "DDPM-UNet", "--epochs", "1", "--seed", str(CLI_SEED),
+              "--configList-yml-file", str(list_path), "--data-parallel"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ddp = [start_cli("train", *common, "--multihost", "--config-yml-file", str(cfgs["ddp"]),
+                     env={"CROWDMOD_COORDINATOR": f"127.0.0.1:{port}",
+                          "CROWDMOD_NUM_PROCESSES": str(world),
+                          "CROWDMOD_PROCESS_ID": str(rank)})
+           for rank in range(world)]
+    fsdp = start_cli("train", *common, "--fsdp", "--config-yml-file", str(cfgs["fsdp"]))
+    # Process 0's output (FSDP's spawned processes share the command's).
+    # Once one process of a world failed, the others would wait for it in
+    # their next collective: they are ended 30 s later.
+    deadline, failed_at = time.monotonic() + 600, None
+    while any(p.poll() is None for p in [*ddp, fsdp]) and time.monotonic() < deadline:
+        if failed_at is None and any(p.poll() for p in [*ddp, fsdp]):
+            failed_at = time.monotonic()
+        if failed_at is not None and time.monotonic() - failed_at > 30:
+            break
+        time.sleep(0.5)
+    outs = {"DDP": [finish_cli(p, f"train --data-parallel --multihost (DDP process {k})",
+                               timeout=0) for k, p in enumerate(ddp)][0],
+            "FSDP": finish_cli(fsdp, "train --data-parallel --fsdp", timeout=0)}
+    both_s = time.perf_counter() - t0
+
+    cfg = load_config(str(cfgs["plain"]), str(list_path))
+    train_ds, val_ds = ingest.get_training_dataset(cfg, 3, seed=CLI_SEED, device=DEVICE)
+
+    def plain_fit(graph: bool):
+        """The plain ``fit`` of the same seed and data (with FSDP's graph
+        for FSDP's reference) → (history, params, EMA, step 1's gradients)."""
+        tr = Trainer(cfg, "DDPM-UNet", device=DEVICE, seed=CLI_SEED,
+                     run_dir=str(workdir / f"plain_run{int(graph)}"))
+        if graph:
+            fsdp_graph(tr.model)
+        step, first_grads = tr._train_step, {}
+
+        def first_step(b, d):  # keeps step 1's gradients: which elements are float noise
+            loss = step(b, d)
+            if not first_grads:
+                first_grads.update({n: p.grad.detach().clone()
+                                    for n, p in tr.model.named_parameters()})
+            return loss
+
+        tr._train_step = first_step
+        init = {k: v.detach().clone() for k, v in tr.params.items()}
+        with command_precision():
+            hist = tr.fit(train_ds, val_ds, epochs=1)
+        return hist, tr.params, tr.ema_params, first_grads, tr.plateau.lr, init
+
+    reset_launch_counts()  # not a path of this phase: the plain references
+    refs = {"DDP": plain_fit(False), "FSDP": plain_fit(True)}
+    hist, _, _, first_grads, lr, init = refs["DDP"]
+    g_max = max(float(g.abs().max()) for g in first_grads.values())
+    noise = {n: g.abs() < 1e-6 * g_max for n, g in first_grads.items()}
+    noise_bound = 2 * lr * len(hist["step_loss"][0])
+    steps, evals = len(hist["step_loss"][0]), len(val_ds) // cfg.DATASET.BATCH_SIZE
+    if steps < TRAIN_STEPS:
+        raise AssertionError(f"a data-parallel epoch of {steps} steps")
+    per_step, per_fwd = TRAIN_PER_STEP["DDPM-UNet"](cfg), PER_FORWARD["DDPM-UNet"](cfg)
+    want = {k: per_step.get(k, 0) * steps + per_fwd.get(k, 0) * evals
+            for k in set(per_step) | set(per_fwd)}
+    plain_losses = np.asarray(hist["step_loss"], np.float64)
+    graph_losses = np.asarray(refs["FSDP"][0]["step_loss"], np.float64)
+    drift = float(np.max(np.abs(graph_losses - plain_losses) / np.abs(plain_losses)))
+    if not drift <= FSDP_GRAPH_TOL:
+        fail(f"FSDP's graph moves the plain losses by {drift} > {FSDP_GRAPH_TOL}")
+    loss_tol = 1e-6 if world == 1 else WORLD_TOL["loss"]
+    res, paths = {"world": world, "concurrent_wall_s": both_s, "steps": steps,
+                  "eval_batches": evals, "plain_step_loss": hist["step_loss"][0],
+                  "plain_step_ms": hist["step_ms"][0],
+                  "fsdp_graph_vs_plain_max_rel": drift,
+                  "fsdp_graph_tol": FSDP_GRAPH_TOL, "loss_tol": loss_tol}, {}
+    for mode, out in outs.items():
+        run = json.loads(logged(out, "train steps: "))
+        reason = DP_REASON[mode] + ("" if world == 1 else "; " + WORLD_REASON)
+        ref_hist, ref_params, ref_ema = refs[mode][:3]
+        paths[f"16 train {mode}"] = hold_launches(
+            f"train --data-parallel {mode}", json.loads(logged(out, "kernel launches: ")),
+            want, 1)
+        name = ckpt.checkpoint_name(cfg, "DDPM-UNet", "000")
+        back = Trainer(cfg, "DDPM-UNet", device=DEVICE, seed=SEED)
+        back.load(str(workdir / mode.lower() / "ckpts" / name))
+        step_ms = [ms for epoch in run["step_ms"] for ms in epoch]
+        if world == 1:
+            states = {key: hold_state(f"{mode} checkpoint {key}", got, ref, reason, noise,
+                                      noise_bound)
+                      for key, got, ref in (("params", back.params, ref_params),
+                                            ("EMA", back.ema_params, ref_ema))}
+        else:
+            states = {key: hold_state_share(f"{mode} checkpoint {key}", got, ref, init,
+                                            noise_bound)
+                      for key, got, ref in (("params", back.params, ref_params),
+                                            ("EMA", back.ema_params, ref_ema))}
+        res[mode] = dict(
+            group=logged(out, "data parallel: "),
+            losses=hold_series(f"{mode} step losses", run["step_loss"], ref_hist["step_loss"],
+                               reason, tol=loss_tol),
+            params=states["params"], ema=states["EMA"],
+            step_ms_median=statistics.median(step_ms[1:]), step_ms=step_ms,
+            peak_memory_gb=run["peak_memory_gb"],
+            launches_per_step={k: per_step.get(k, 0) for k in paths[f"16 train {mode}"]})
+    log(f"parallel training DDPM-UNet b64 (DDP --multihost, FSDP spawn; world of {world})",
+        **res)
+    return paths
+
+
+def csv_cells_close(got: Path, want: Path, rtol: float, atol: float) -> float:
+    """Two metric CSVs cell by cell: text cells equal, numeric cells within
+    ``rtol`` of the reference (``atol`` near 0) → the largest relative
+    difference; :func:`fail` beyond."""
+    import csv
+
+    g_rows, w_rows = (list(csv.reader(open(x))) for x in (got, want))
+    if [len(r) for r in g_rows] != [len(r) for r in w_rows]:
+        fail(f"{got.name}: {len(g_rows)} rows against {len(w_rows)}")
+        return float("inf")
+    worst = 0.0
+    for g_row, w_row in zip(g_rows, w_rows):
+        for g, w in zip(g_row, w_row):
+            try:
+                gv, wv = float(g), float(w)
+            except ValueError:
+                if g != w:
+                    fail(f"{got.name}: cell {g!r} against {w!r}")
+                continue
+            err = abs(gv - wv)
+            if err > atol:
+                worst = max(worst, err / max(abs(wv), 1e-30))
+            if not (err <= atol + rtol * abs(wv) or (np.isnan(gv) and np.isnan(wv))):
+                fail(f"{got.name}: {gv!r} against {wv!r}")
+    return worst
+
+
+def dp_metrics(workdir: Path, world: int) -> dict:
+    """(c) ``generate-metrics --data-parallel`` (one process a card) on
+    phase 10's DDPM-DiT checkpoint with phase 10's arguments: every CSV
+    bitwise equal to phase 10's (on more cards, each cell within
+    :data:`WORLD_TOL` unless bitwise); its launches from the command's log
+    line."""
+    from crowdmod_tpu_torch.config import load_config
+
+    cfg = load_config(str(workdir / "ATC.yml"), str(workdir / "ATC_datafiles.yml"))
+    out_dir = workdir / "metrics_dit_dp"
+    wall, out = run_cli(
+        "generate-metrics", "--arch", "DDPM-DiT", "--metric", "ALL",
+        "--chunk-repd-past-seq", str(METRIC_CHUNK), "--batches-to-use", "1",
+        "--output-dir", str(out_dir), "--config-yml-file", str(workdir / "ATC.yml"),
+        "--configList-yml-file", str(workdir / "ATC_datafiles.yml"), "--seed", str(CLI_SEED),
+        "--data-parallel")
+    want = sorted((workdir / "metrics_dit").glob("*.csv"))
+    got = sorted(out_dir.glob("*.csv"))
+    if [p.name for p in got] != [p.name for p in want] or not want:
+        raise AssertionError(f"generate-metrics --data-parallel files {[p.name for p in got]}")
+    differ = {p.name: q for p, q in zip(got, want) if p.read_bytes() != q.read_bytes()}
+    if differ and world == 1:
+        fail(f"generate-metrics --data-parallel CSVs differ from phase 10's: {sorted(differ)}")
+    worst = {p.name: csv_cells_close(p, differ[p.name], WORLD_TOL["metric"],
+                                     WORLD_TOL["metric_abs"])
+             for p in got if p.name in differ and world > 1}
+    launches = hold_launches("generate-metrics --data-parallel",
+                             json.loads(logged(out, "kernel launches: ")),
+                             PER_FORWARD["DDPM-DiT"](cfg), cfg.MODEL.DDPM.ETA_STEPS)
+    log("parallel generate-metrics DDPM-DiT --data-parallel", world=world, wall_s=wall,
+        csv_files=len(got), bitwise_vs_phase_10=not differ,
+        csv_files_not_bitwise=len(differ), max_rel_per_file=worst,
+        group=logged(out, "batch-parallel sampling: "),
+        protocol=logged(out, "metric protocol: "), launches=launches)
+    return {"16 metrics DDPM-DiT": launches}
+
+
+def dp_serving(workdir: Path, world: int) -> dict:
+    """(d) The data-parallel predictor with phase 10's DDPM-DiT checkpoint:
+    ``load_predictor(data_parallel=True)`` (one replica a card) on more
+    cards, two replicas on the one card (``Predictor(mesh=[cuda:0] * 2)``)
+    on one, so that the bucket's split, the shared draws and the gather run.
+    A seeded bucket-8 request held bitwise to each replica's rows sampled
+    plainly with their slice of the bucket's draws, and against the plain
+    predictor's; the p50 of batch 64 beside the plain one's; launches held
+    per forward of each replica, counted over the data-parallel requests
+    alone."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.ops.kernels.library import seeded_noise
+    from crowdmod_tpu_torch.serving import Predictor, load_predictor
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    cfg = load_config(str(workdir / "ATC.yml"))
+    kw = dict(datafiles_yml=str(workdir / "ATC_datafiles.yml"), device=DEVICE,
+              batch_buckets=(8, 64))
+    plain = load_predictor(str(workdir / "ATC.yml"), "DDPM-DiT", **kw)
+    if world > 1:
+        dp = load_predictor(str(workdir / "ATC.yml"), "DDPM-DiT", data_parallel=True, **kw)
+    else:
+        path = Path(cfg.DATA_FS.SAVE_DIR) / ckpt.checkpoint_name(cfg, "DDPM-DiT", "000")
+        dp = Predictor(cfg, "DDPM-DiT", str(path), mesh=[torch.device(DEVICE, 0)] * 2,
+                       batch_buckets=(8, 64))
+    replicas = len(dp._replicas)
+    if replicas < 2 or dp._pool is None:
+        raise AssertionError(f"a data-parallel predictor of {replicas} replica(s)")
+    p, f, h, w, c = dp.input_spec
+    past = synthetic_walkers(64, h, w, p + f)[:, :p]
+    dp.predict(past)  # each replica's first request (its buffers)
+    lat = {"plain": [], "data_parallel": []}
+    reset_launch_counts()  # the data-parallel predictor's own requests
+    seeded = dp.predict(past[:8], seed=DEPLOY_SEED)
+    for _ in range(DP_P50_REPS):
+        t0 = time.perf_counter()
+        dp.predict(past)
+        lat["data_parallel"].append(1e3 * (time.perf_counter() - t0))
+    launches = hold_launches("data-parallel serving", launch_counts(),
+                             PER_FORWARD["DDPM-DiT"](cfg),
+                             replicas * (1 + DP_P50_REPS) * cfg.MODEL.DDPM.ETA_STEPS)
+
+    want = plain.predict(past[:8], seed=DEPLOY_SEED)
+    for _ in range(DP_P50_REPS):
+        t0 = time.perf_counter()
+        plain.predict(past)
+        lat["plain"].append(1e3 * (time.perf_counter() - t0))
+    rows, parts = 8 // replicas, []
+    draws = seeded_noise(DEPLOY_SEED, (8, f, h, w, c), plain.device)
+    for k in range(replicas):  # each replica's rows, sampled plainly
+        part = slice(k * rows, (k + 1) * rows)
+        parts.append(plain._trainer.sample(past[part], noise=lambda t, part=part: draws(t)[part])
+                     .cpu().numpy())
+    rows_bitwise = np.array_equal(seeded, np.concatenate(parts))
+    if not rows_bitwise:
+        fail("a seeded data-parallel request differs from its replicas' rows sampled plainly")
+    vs_plain = hold_series("seeded data-parallel b8 against the plain predictor", seeded, want,
+                           f"each replica samples {rows} rows where the plain predictor "
+                           "samples 8", scale=float(np.abs(want).max()),
+                           tol=WORLD_TOL["sample"])
+    log("parallel serving DDPM-DiT data-parallel predictor", world=world, replicas=replicas,
+        devices=[str(t.device) for t in dp._replicas], buckets=dp.batch_buckets,
+        seeded_b8_vs_replica_rows_bitwise=rows_bitwise, seeded_b8_vs_plain=vs_plain,
+        p50_ms_b64={k: statistics.median(v) for k, v in lat.items()}, latency_ms=lat,
+        launches=launches)
+    return {"16 serving DDPM-DiT": launches}
+
+
+def dp_stream(workdir: Path, cli_cfg) -> dict:
+    """(e) ``FileWindowStream`` over phase 10's three pickles through
+    ``device_prefetch`` onto the card: every batch bitwise equal to each
+    file's resident ``WindowDataset`` batch, in order; then one UNet
+    ``Trainer.fit`` epoch of ``TRAIN_STEPS`` fed from a stream of two small
+    files (launches held a step) against the same steps from a resident
+    dataset, and the busy share of one profiled streamed step."""
+    import pickle
+
+    from crowdmod_tpu_torch.data.ingest import load_pickle_native
+    from crowdmod_tpu_torch.data.prefetch import FileWindowStream
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.data.windows import WindowDataset
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train.trainer import StepDraws, Trainer
+
+    c = cli_cfg
+    batch, stride = c.DATASET.BATCH_SIZE, c.MACROPROPS.STRIDE
+    win = dict(past_len=c.DATASET.PAST_LEN, future_len=c.DATASET.FUTURE_LEN, stride=stride)
+    files = sorted(str(x) for x in (workdir / "pickle").glob("walkers*.pkl"))
+    t0 = time.perf_counter()
+    got = list(FileWindowStream(files, mprops_count=3, device=DEVICE, **win)
+               .batches(batch, seed=SEED))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    n = 0
+    for k, path in enumerate(files):
+        ds = WindowDataset(torch.from_numpy(load_pickle_native(path, 3)).to(DEVICE), **win)
+        for past, future in ds.batches(batch, seed=SEED + k):
+            gp, gf = got[n]
+            if not (gp.device.type == torch.device(DEVICE).type and torch.equal(gp, past)
+                    and torch.equal(gf, future)):
+                raise AssertionError(f"streamed batch {n} differs from file {k}'s resident batch")
+            n += 1
+    if n != len(got):
+        raise AssertionError(f"the stream gave {len(got)} batches, the files {n}")
+
+    small = workdir / "stream"
+    small.mkdir()
+    h, w, seq_len = c.MACROPROPS.ROWS, c.MACROPROPS.COLS, c.DATASET.RAW_SEQ_LEN
+    rng, natives, paths = np.random.default_rng(SEED + 16), [], []
+    for k in range(TRAIN_STEPS // 3):
+        native = synthetic_walkers(STREAM_SEQS, h, w, seq_len)
+        native = native + np.abs(rng.normal(0, 0.05, native.shape)).astype(np.float32)
+        natives.append(native)
+        paths.append(small / f"stream{k}.pkl")
+        with open(paths[-1], "wb") as fh:
+            pickle.dump(np.ascontiguousarray(native.transpose(0, 4, 2, 3, 1)), fh)
+    cfg = c.updated({"DATA_FS": {"SAVE_DIR": str(small / "ckpts")},
+                     "MODEL": {"DDPM": {"CHECKPOINTS_TO_KEEP": 0}}})
+    stream = FileWindowStream([str(x) for x in paths], mprops_count=3, device=DEVICE, **win)
+    resident = WindowDataset(torch.from_numpy(np.concatenate(natives)).to(DEVICE), **win)
+    res, paths_out = {"stream_batches_checked": n, "stream_epoch_s": stream_s}, {}
+    for name, data in (("streamed", stream), ("resident", resident)):
+        tr = Trainer(cfg, "DDPM-UNet", device=DEVICE, seed=SEED, run_dir=str(small / name))
+        reset_launch_counts()  # the streamed fit is this phase's path; resident its yardstick
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hist = tr.fit(data, epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        launches = check_launches(f"{name} fit", before, TRAIN_PER_STEP["DDPM-UNet"](cfg),
+                                  TRAIN_STEPS)
+        if not (tr.state.step == TRAIN_STEPS and np.isfinite(hist["train_loss"]).all()):
+            raise AssertionError(f"{name} fit: {tr.state.step} steps, {hist['train_loss']}")
+        step_ms = hist["step_ms"][0]
+        res[name] = dict(fit_s=fit_s, ms_per_step_fit=1e3 * fit_s / TRAIN_STEPS,
+                         step_ms_median=statistics.median(step_ms[1:]), step_ms=step_ms,
+                         train_loss=hist["train_loss"])
+        if name == "streamed":
+            paths_out["16 stream fit"] = launches
+            it = iter(stream.batches(batch, seed=SEED + 1))
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            res["profile"] = profile_busy(
+                lambda: (tr._train_step(next(it), StepDraws(generator=gen)),
+                         torch.cuda.synchronize()),
+                "profile streamed training step DDPM-UNet b64")
+            it.close()
+    log("parallel stream FileWindowStream -> device_prefetch -> fit", **res)
+    return paths_out
+
+
+def phase_parallel(workdir: Path) -> dict:
+    """Phase 16 on phase 10's workspace: a process (or a replica) a card
+    over NCCL, a world of one on one card.  Every check runs; the phase
+    fails at its end if any did.  → each path's launch counts."""
+    from crowdmod_tpu_torch.config import load_config
+
+    import torch.distributed as dist
+
+    world = torch.cuda.device_count()
+    log("parallel", backend="nccl", world_size=world, nccl=list(torch.cuda.nccl.version()),
+        nvidia_smi=nvidia_smi(), nccl_available=dist.is_nccl_available())
+    cli_cfg = load_config(str(workdir / "ATC.yml"), str(workdir / "ATC_datafiles.yml"))
+    paths = {}
+    with collecting("phase 16"):
+        for part, fn, args in (("train", dp_training, (cli_cfg, workdir, world)),
+                               ("metrics", dp_metrics, (workdir, world)),
+                               ("serving", dp_serving, (workdir, world)),
+                               ("stream", dp_stream, (workdir, cli_cfg))):
+            t0 = time.perf_counter()
+            paths.update(fn(*args))
+            log("parallel part done", part=part, seconds=time.perf_counter() - t0)
+    return paths
+
+
+def _log_time(line: str) -> datetime.datetime:
+    """The timestamp of a command's log line (``%(asctime)s`` first)."""
+    return datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+
+
+def phase_train_time(trees: list[Path]) -> dict:
+    """Phase 10's ``train`` command (DDPM-DiT, one epoch of 20 steps) and
+    the same for DDPM-UNet, from the port package of each checkout in
+    ``trees``, in the order trees then trees reversed, on one pickle
+    workspace: each run's wall seconds and its fit seconds (from its log's
+    ``train windows`` line to its ``kernel launches`` line: the epoch, the
+    evaluation and the checkpoint)."""
+    for tree in trees:  # each tree's kernels, before any timing
+        subprocess.run([sys.executable, "-c", "from crowdmod_tpu_torch.ops.kernels "
+                        "import build; build.build_all()"], cwd=tree, check=True, timeout=600)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path, list_path, _ = write_pickle_workspace(Path(tmp) / "cli")
+        for arch in ("DDPM-DiT", "DDPM-UNet"):
+            runs = {str(t): {"wall_s": [], "fit_s": []} for t in trees}
+            for tree in [*trees, *reversed(trees)]:
+                t0 = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, "-m", "crowdmod_tpu_torch.cli", "train", "--arch", arch,
+                     "--epochs", "1", "--config-yml-file", str(cfg_path),
+                     "--configList-yml-file", str(list_path), "--seed", str(CLI_SEED),
+                     "--device", DEVICE], cwd=tree, capture_output=True, text=True, timeout=600)
+                wall = time.perf_counter() - t0
+                if r.returncode:
+                    raise RuntimeError(f"train ({tree}) exited {r.returncode}:\n"
+                                       f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+                lines = r.stdout.splitlines()
+                start = [ln for ln in lines if "train windows: " in ln][-1]
+                end = [ln for ln in lines if "kernel launches: " in ln][-1]
+                runs[str(tree)]["wall_s"].append(wall)
+                runs[str(tree)]["fit_s"].append(
+                    (_log_time(end) - _log_time(start)).total_seconds())
+            res[arch] = runs
+            log(f"train time {arch}", order=[str(t) for t in [*trees, *reversed(trees)]],
+                **runs)
+    return res
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -3055,6 +3739,18 @@ def main() -> int:
         rows = phase_gn_plans()["rows"]
         log("group norm plans done", seconds=time.perf_counter() - t_start, cases=len(rows))
         return 0
+    if sys.argv[1:2] == ["--train-time"] and len(sys.argv) > 2:
+        phase_train_time([Path(t).resolve() for t in sys.argv[2:]])
+        log("train time done", seconds=time.perf_counter() - t_start)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_cli(Path(tmp) / "cli")
+            t0 = time.perf_counter()
+            phase_parallel(Path(tmp) / "cli")
+        log("parallel done", seconds=time.perf_counter() - t_start,
+            phase_16_s=time.perf_counter() - t0)
+        return 0
     cfg = load_config("serving/ATC.yml")
     if sys.argv[1:2] == ["--serving"]:
         import crowdmod_tpu_torch
@@ -3088,6 +3784,7 @@ def main() -> int:
         paths.update(timed("13 convrnn", phase_convrnn, Path(tmp), cfg))
         paths.update(timed("14 deploy", phase_deploy, Path(tmp), cfg))
         paths.update(timed("15 data", phase_data, Path(tmp)))
+        paths.update(timed("16 parallel", phase_parallel, Path(tmp) / "cli"))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

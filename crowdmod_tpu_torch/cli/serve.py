@@ -21,11 +21,14 @@ keys, status codes and Prometheus series:
     latency sum, queue depth, dispatch/coalesce counters (model-labelled
     when serving several models).
 
-CUDA work runs only on each queue's dispatch thread, under its predictor's
-lock; the HTTP handler threads parse, wait and answer.  SIGTERM/SIGINT
+CUDA work runs only on each queue's dispatch thread (and its predictor's
+replica threads), under its predictor's lock; the HTTP handler threads
+parse, wait and answer.  SIGTERM/SIGINT
 drain the queues, then the process exits 0; its last log line gives the
 kernel launches of the run (warmup included).  ``--device`` defaults to
-``cuda``; ``--data-parallel`` exits 2 (ROADMAP.md Queue 1 item 16).  The
+``cuda``; ``--data-parallel`` keeps one replica a card of this host and
+splits each request over them (:class:`~crowdmod_tpu_torch.serving.
+Predictor`'s ``mesh``).  The
 JAX command's ``--compile-cache`` has no counterpart: eager PyTorch compiles
 nothing at warmup, and the kernels' libraries are cached by source hash
 (``ops/kernels/build.py``).
@@ -37,7 +40,6 @@ import concurrent.futures
 import json
 import logging
 import signal
-import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -278,8 +280,9 @@ def build_parser():
     p.add_argument("--request-timeout-s", type=float, default=30.0,
                    help="per-request deadline; exceeded requests get 504")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard request batches over all local cards (not "
-                        "ported yet: ROADMAP.md Queue 1 item 16)")
+                   help="one replica a card of this host, each request "
+                        "batch split over them (buckets rounded up to the "
+                        "replica count)")
     p.add_argument(
         "--artifact", type=str, nargs="+", default=None, metavar="PATH",
         help="serve exported sampler artifact(s) (python -m "
@@ -293,10 +296,6 @@ def build_parser():
 def run(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.data_parallel:
-        print("--data-parallel is not ported to PyTorch yet: ROADMAP.md Queue 1 "
-              "item 16 (the parallel paths)", file=sys.stderr)
-        return 2
     setup_logging("logs/serve.log")
 
     if args.artifact:
@@ -305,6 +304,9 @@ def run(argv=None) -> int:
         if args.extra_arch:
             p.error("--artifact serves a single exported model; "
                     "--extra-arch needs the checkpoint path")
+        if args.data_parallel:
+            p.error("an artifact runs on the device it was exported for; "
+                    "--data-parallel needs the checkpoint path")
         predictors = {args.arch.lower(): ArtifactPredictor(args.artifact)}
         logging.info("serving %d artifact bucket(s): %s", len(args.artifact), args.artifact)
     else:
@@ -318,6 +320,7 @@ def run(argv=None) -> int:
             return load_predictor(
                 args.config_yml_file, arch, datafiles_yml=args.configList_yml_file,
                 epoch_tag=args.epoch_tag, device=args.device, seed=args.seed,
+                data_parallel=args.data_parallel,
                 batch_buckets=overrides.get(arch.lower(), tuple(args.batch_buckets)),
             )
 

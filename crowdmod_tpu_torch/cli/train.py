@@ -6,10 +6,20 @@ trainer.Trainer` on the config's macroprop pickles, logging through
 :class:`~crowdmod_tpu_torch.utils.tracker.RunTracker` (``events.jsonl`` and
 ``config.json`` in the run directory) and keeping the best-loss checkpoint
 under ``DATA_FS.SAVE_DIR``; a log line gives the kernel launches of the
-run.  The JAX command's loss-curve plot
-(``losses.png``) waits for the plotting module (ROADMAP.md Queue 1 item
-17), its parallel flags for item 16.  Exit status 1 when the NaN watchdog
-aborts the run.
+run, another each step's loss and milliseconds (``Trainer.fit``'s
+history).  The JAX command's loss-curve plot (``losses.png``) waits for
+the plotting module (ROADMAP.md Queue 1 item 17).  Exit status 1 when
+the NaN watchdog aborts the run.
+
+Data parallelism (:mod:`crowdmod_tpu_torch.parallel.launch`):
+``--data-parallel`` trains with DDP on one process a card of this host (on
+``--device cpu``, a world of one over gloo), ``--fsdp`` shards parameters,
+Adam moments and EMA (FSDP), ``--multihost`` joins a launch made outside
+(``CROWDMOD_*`` variables or torchrun).  ``DATASET.BATCH_SIZE`` stays the
+global batch.  Process 0 owns the run directory and commits the
+checkpoints; process N logs to ``train.pN.log`` and tracks into
+``<run_dir>/.procN``.  ``--model-parallel N`` (tensor parallelism) exits 2:
+ROADMAP.md Queue 1 item 16b.
 
     python -m crowdmod_tpu_torch.cli train --arch DDPM-DiT \\
         --config-yml-file ATC.yml --configList-yml-file ATC_datafiles.yml
@@ -20,8 +30,12 @@ from __future__ import annotations
 import json
 import logging
 import os
+import sys
 
 from crowdmod_tpu_torch.cli import common_parser, setup_logging
+from crowdmod_tpu_torch.parallel import launch, multiprocess
+
+COMMAND = "crowdmod_tpu_torch.cli.train"
 
 
 def build_parser():
@@ -37,11 +51,40 @@ def build_parser():
                    help="Resume model state from the emergency 'abort' "
                         "checkpoint if one exists.")
     p.add_argument("--run-dir", type=str, default=None)
+    p.add_argument("--data-parallel", action="store_true",
+                   help="Data-parallel training (DDP): one process a card of "
+                        "this host, the global batch split over them.")
+    p.add_argument("--fsdp", action="store_true",
+                   help="With --data-parallel: also shard parameters, Adam "
+                        "moments and EMA over the processes (FSDP).")
+    p.add_argument("--model-parallel", type=int, default=None, metavar="N",
+                   help="Tensor parallelism over N cards: not ported yet "
+                        "(ROADMAP.md Queue 1 item 16b); exits 2 for N > 1.")
+    p.add_argument("--multihost", action="store_true",
+                   help="With --data-parallel: join a launch made outside "
+                        "(CROWDMOD_COORDINATOR/NUM_PROCESSES/PROCESS_ID, or "
+                        "torchrun) instead of spawning a process a card; "
+                        "every process runs this same command.")
     return p
 
 
 def run(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    code = launch.check_flags(args)
+    if code is not None:
+        return code
+    if args.data_parallel:
+        return launch.run_ranks(COMMAND, argv, args.device, args.multihost)
+    from crowdmod_tpu_torch.train.trainer import resolve_device
+
+    return run_rank(args, resolve_device(args.device))
+
+
+def run_rank(args, device) -> int:
+    """The command on one process (all of it without --data-parallel)."""
+    import torch
+
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.config.validate import require_valid
     from crowdmod_tpu_torch.data.ingest import get_training_dataset
@@ -51,10 +94,25 @@ def run(argv=None) -> int:
 
     cfg = load_config(args.config_yml_file, args.configList_yml_file)
     require_valid(cfg, args.arch)
-    setup_logging(os.path.join(cfg.DATA_FS.OUTPUT_DIR, "logs", "train.log"))
+    rank = multiprocess.process_index()
+    log_name = f"train.p{rank}.log" if args.data_parallel else "train.log"
+    setup_logging(os.path.join(cfg.DATA_FS.OUTPUT_DIR, "logs", log_name))
 
-    trainer = Trainer(cfg, args.arch, device=args.device, run_dir=args.run_dir,
-                      seed=args.seed)
+    mesh, run_dir = None, args.run_dir
+    if args.data_parallel:
+        from crowdmod_tpu_torch.parallel.mesh import mesh_from_config
+
+        mesh = mesh_from_config(cfg, args.model_parallel)
+        logging.info("data parallel: process %d/%d (%s) on %s, mesh %s, %s", rank,
+                     multiprocess.process_count(), multiprocess.backend(), device,
+                     tuple(mesh.shape), "FSDP" if args.fsdp else "DDP")
+        if rank:
+            # One writer: process 0 owns the run directory, the others
+            # track beside it.
+            base = run_dir or os.path.join(cfg.DATA_FS.OUTPUT_DIR, "runs", args.arch)
+            run_dir = os.path.join(base, f".proc{rank}")
+    trainer = Trainer(cfg, args.arch, device=device, run_dir=run_dir, seed=args.seed,
+                      mesh=mesh, param_sharding="fsdp" if args.fsdp else "tp")
     if args.resume and trainer.resume_from_abort():
         logging.info("resumed from emergency checkpoint")
     mprops = trainer.mprops_count
@@ -65,6 +123,8 @@ def run(argv=None) -> int:
     logging.info("train windows: %d, val windows: %d",
                  len(train_ds), len(val_ds) if val_ds else 0)
 
+    if trainer.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(trainer.device)
     with RunTracker(trainer.run_dir, config=cfg) as tracker:
         history = trainer.fit(
             train_ds, val_ds,
@@ -72,6 +132,11 @@ def run(argv=None) -> int:
             epochs=args.epochs,
             tracker=tracker,
         )
+    peak = (torch.cuda.max_memory_allocated(trainer.device) / 2**30
+            if trainer.device.type == "cuda" else None)
+    logging.info("train steps: %s", json.dumps({
+        "step_loss": history.get("step_loss"), "step_ms": history.get("step_ms"),
+        "peak_memory_gb": peak}))
     logging.info("kernel launches: %s",
                  json.dumps({fn.__name__: fn.launches for fn in KERNELS}))
     logging.info("losses.png not written: plots are not ported yet "

@@ -651,8 +651,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int heads, 
   if (warps < 1 || warps > kMaxWarps || warps > per_block * tiles || skp < sk || skp % 16)
     return (int)cudaErrorInvalidValue;
   const auto kernel = attention_mma_kernel<kDh>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  const cudaError_t attr =
+      crowdmod::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (problems + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -671,7 +671,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int heads,
   const auto kernel = attention_simt_kernel<T, kDh>;
   if (smem > 48 * 1024) {  // the kernel's static shared memory rules out the most
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        crowdmod::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (problems + per_block - 1) / per_block;
@@ -694,7 +694,7 @@ int launch_simt_streamed(const void* q, const void* k, const void* v, void* o, i
   const auto kernel = attention_simt_streamed_kernel<T, kDh>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        crowdmod::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long chunks = (sq + query_rows - 1) / query_rows;

@@ -1,7 +1,8 @@
 // Device code shared by the UNet kernels (groupnorm.cu, conv3d.cu,
 // resblock.cu): typed loads and stores, block reductions, the per-(sample,
 // group) GroupNorm moments, and the SIMT implicit-GEMM main loop of the
-// stride-1 SAME 3x3x3 convolutions.
+// stride-1 SAME 3x3x3 convolutions; on the host, the per-device grant of
+// dynamic shared memory that every kernel file's launchers use.
 //
 // Layout everywhere: channels-last (B, T, H, W, C), contiguous, as the JAX
 // package keeps its activations.  Arithmetic is float32 whatever the storage
@@ -14,9 +15,32 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace crowdmod {
 
 constexpr int kThreads = 256;
+
+// Dynamic shared memory above 48 KB needs cudaFuncSetAttribute, which
+// applies to the current device only: it is set once for each (kernel,
+// device) pair and size, so a kernel launches on every card of a process
+// (a replica on a second card would otherwise launch without it and fail
+// with cudaErrorInvalidValue).
+inline cudaError_t allow_dynamic_smem(const void* kernel, int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, int> granted;
+  std::lock_guard<std::mutex> guard(lock);
+  int& have = granted[{kernel, device}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -499,10 +499,11 @@ conv3d_tapgemm_f32_kernel(const float* __restrict__ x, const float* __restrict__
 
 constexpr long long kMaxGridX = 0x7fffffffLL;
 
-// Dynamic shared memory above 48 KB needs the attribute, once per kernel.
+// Dynamic shared memory above 48 KB needs the attribute, once per kernel
+// and device (allow_dynamic_smem).
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return allow_dynamic_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
 template <class Tile>
@@ -510,7 +511,7 @@ int launch_im2col_mma(const void* x, const void* w, const float* bias, void* out
                       void* workspace, Geom g, int cin, int cout, int kc, int splits,
                       cudaStream_t stream) {
   const auto kernel = conv3d_im2col_mma_kernel<Tile>;
-  static const cudaError_t attr = allow_smem(kernel, Tile::SMEM_BYTES);
+  const cudaError_t attr = allow_smem(kernel, Tile::SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const long long mtiles = (g.positions() + Tile::BM - 1) / Tile::BM;
   if (mtiles > kMaxGridX) return (int)cudaErrorInvalidConfiguration;
@@ -603,7 +604,7 @@ int launch_tapgemm_mma(const void* x, const void* w, const float* bias, void* ou
   const int rpb = Tile::BM / (g.w + 2);
   if (rpb < 1) return (int)cudaErrorInvalidValue;
   const auto kernel = conv3d_tapgemm_mma_kernel<Tile>;
-  static const cudaError_t attr = allow_smem(kernel, Tile::SMEM_BYTES);
+  const cudaError_t attr = allow_smem(kernel, Tile::SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = ((long long)g.batch * g.t * g.h + rpb - 1) / rpb;
   if (blocks > kMaxGridX) return (int)cudaErrorInvalidConfiguration;

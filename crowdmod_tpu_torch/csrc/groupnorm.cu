@@ -320,8 +320,8 @@ int launch_cluster(const void* x, const float* gamma, const float* beta, void* o
       smem > kMaxChunkBytes)
     return (int)cudaErrorInvalidValue;
   const auto kernel = group_norm_cluster_kernel;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxChunkBytes);
+  const cudaError_t attr =
+      allow_dynamic_smem(reinterpret_cast<const void*>(kernel), kMaxChunkBytes);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(k, batch, 1);

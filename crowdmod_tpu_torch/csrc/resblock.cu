@@ -523,10 +523,10 @@ dim3 act_grid(long long vectors, int batch) {
 template <class Tile>
 int launch_bf16_tile(const Args& a, Geom g, int cin, int cout, int groups, float eps,
                      int has_skip, cudaStream_t stream) {
-  static const cudaError_t attr1 = cudaFuncSetAttribute(
-      conv1_mma_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM_BYTES);
-  static const cudaError_t attr2 = cudaFuncSetAttribute(
-      conv2_mma_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM_BYTES);
+  const cudaError_t attr1 = allow_dynamic_smem(
+      reinterpret_cast<const void*>(conv1_mma_kernel<Tile>), Tile::SMEM_BYTES);
+  const cudaError_t attr2 = allow_dynamic_smem(
+      reinterpret_cast<const void*>(conv2_mma_kernel<Tile>), Tile::SMEM_BYTES);
   if (attr1 != cudaSuccess) return (int)attr1;
   if (attr2 != cudaSuccess) return (int)attr2;
   const bf16* x = static_cast<const bf16*>(a.x);

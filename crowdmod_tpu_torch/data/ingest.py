@@ -4,8 +4,8 @@
 Macroprop pickles hold reference-layout arrays ``(N, C, H, W, L)``.  They
 load into one preallocated host array, are transposed once by the native
 library (:mod:`crowdmod_tpu_torch.native`) to the native ``(N, L, H, W, C)``,
-and become one tensor on the requested device that a :class:`WindowDataset`
-gathers from.  The first load of a pickle writes a ``<file>.cmb`` sidecar
+and become one tensor on the requested device (the card unless the caller
+asks for the CPU) that a :class:`WindowDataset` gathers from.  The first load of a pickle writes a ``<file>.cmb`` sidecar
 (the JAX package's binary format, so either package reads the other's);
 later loads read it with the native reader, no unpickling.
 ``CROWDMOD_CMB_CACHE=0`` turns the sidecar off.  The splits draw from the
@@ -156,6 +156,12 @@ def normalize_velocity(data: np.ndarray, stats: np.ndarray) -> np.ndarray:
     return out
 
 
+def _device(device) -> torch.device:
+    from crowdmod_tpu_torch.train.trainer import resolve_device
+
+    return resolve_device(device)
+
+
 def _window_ds(cfg: FrozenConfig, raw: np.ndarray, mprops_count: int, device):
     if cfg.DATASET.get("VELOCITY_NORM"):
         raw = normalize_velocity(raw, channel_stats(raw))
@@ -173,9 +179,10 @@ def split_by_filenames(
     mprops_count: int = 4,
     seed: int | None = None,
     which: tuple[str, ...] = ("train", "val", "test"),
-    device="cpu",
+    device="cuda",
 ) -> dict[str, WindowDataset | None]:
     """File-level split: shuffle, then TRAIN/VAL/TEST_FILE_COUNT partition."""
+    device = _device(device)
     files = list(files_and_counts)
     rng = random.Random(seed)
     rng.shuffle(files)
@@ -206,10 +213,11 @@ def split_by_ratio(
     mprops_count: int = 4,
     split_ratio: float = 0.9,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> dict[str, WindowDataset]:
     """Window-level 90/10 split with a fixed shuffle seed: two
     WindowDatasets over one tensor, restricted to disjoint window ids."""
+    device = _device(device)
     shape = (cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, cfg.DATASET.RAW_SEQ_LEN)
     data, _ = load_pickles(files_and_counts, mprops_count, shape)
     full = _window_ds(cfg, data, mprops_count, device)
@@ -233,18 +241,20 @@ def split_by_ratio(
 
 
 def fixed_past_dataset(cfg: FrozenConfig, mprops_count: int = 4,
-                       device="cpu") -> WindowDataset:
+                       device="cuda") -> WindowDataset:
     """The fixed sampling set: the first pickle under
     ``PICKLE_DIR/4sampling/``, all channels loaded (velocity normalization
     sees them), then cut to ``mprops_count``."""
+    device = _device(device)
     d = Path(cfg.DATA_FS.PICKLE_DIR) / "4sampling"
     filename = sorted(os.listdir(d))[0]
     return _window_ds(cfg, load_pickle_native(str(d / filename)), mprops_count, device)
 
 
 def get_training_dataset(cfg: FrozenConfig, mprops_count: int, seed=None,
-                         device="cpu"):
+                         device="cuda"):
     """→ (train_ds, val_ds) per DATASET_TYPE, each tensor on ``device``."""
+    device = _device(device)
     fc = filenames_with_counts(cfg)
     kind = cfg.DATASET.DATASET_TYPE
     if kind == "ByFilenames":
@@ -259,9 +269,10 @@ def get_training_dataset(cfg: FrozenConfig, mprops_count: int, seed=None,
 
 def get_test_dataset(
     cfg: FrozenConfig, mprops_count: int, from_fixed_past: bool = False,
-    seed=None, device="cpu",
+    seed=None, device="cuda",
 ):
     """→ test_ds on ``device``."""
+    device = _device(device)
     if from_fixed_past:
         return fixed_past_dataset(cfg, mprops_count, device)
     fc = filenames_with_counts(cfg)

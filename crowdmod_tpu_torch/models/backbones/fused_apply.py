@@ -63,11 +63,12 @@ def weights_from_block(block) -> dict:
 @torch.no_grad()
 def _packed(block, w: dict, dtype: torch.dtype) -> dict:
     """:func:`pack_resblock` of the block's weights, cached on the block and
-    rebuilt only when a parameter changed; under a trace made in the traced
-    program and not kept, unless :func:`pin_pack` fixed it."""
+    rebuilt only when a parameter changed; under a trace, or on a block
+    whose ``cache_packs`` is False (FSDP), made anew and not kept, unless
+    :func:`pin_pack` fixed it."""
     if getattr(block, "fused_w1", None) is not None:
         return {**block.fused_meta, **{k: getattr(block, f"fused_{k}") for k in PACKED}}
-    if torch.compiler.is_compiling():
+    if torch.compiler.is_compiling() or not block.cache_packs:
         return pack_resblock(w, dtype)
     key = weights_key(*w.values()) + (dtype,)
     cached = getattr(block, "_fused_pack", (None, None))

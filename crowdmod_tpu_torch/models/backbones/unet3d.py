@@ -65,7 +65,10 @@ class SpatialAttentionBlock(nn.Module):
 class ResnetBlock3D(nn.Module):
     """GN→SiLU→Conv, + time embedding, GN→SiLU→channel dropout→Conv, skip,
     optional attention.  Dropout is Dropout3d's: whole channels of a sample,
-    in training mode only."""
+    in training mode only.  ``cache_packs``: as :class:`Conv3DSame`'s, for
+    the fused kernel's weight pack."""
+
+    cache_packs = True
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int, *,
                  dropout_rate: float = 0.1, apply_attention: bool = False,

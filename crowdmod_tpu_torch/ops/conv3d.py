@@ -108,7 +108,11 @@ def conv3d_same(x, weight, bias, packed, impl: str) -> torch.Tensor:
 
 class Conv3DSame(nn.Module):
     """Stride-1 SAME 3×3×3 conv, computed in ``dtype`` with f32
-    accumulation; parameter-compatible with the reference ``Conv3d``."""
+    accumulation; parameter-compatible with the reference ``Conv3d``.
+    ``cache_packs`` False (set by FSDP sharding) packs the weight every
+    forward instead of caching it on the weight's storage and version."""
+
+    cache_packs = True
 
     def __init__(self, in_channels: int, out_channels: int, *,
                  dtype: torch.dtype = torch.float32, impl: str = "im2col"):
@@ -143,7 +147,7 @@ class Conv3DSame(nn.Module):
         weight changed (made in the traced program under a trace)."""
         if self.pinned is not None:
             return self.pinned
-        if torch.compiler.is_compiling():
+        if torch.compiler.is_compiling() or not self.cache_packs:
             return self._pack()
         key = weights_key(self.weight) + (self.dtype, self.impl)
         if self._packed[0] != key:

@@ -11,16 +11,24 @@ JAX package's ``serving.py``: ``Predictor``, ``load_predictor`` and
     of the JAX package sample from ``PRNGKey(seed)``) or draws from the
     predictor's device generator, seeded once from ``seed`` and advanced by
     every keyless request, as the JAX package splits its key per request.
+  * **Data parallelism in one process** — with ``mesh`` (the host's cards,
+    :func:`~crowdmod_tpu_torch.parallel.mesh.local_devices`) the predictor
+    keeps one replica a card, rounds its buckets up to the replica count,
+    and samples each request's rows split over the replicas, each under its
+    own card as the current device; a request's draws are made for the
+    whole bucket and sliced per replica, so its future is the one-card
+    predictor's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, TimeoutError as FuturesTimeoutError
+from concurrent.futures import Future, ThreadPoolExecutor, TimeoutError as FuturesTimeoutError
 from dataclasses import dataclass
 
 from typing import TYPE_CHECKING
@@ -53,8 +61,8 @@ class Predictor:
     """Serves ``predict(past) -> future`` for a trained model.
 
     Wraps a :class:`~crowdmod_tpu_torch.train.trainer.Trainer` in
-    inference-only mode: loads the checkpoint and pads incoming requests to
-    the batch buckets.
+    inference-only mode (one a replica with ``mesh``, a sequence of devices):
+    loads the checkpoint and pads incoming requests to the batch buckets.
     """
 
     def __init__(
@@ -66,15 +74,29 @@ class Predictor:
         device="cuda",
         batch_buckets: tuple[int, ...] = BATCH_BUCKETS,
         seed: int = 0,
+        mesh=None,
     ):
         from crowdmod_tpu_torch.train.trainer import Trainer
 
         self.cfg = cfg
         self.arch = arch
-        self.batch_buckets = tuple(sorted(set(batch_buckets)))
-        self._trainer = Trainer(cfg, arch, device=device, seed=seed)
-        self._trainer.load(checkpoint_path)
+        devices = [device] if mesh is None else list(mesh)
+        if not devices:
+            raise ValueError("a data-parallel predictor needs at least one device")
+        replicas = len(devices)
+        # Every bucket splits evenly over the replicas: round up (a bucket
+        # of 1 on 8 cards becomes 8; padding rows are dropped as any other).
+        self.batch_buckets = tuple(sorted({-(-b // replicas) * replicas
+                                           for b in batch_buckets}))
+        self._replicas = []
+        for d in devices:
+            trainer = Trainer(cfg, arch, device=d, seed=seed)
+            trainer.load(checkpoint_path)
+            self._replicas.append(trainer)
+        self._trainer = self._replicas[0]
         self.device = self._trainer.device
+        self._pool = (ThreadPoolExecutor(replicas, thread_name_prefix="crowdmod-replica")
+                      if replicas > 1 else None)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = PredictorStats()
         self._lock = threading.Lock()
@@ -120,20 +142,78 @@ class Predictor:
             past = np.concatenate([past, pad])
         with self._lock:
             t0 = time.perf_counter()
-            if seed is None:
-                out = self._trainer.sample(past, self._generator)
+            if self._pool is None:
+                if seed is None:
+                    out = self._trainer.sample(past, self._generator)
+                else:
+                    p, f, h, w, c = self._shape
+                    out = self._trainer.sample(
+                        past, noise=seeded_noise(seed, (bucket, f, h, w, c), self.device))
+                out = out[:n].cpu().numpy()
             else:
-                p, f, h, w, c = self._shape
-                out = self._trainer.sample(
-                    past, noise=seeded_noise(seed, (bucket, f, h, w, c), self.device))
-            out = out[:n].cpu().numpy()
+                out = self._predict_replicas(past, seed)[:n]
             self.stats.record(n, time.perf_counter() - t0)
         return out
+
+    def _predict_replicas(self, past: np.ndarray, seed: int | None) -> np.ndarray:
+        """A padded bucket split over the replicas: every step's draw made
+        on the first card for the whole bucket (the one-card predictor's),
+        each replica sampling its rows with its slice of it."""
+        from crowdmod_tpu_torch.models.diffusion.ddpm import gaussian_noise
+
+        bucket, n = past.shape[0], len(self._replicas)
+        rows = bucket // n
+        p, f, h, w, c = self._shape
+        if seed is None:
+            noise = gaussian_noise((bucket, f, h, w, c), self.device, self._generator)
+        else:
+            noise = seeded_noise(seed, (bucket, f, h, w, c), self.device)
+        shared = _SharedDraws(noise, n)
+
+        def replica(k: int) -> np.ndarray:
+            trainer = self._replicas[k]
+            part, calls = slice(k * rows, (k + 1) * rows), iter(range(1 << 62))
+
+            def rows_noise(t):
+                return shared.get(next(calls), t)[part].to(trainer.device)
+
+            with _current(trainer.device):
+                return trainer.sample(past[part], noise=rows_noise).cpu().numpy()
+
+        return np.concatenate(list(self._pool.map(replica, range(n))))
 
     @property
     def mean_latency_ms(self) -> float:
         s = self.stats
         return 1e3 * s.total_latency_s / s.requests if s.requests else 0.0
+
+
+def _current(device: torch.device):
+    """``device`` as the current card (kernel launches and their
+    shared-memory attributes go to the current device's context)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class _SharedDraws:
+    """The draws of a sampling chain made once for the whole bucket and
+    shared by the replicas: the i-th draw any replica asks for is made by
+    the first to ask (so in the one-card order) and dropped once each
+    replica took it."""
+
+    def __init__(self, noise, replicas: int):
+        self._noise, self._replicas = noise, replicas
+        self._lock = threading.Lock()
+        self._made: dict[int, list] = {}
+
+    def get(self, i: int, t):
+        with self._lock:
+            if i not in self._made:
+                self._made[i] = [self._noise(t), 0]
+            entry = self._made[i]
+            entry[1] += 1
+            if entry[1] == self._replicas:
+                del self._made[i]
+            return entry[0]
 
 
 def load_predictor(
@@ -147,17 +227,20 @@ def load_predictor(
 ) -> Predictor:
     """Convenience constructor from config paths + checkpoint tag; keywords
     ``device``, ``batch_buckets`` and ``seed`` go to :class:`Predictor`.
-    ``data_parallel`` (one request batch sharded over the cards) is not
-    ported yet and raises."""
+    ``data_parallel``: one replica a card of this host (for ``device`` cpu,
+    the CPU alone), each request split over them.  The replicas' threads
+    share one interpreter lock, and a DDIM request at the serving buckets is
+    paced by the host: split over four cards, a batch-64 DiT request took
+    18× the one-card predictor's time (NVIDIA H100 80GB HBM3, 700.00 W;
+    ``chip_smoke.py --parallel``, PERF.md §5)."""
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.train import checkpoint as ckpt
 
     if data_parallel:
-        raise NotImplementedError(
-            "data_parallel serving is not ported to PyTorch yet: ROADMAP.md "
-            "Queue 1 item 16 (the parallel paths)"
-        )
+        from crowdmod_tpu_torch.parallel.mesh import local_devices
+        from crowdmod_tpu_torch.train.trainer import resolve_device
 
+        kwargs["mesh"] = local_devices(resolve_device(kwargs.get("device", "cuda")))
     cfg = load_config(config_yml, datafiles_yml)
     path = os.path.join(
         cfg.DATA_FS.SAVE_DIR, ckpt.checkpoint_name(cfg, arch, epoch_tag)

@@ -9,11 +9,19 @@ reference torch layout) and, from a trainer, ``step``, the Adam state
 synchronous (the JAX package's async commit is not ported).  The JAX
 package's orbax directories need JAX to read; importing them is a later
 slice's work.
+
+Under a process group a save is collective: every process gathers the
+full state (:func:`full_state_dict`, :func:`full_optimizer_state`; FSDP's
+shards become whole tensors), process 0 writes it between two barriers
+(:func:`commit_checkpoint`), and the files are those of a one-process save.
+A load onto a sharded model puts each tensor back in its shard layout
+(:func:`load_full_state_dict`, :func:`load_optimizer_state`).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 from pathlib import Path
@@ -21,6 +29,7 @@ from pathlib import Path
 import torch
 
 from crowdmod_tpu_torch.config import FrozenConfig
+from crowdmod_tpu_torch.parallel import multiprocess
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
@@ -106,6 +115,80 @@ def save_checkpoint(
         tmp = directory / (METADATA_FILE + ".tmp")
         tmp.write_text(json.dumps(metadata, indent=2, default=str))
         os.replace(tmp, directory / METADATA_FILE)
+    return str(directory)
+
+
+def _sharded(module: torch.nn.Module) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in module.parameters())
+
+
+def full_state_dict(module: torch.nn.Module) -> dict:
+    """``module``'s state_dict with whole tensors: for an FSDP-sharded
+    module, gathered on every process (a collective: every process calls
+    it); otherwise ``state_dict()`` itself (views of the parameters)."""
+    if not _sharded(module):
+        return module.state_dict()
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        get_model_state_dict,
+    )
+
+    return get_model_state_dict(module, options=StateDictOptions(full_state_dict=True))
+
+
+def load_full_state_dict(module: torch.nn.Module, state: dict) -> None:
+    """Load a whole-tensor state_dict into ``module``, into its shards when
+    FSDP shards it (every process calls it)."""
+    if not _sharded(module):
+        module.load_state_dict(state)
+        return
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        set_model_state_dict,
+    )
+
+    set_model_state_dict(module, state, options=StateDictOptions(full_state_dict=True))
+
+
+def full_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's ``state_dict()`` with its FSDP-sharded moments
+    gathered whole (:func:`~crowdmod_tpu_torch.parallel.multiprocess.
+    process_allgather`), in the one-process format: state keyed by the
+    parameter's index, the step and learning rate as they are."""
+    return multiprocess.process_allgather(optimizer.state_dict())
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """``optimizer.load_state_dict(state)``, then each moment of an
+    FSDP-sharded parameter cut to that parameter's shard layout."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    optimizer.load_state_dict(state)
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if not isinstance(p, DTensor):
+                continue
+            moments = optimizer.state.get(p, {})
+            for k, v in moments.items():
+                if isinstance(v, torch.Tensor) and not isinstance(v, DTensor) \
+                        and v.shape == p.shape:
+                    moments[k] = distribute_tensor(v.to(p.device), p.device_mesh,
+                                                   p.placements)
+
+
+def commit_checkpoint(directory: str | os.PathLike, payload: dict,
+                      metadata: dict | None = None) -> str:
+    """:func:`save_checkpoint` by process 0 alone, between two barriers: no
+    process still reads the previous files while they are replaced, and
+    none reads before the commit ended.  A plain save without a process
+    group."""
+    multiprocess.barrier("checkpoint-begin")
+    if multiprocess.is_main():
+        save_checkpoint(directory, payload, metadata)
+        logging.info("checkpoint committed to %s", directory)
+    multiprocess.barrier("checkpoint-commit")
     return str(directory)
 
 

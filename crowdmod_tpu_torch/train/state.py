@@ -35,17 +35,21 @@ def ema_copy(model: nn.Module) -> nn.Module:
 
 
 class TrainState:
-    """Step counter, optimizer and EMA module of a model being trained."""
+    """Step counter, optimizer and EMA module of a model being trained.
+    ``ema_model``: the module that holds the EMA, equal to the model's
+    weights (default, with ``ema_decay`` on: :func:`ema_copy`; an
+    FSDP-sharded model passes one sharded alike, whose update then runs on
+    the local shards)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 *, ema_decay: float = 0.0):
+                 *, ema_decay: float = 0.0, ema_model: nn.Module | None = None):
         self.model = model
         self.optimizer = optimizer
         self.ema_decay = ema_decay
         self.step = 0
         self.ema_model = None
         if ema_decay:
-            self.ema_model = ema_copy(model)
+            self.ema_model = ema_copy(model) if ema_model is None else ema_model
 
     @torch.no_grad()
     def apply_gradients(self) -> None:

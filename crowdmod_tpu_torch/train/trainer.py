@@ -19,6 +19,19 @@ instead (``fit(draws=...)``, ``evaluate(draws=...)``).  The metric
 protocol likewise draws each batch's window selection and sampler noise from
 a generator seeded from ``seed``, or takes them injected as
 :class:`ProtocolDraws` (``generate_metrics(draws=...)``).
+
+Data parallelism (``mesh``, a ``("data", "model")`` device mesh over a
+process group): ``DATASET.BATCH_SIZE`` is the global batch.  Every process
+reads the same shuffled batch and trains on its rows
+(:func:`~crowdmod_tpu_torch.parallel.multiprocess.global_batch`) under DDP
+(``param_sharding="tp"``) or FSDP (``"fsdp"``); each draws the global
+batch's draws from the shared generator and keeps its rows (the dropout
+masks through :class:`~crowdmod_tpu_torch.ops.dropout.BatchRows`), so a run
+on W processes takes the steps of the one-process run.  The epoch and eval
+losses are averaged over the processes, and held equal on all of them,
+since they decide the learning rate, the NaN watchdog and the checkpoints.
+Sampling splits the batch over the processes and gathers the samples;
+checkpoints are collective and written once.
 """
 
 from __future__ import annotations
@@ -51,9 +64,11 @@ from crowdmod_tpu_torch.models.diffusion import (
     distilled_sample,
     dpm_solver_sample,
 )
-from crowdmod_tpu_torch.models.diffusion.ddpm import Noise
+from crowdmod_tpu_torch.models.diffusion.ddpm import Noise, gaussian_noise
 from crowdmod_tpu_torch.models.flow_matching import INTEGRATORS, fm_loss
 from crowdmod_tpu_torch.models.guidance import cfg_denoise_fn, drop_condition
+from crowdmod_tpu_torch.ops.dropout import BatchRows
+from crowdmod_tpu_torch.parallel import multiprocess
 from crowdmod_tpu_torch.train import checkpoint as ckpt
 from crowdmod_tpu_torch.train.optim import (
     PlateauState,
@@ -143,6 +158,40 @@ class ProtocolDraws:
     noise: Noise | None = None
 
 
+class _StepTimer:
+    """Each step's milliseconds: on the card a pair of CUDA events around
+    it, read after the epoch (no synchronization between steps); on the
+    CPU, whose operations run as they are called, the host clock."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._stream = torch.cuda.current_stream(device) if self._cuda else None
+        self._spans: list = []
+
+    def __enter__(self):
+        if self._cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._stream)
+            self._spans.append([start, None])
+        else:
+            self._spans.append([time.perf_counter(), None])
+
+    def __exit__(self, *exc):
+        span = self._spans[-1]
+        if self._cuda:
+            span[1] = torch.cuda.Event(enable_timing=True)
+            span[1].record(self._stream)
+        else:
+            span[1] = time.perf_counter()
+
+    def ms(self) -> list[float]:
+        if self._cuda:
+            if self._spans:
+                self._spans[-1][1].synchronize()
+            return [a.elapsed_time(b) for a, b in self._spans]
+        return [1e3 * (b - a) for a, b in self._spans]
+
+
 class Trainer:
     def __init__(
         self,
@@ -155,8 +204,18 @@ class Trainer:
         compute_dtype: torch.dtype | None = None,
         seed: int = 42,
         conv_impl: str = "im2col",
+        mesh=None,
+        param_sharding: str = "tp",
     ):
         self.device = resolve_device(device)
+        if param_sharding not in ("tp", "fsdp"):
+            raise ValueError(f"unknown param-sharding mode {param_sharding!r}; "
+                             "expected 'tp' or 'fsdp'")
+        # "tp": replicated weights, DDP (the "model" axis has size 1);
+        # "fsdp": parameters, Adam moments and EMA sharded over "data".
+        self.mesh = mesh
+        self.param_sharding = param_sharding
+        self.conv_impl = conv_impl
         self.cfg = cfg
         self.arch = arch
         self.family = "ConvRNN" if arch == "ConvRNN" else arch.split("-")[0]
@@ -179,6 +238,14 @@ class Trainer:
         )
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
+        # What training calls: the model, or its DDP wrapper.  ``model``
+        # stays the bare module that sampling, checkpoints and the EMA read
+        # (under FSDP, sharded in place).
+        self._train_module = self.model
+        if mesh is not None:
+            from crowdmod_tpu_torch.parallel.sharding import shard_params
+
+            self._train_module = shard_params(self.model, mesh, param_sharding)
         self.seed = seed
         # "ema" (EMA weights when present) or "raw" (the training weights).
         self.sample_weights = "ema"
@@ -205,7 +272,24 @@ class Trainer:
         solver = solver_node(self.cfg, self.arch).SOLVER
         opt = adam(self.model.parameters(), self.plateau.lr, tuple(solver.BETAS),
                    solver.WEIGHT_DECAY, amsgrad=self.arch == "ConvRNN")
-        return TrainState(self.model, opt, ema_decay=self.ema_decay)
+        ema = self._ema_copy() if self.ema_decay else None
+        return TrainState(self.model, opt, ema_decay=self.ema_decay, ema_model=ema)
+
+    def _ema_copy(self):
+        """A module to hold the EMA, equal to the weights: a copy of the
+        model, or under FSDP a new model sharded the same way, so that the
+        average updates shard by shard."""
+        if not (self.mesh is not None and self.param_sharding == "fsdp"):
+            return ema_copy(self.model)
+        from crowdmod_tpu_torch.parallel.sharding import shard_params
+
+        ema = factory.build_backbone(self.cfg, self.arch, self.mprops_count,
+                                     dtype=self.compute_dtype, conv_impl=self.conv_impl)
+        ema = shard_params(ema.to(self.device), self.mesh, "fsdp")
+        with torch.no_grad():
+            for e, p in zip(ema.parameters(), self.model.parameters()):
+                e.copy_(p)
+        return ema.eval().requires_grad_(False)
 
     @property
     def ema_model(self):
@@ -213,12 +297,13 @@ class Trainer:
 
     @property
     def params(self) -> dict:
-        """The training weights as a state_dict (views of the model's)."""
-        return self.model.state_dict()
+        """The training weights as a state_dict (views of the model's; under
+        FSDP whole tensors, gathered: every process must read it)."""
+        return ckpt.full_state_dict(self.model)
 
     @property
     def ema_params(self) -> dict | None:
-        return None if self.ema_model is None else self.ema_model.state_dict()
+        return None if self.ema_model is None else ckpt.full_state_dict(self.ema_model)
 
     def _grid_shapes(self):
         c = self.cfg
@@ -233,7 +318,8 @@ class Trainer:
     def _loss_fn(self, *, deterministic: bool = False):
         """Loss closure ``(batch, draws) -> loss``; ``deterministic=True``
         is the eval variant: dropout and the CFG condition drop off."""
-        model, sched, device = self.model, self.sched, self.device
+        model = self.model if deterministic else self._train_module
+        sched, device = self.sched, self.device
         if self.family == "ConvRNN":
             tf = bool(self.cfg.MODEL.CONVRNN.TEACHER_FORCING)
             eps = self.cfg.MACROPROPS.EPS
@@ -292,7 +378,7 @@ class Trainer:
         weights); ``baseline_ckpt`` warm-starts the weights only."""
         if baseline_ckpt:
             payload, _ = ckpt.load_checkpoint(baseline_ckpt)
-            self.model.load_state_dict(payload["params"])
+            ckpt.load_full_state_dict(self.model, payload["params"])
             logging.info("baseline checkpoint loaded from %s", baseline_ckpt)
         if not 0.0 <= self.ema_decay < 1.0:
             raise ValueError(
@@ -309,6 +395,65 @@ class Trainer:
     def _train_step(self, batch, draws: StepDraws) -> torch.Tensor:
         return train_step(self.state, self._train_loss, batch, draws)
 
+    # ------------------------------------------------------------------
+    # Data parallelism
+    # ------------------------------------------------------------------
+    def _rank_draws(self, draws: StepDraws, future: torch.Tensor, *,
+                    deterministic: bool) -> StepDraws:
+        """This process's rows of the global batch's draws: each draw the
+        loss makes for the whole batch (``future``, B rows) that ``draws``
+        does not inject, from its generator in the loss's order (the CFG
+        keep mask, then t and ε, or x0 and t), then every draw cut to this
+        process's rows; the generator goes on as a :class:`BatchRows` for
+        the dropout masks."""
+        if self.family == "ConvRNN":  # its loss draws nothing
+            return draws
+        b, dev, gen = future.shape[0], self.device, draws.generator
+        keep, t, eps, x0 = draws.keep, draws.t, draws.eps, draws.x0
+        node = getattr(self.cfg.MODEL, self.family)
+        cfg_drop = float(node.get("CFG_DROP_PROB", 0.0))
+        if cfg_drop > 0.0 and not deterministic and keep is None:
+            keep = torch.rand((b,), generator=gen, device=dev) < 1.0 - cfg_drop
+        if self.family == "DDPM":
+            if t is None:
+                t = torch.randint(0, self.sched.timesteps, (b,), generator=gen, device=dev)
+            if eps is None:
+                eps = torch.randn(future.shape, generator=gen, device=dev, dtype=future.dtype)
+        else:
+            if x0 is None:
+                x0 = torch.randn(future.shape, generator=gen, device=dev, dtype=future.dtype)
+            if t is None:
+                t = torch.rand((b,), generator=gen, device=dev)
+        rows = multiprocess.rank_rows(b)
+
+        def cut(x):
+            return None if x is None else x[rows]
+
+        return StepDraws(
+            generator=None if gen is None else BatchRows(gen, rows.start, rows.stop, b),
+            t=cut(t), eps=cut(eps), keep=cut(keep), x0=cut(x0))
+
+    def _rank_args(self, batch, draws: StepDraws, *, deterministic: bool = False):
+        """``(batch, draws)`` of this process: its rows of both under a
+        mesh, both as they are without one."""
+        if self.mesh is None:
+            return batch, draws
+        return (multiprocess.global_batch(batch),
+                self._rank_draws(draws, batch[1], deterministic=deterministic))
+
+    def _process_mean(self, losses: torch.Tensor, name: str) -> torch.Tensor:
+        """``losses`` (one a batch) averaged over the processes — the global
+        batch's losses: every process holds an equal share of the rows —
+        and held equal on every process, since they decide the learning
+        rate, the NaN watchdog and the checkpoints: a process that branched
+        alone would wait alone in the collective save."""
+        if self.mesh is None:
+            return losses
+        losses = multiprocess.mean_over_processes(losses)
+        if not multiprocess.all_processes_equal(losses, name=name):
+            raise RuntimeError(f"the {name} differs between the processes")
+        return losses
+
     def fit(
         self,
         train_ds: WindowDataset,
@@ -319,16 +464,22 @@ class Trainer:
         tracker: RunTracker | None = None,
         draws=None,
     ) -> dict:
-        """Train for ``epochs`` (default ``TRAIN.EPOCHS``); → history.
+        """Train for ``epochs`` (default ``TRAIN.EPOCHS``); → history: an
+        epoch's ``train_loss``, ``val_loss`` and ``lr``, its per-step losses
+        (``step_loss``) and milliseconds (``step_ms``: CUDA events on the
+        card, read once the epoch's losses are), and ``aborted``.
 
+        ``train_ds``: a :class:`WindowDataset`, or anything with its
+        ``batches(batch_size, shuffle=, seed=)`` (a
+        :class:`~crowdmod_tpu_torch.data.prefetch.FileWindowStream`).
         ``draws``: a callable giving each step's :class:`StepDraws` (default:
-        the trainer's generator)."""
+        the trainer's generator), for the global batch under a mesh."""
         if not self._ready:
             self.setup(baseline_ckpt)
         epochs = epochs or self.total_epochs
         cfg = self.cfg
         batch_size = cfg.DATASET.BATCH_SIZE
-        if len(train_ds) < batch_size:
+        if hasattr(train_ds, "__len__") and len(train_ds) < batch_size:
             raise ValueError(
                 f"training dataset yields no full batches: {len(train_ds)} "
                 f"windows < DATASET.BATCH_SIZE={batch_size}; lower the batch "
@@ -362,7 +513,8 @@ class Trainer:
                 best = float(prev["epoch_loss"])
         nan_streak = 0
         completed = aborted = False
-        history = {"train_loss": [], "val_loss": [], "lr": [], "aborted": False}
+        history = {"train_loss": [], "val_loss": [], "lr": [], "step_loss": [],
+                   "step_ms": [], "aborted": False}
 
         # SIGINT lands only at step boundaries, so the emergency save below
         # sees a whole step's state; a second Ctrl-C interrupts at once.
@@ -385,18 +537,23 @@ class Trainer:
             prev_handler = None  # not the main thread; leave delivery as-is
         try:
             for epoch in range(1, epochs + 1):
-                losses = []
+                losses, timer = [], _StepTimer(self.device)
                 for batch in train_ds.batches(batch_size, shuffle=True,
                                               seed=self.seed + epoch):
-                    losses.append(self._train_step(batch, next_draws()))
+                    args = self._rank_args(batch, next_draws())
+                    with timer:
+                        losses.append(self._train_step(*args))
                     boundary()
-                epoch_loss = float(torch.stack(losses).mean())
+                step_losses = self._process_mean(torch.stack(losses), "step losses")
+                epoch_loss = float(step_losses.mean())
+                history["step_ms"].append(timer.ms())
                 val_loss = None if val_ds is None else self.evaluate(val_ds)
 
                 self.plateau = self.plateau.step(epoch_loss)
                 set_learning_rate(self.state.optimizer, self.plateau.lr)
                 lr = get_learning_rate(self.state.optimizer)
                 history["train_loss"].append(epoch_loss)
+                history["step_loss"].append(step_losses.tolist())
                 history["val_loss"].append(val_loss)
                 history["lr"].append(lr)
                 log = {"train_loss": epoch_loss, "lr": lr}
@@ -427,6 +584,13 @@ class Trainer:
             completed = not aborted
             history["aborted"] = aborted
         except BaseException:
+            if multiprocess.process_count() > 1:
+                # The save is collective, and the other processes may be
+                # anywhere: resume from the last committed checkpoint.
+                logging.error("training aborted on process %d; the emergency "
+                              "checkpoint is skipped in a multi-process run",
+                              multiprocess.process_index())
+                raise
             # Persist the in-flight state so a long run resumes
             # (resume_from_abort) instead of restarting.
             try:
@@ -441,7 +605,7 @@ class Trainer:
             if own_tracker:
                 tracker.finish()
             self.model.eval()
-        if completed:
+        if completed and multiprocess.is_main():
             # The crash-recovery point is obsolete and only the newest `keep`
             # late checkpoints stay; with keep == 0 the sweep is skipped (it
             # would delete numbered checkpoints of earlier runs).
@@ -464,27 +628,31 @@ class Trainer:
         with torch.no_grad():
             for batch in ds.batches(batch_size, shuffle=False,
                                     drop_last=len(ds) >= batch_size):
-                losses.append(torch.as_tensor(self._eval_loss(batch, next_draws())))
+                rows, draws = self._rank_args(batch, next_draws(), deterministic=True)
+                losses.append(torch.as_tensor(self._eval_loss(rows, draws)))
         self.model.eval()
-        return float(torch.stack(losses).mean())
+        return float(self._process_mean(torch.stack(losses), "eval losses").mean())
 
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
     def save(self, save_dir: str, epoch: int | str, extra: dict | None = None):
         """The weights, EMA, step, Adam state and learning rate, with the
-        JAX package's metadata, under ``save_dir``."""
+        JAX package's metadata, under ``save_dir``.  Under a mesh every
+        process calls it: the state is gathered whole and process 0 writes
+        the files of a one-process save."""
         name = ckpt.checkpoint_name(self.cfg, self.arch, epoch)
         payload = {
             "params": self.params,
             "step": self.state.step,
-            "optimizer": self.state.optimizer.state_dict(),
+            "optimizer": ckpt.full_optimizer_state(self.state.optimizer),
             "lr": get_learning_rate(self.state.optimizer),
         }
         if self.ema_model is not None:
             payload["ema_params"] = self.ema_params
         meta = ckpt.build_metadata(self.cfg, self.arch, epoch, extra)
-        return ckpt.save_checkpoint(os.path.join(save_dir, name), payload, meta)
+        save = ckpt.save_checkpoint if self.mesh is None else ckpt.commit_checkpoint
+        return save(os.path.join(save_dir, name), payload, meta)
 
     def load(self, path: str):
         """Load a port checkpoint directory — weights, EMA and, where it
@@ -493,7 +661,7 @@ class Trainer:
         if not self._ready:
             self.setup()
         payload, meta = ckpt.load_checkpoint(path)
-        want = set(self.params)
+        want = set(self.model.state_dict())
         for name in ("params", "ema_params"):
             if name in payload and set(payload[name]) != want:
                 got = set(payload[name])
@@ -503,16 +671,17 @@ class Trainer:
                     f"{sorted(got - want)}"
                 )
         state = self.state
-        self.model.load_state_dict(payload["params"])
+        ckpt.load_full_state_dict(self.model, payload["params"])
         if "ema_params" in payload and state.ema_model is None:
-            state.ema_model = ema_copy(self.model)
+            state.ema_model = self._ema_copy()
         if state.ema_model is not None:
             # EMA enabled but the checkpoint predates it: seed from weights.
-            state.ema_model.load_state_dict(payload.get("ema_params", payload["params"]))
+            ckpt.load_full_state_dict(state.ema_model,
+                                      payload.get("ema_params", payload["params"]))
         if "step" in payload:
             state.step = int(payload["step"])
         if "optimizer" in payload:
-            state.optimizer.load_state_dict(payload["optimizer"])
+            ckpt.load_optimizer_state(state.optimizer, payload["optimizer"])
             self.plateau = self.plateau._replace(lr=get_learning_rate(state.optimizer))
         return meta
 
@@ -551,9 +720,37 @@ class Trainer:
         trainer's device.  Draws come from ``generator`` (a generator on that
         device) unless ``noise`` injects them (see
         :mod:`crowdmod_tpu_torch.models.diffusion.ddpm`).  ConvRNN draws
-        nothing: its rollout is deterministic."""
+        nothing: its rollout is deterministic.
+
+        Under a mesh (``history`` aside) every process calls it with the
+        same batch: the batch is padded to a multiple of the processes by
+        repeating its last row, each process samples its rows with its rows
+        of each step's draws for the whole batch (drawn a step at a time),
+        and the samples are gathered on every process, padding cut."""
         past = torch.as_tensor(past, dtype=torch.float32, device=self.device)
-        return self._sample_impl(past, generator, noise=noise, history=history)
+        if self.mesh is None or history:
+            return self._sample_impl(past, generator, noise=noise, history=history)
+        n = past.shape[0]
+        pad = (-n) % multiprocess.process_count()
+        rows = multiprocess.rank_rows(n + pad)
+
+        def padded(x):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+        if self.family != "ConvRNN":
+            whole = noise
+            if whole is None:
+                if generator is None:
+                    raise ValueError("sampling needs noise= or an explicit generator")
+                _, f, h, w = self._grid_shapes()
+                whole = gaussian_noise((n, f, h, w, self.mprops_count), self.device,
+                                       generator)
+
+            def noise(t):  # this process's rows of the whole batch's draw
+                return padded(whole(t))[rows]
+
+        out = self._sample_impl(padded(past)[rows], None, noise=noise)
+        return multiprocess.all_gather_rows(out)[:n]
 
     def _sample_impl(self, past, generator, *, noise=None, history=False):
         _, f, h, w = self._grid_shapes()

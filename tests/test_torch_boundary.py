@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -85,9 +86,15 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without a device argument the port asks for CUDA, and raises where
-    there is none rather than running on the CPU."""
+    there is none rather than running on the CPU: the trainer and the
+    predictor, the data helpers, the prefetch and the stream, the process
+    group, data-parallel serving and the data-parallel commands."""
+    from crowdmod_tpu_torch.cli import generate_metrics, train
     from crowdmod_tpu_torch.config import load_config
-    from crowdmod_tpu_torch.serving import Predictor
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.data.prefetch import FileWindowStream, device_prefetch
+    from crowdmod_tpu_torch.parallel import multiprocess
+    from crowdmod_tpu_torch.serving import Predictor, load_predictor
     from crowdmod_tpu_torch.train.trainer import Trainer, resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -97,6 +104,24 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
             Predictor(cfg, arch, str(tmp_path))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(cfg, arch)
+    fc = [("nothing.pkl", 1)]
+    helpers = [lambda: ingest.get_training_dataset(cfg, 3),
+               lambda: ingest.get_test_dataset(cfg, 3),
+               lambda: ingest.get_test_dataset(cfg, 3, from_fixed_past=True),
+               lambda: ingest.split_by_filenames(cfg, fc),
+               lambda: ingest.split_by_ratio(cfg, fc),
+               lambda: ingest.fixed_past_dataset(cfg),
+               lambda: next(device_prefetch(iter([np.zeros(2)]))),
+               lambda: FileWindowStream(["f.pkl"], past_len=5, future_len=3, stride=8),
+               lambda: multiprocess.initialize(init_method="file:///nowhere",
+                                               num_processes=1, process_id=0),
+               lambda: load_predictor("4test/ATC.yml", "DDPM-DiT", data_parallel=True),
+               lambda: train.run(["--data-parallel"]),
+               lambda: generate_metrics.run(["--data-parallel"])]
+    for helper in helpers:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            helper()
+    assert not multiprocess.active()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -88,31 +88,32 @@ def test_split_by_filenames(corpus, seed, norm):
     cfg, jcfg = _configs(root, paths["pairs"], DATASET_TYPE="ByFilenames",
                          VELOCITY_NORM=norm)
     if seed is None:  # an unseeded shuffle: only the shapes can agree
-        train, val = ingest.get_training_dataset(cfg, 3)
+        train, val = ingest.get_training_dataset(cfg, 3, device="cpu")
         assert train.raw.shape[1:] == (L, H, W, 3) and val is not None
         return
-    train, val = ingest.get_training_dataset(cfg, 3, seed=seed)
+    train, val = ingest.get_training_dataset(cfg, 3, seed=seed, device="cpu")
     j_train, j_val = jax_ingest.get_training_dataset(jcfg, 3, seed=seed)
     _assert_same_windows(train, j_train)
     _assert_same_windows(val, j_val)
-    _assert_same_windows(ingest.get_test_dataset(cfg, 3, seed=seed),
+    _assert_same_windows(ingest.get_test_dataset(cfg, 3, seed=seed, device="cpu"),
                          jax_ingest.get_test_dataset(jcfg, 3, seed=seed))
     # Each split holds whole files: 3 + 2 + 1 of the 6.
     assert len(train.raw) + len(val.raw) + len(
-        ingest.get_test_dataset(cfg, 3, seed=seed).raw) == sum(COUNTS)
+        ingest.get_test_dataset(cfg, 3, seed=seed, device="cpu").raw) == sum(COUNTS)
 
 
 @pytest.mark.parametrize("mprops", [3, 4])
 def test_split_by_ratio(corpus, mprops):
     root, paths = corpus
     cfg, jcfg = _configs(root, paths["names"], DATASET_TYPE="BySplitRatio")
-    train, val = ingest.get_training_dataset(cfg, mprops)
+    train, val = ingest.get_training_dataset(cfg, mprops, device="cpu")
     j_train, j_val = jax_ingest.get_training_dataset(jcfg, mprops)
     assert val is None and j_val is None
     _assert_same_windows(train, j_train)
-    test = ingest.get_test_dataset(cfg, mprops)
+    test = ingest.get_test_dataset(cfg, mprops, device="cpu")
     _assert_same_windows(test, jax_ingest.get_test_dataset(jcfg, mprops))
-    parts = ingest.split_by_ratio(cfg, ingest.filenames_with_counts(cfg), mprops)
+    parts = ingest.split_by_ratio(cfg, ingest.filenames_with_counts(cfg), mprops,
+                                 device="cpu")
     assert parts["train"].raw is parts["test"].raw  # one tensor, disjoint ids
     assert not set(map(tuple, train.indices)) & set(map(tuple, test.indices))
     assert len(train) + len(test) == 2 * sum(COUNTS)  # two windows a sequence
@@ -136,7 +137,7 @@ def test_load_pickles_and_channel_stats(corpus):
 def test_fixed_past_and_device(corpus):
     root, paths = corpus
     cfg, jcfg = _configs(root, paths["pairs"], VELOCITY_NORM=True)
-    _assert_same_windows(ingest.get_test_dataset(cfg, 3, from_fixed_past=True),
+    _assert_same_windows(ingest.get_test_dataset(cfg, 3, from_fixed_past=True, device="cpu"),
                          jax_ingest.get_test_dataset(jcfg, 3, from_fixed_past=True))
     ds = ingest.get_test_dataset(cfg, 3, seed=0, device=torch.device("cpu"))
     assert ds.raw.dtype == torch.float32 and ds.raw.device.type == "cpu"
@@ -146,6 +147,6 @@ def test_unknown_split_raises(corpus):
     root, paths = corpus
     cfg, _ = _configs(root, paths["pairs"], DATASET_TYPE="ByScene")
     with pytest.raises(ValueError, match="unsupported DATASET_TYPE"):
-        ingest.get_training_dataset(cfg, 3)
+        ingest.get_training_dataset(cfg, 3, device="cpu")
     with pytest.raises(ValueError, match="unsupported DATASET_TYPE"):
-        ingest.get_test_dataset(cfg, 3)
+        ingest.get_test_dataset(cfg, 3, device="cpu")

@@ -398,7 +398,7 @@ def test_generate_metrics_matches_jax(workspace, tmp_path):
     sd = state_dict_from_jax(params["params"])
     tr.model.load_state_dict(sd)
     assert tr.ema_model is None and jtr.state.ema_params is None
-    ds = ingest.get_test_dataset(cfg, 3, seed=seed)
+    ds = ingest.get_test_dataset(cfg, 3, seed=seed, device="cpu")
     nsamples = cfg.DATASET.BATCH_SIZE * chunk
     shape = (nsamples, 3, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
     draws = iter(_jax_protocol_draws(seed, min(len(ds), nsamples), nsamples, shape,

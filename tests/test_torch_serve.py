@@ -356,10 +356,27 @@ def test_seeded_ddpm_request_is_deterministic_per_seed(tmp_path):
     assert np.asarray(d).shape == (1, 3, 8, 12, 3)
 
 
-def test_data_parallel_names_its_roadmap_item(convrnn):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        load_predictor(str(convrnn["port"]), "ConvRNN", device="cpu", data_parallel=True)
-    assert serve.run(["--data-parallel", "--device", "cpu"]) == 2
+def test_data_parallel_names_its_roadmap_item(convrnn, capsys):
+    """Data-parallel serving is ported: on the CPU one replica, whose future
+    is the plain predictor's, and two replicas on the CPU split a bucket
+    (rounded up to an even size) and give the same future.  Tensor
+    parallelism, not ported yet, names ROADMAP.md item 16b."""
+    from crowdmod_tpu_torch.cli import train
+    from crowdmod_tpu_torch.serving import Predictor
+
+    past = np.abs(np.random.default_rng(0).normal(size=(3, 5, 8, 12, 4))).astype(np.float32)
+    plain = load_predictor(str(convrnn["port"]), "ConvRNN", device="cpu", batch_buckets=(1, 4))
+    dp = load_predictor(str(convrnn["port"]), "ConvRNN", device="cpu", batch_buckets=(1, 4),
+                        data_parallel=True)
+    assert dp.batch_buckets == (1, 4) and np.array_equal(dp.predict(past), plain.predict(past))
+    cfg = load_config(str(convrnn["port"]))
+    path = Path(cfg.DATA_FS.SAVE_DIR) / ckpt.checkpoint_name(cfg, "ConvRNN", "000")
+    two = Predictor(cfg, "ConvRNN", str(path), mesh=[torch.device("cpu")] * 2,
+                    batch_buckets=(1, 4))
+    assert two.batch_buckets == (2, 4)
+    np.testing.assert_allclose(two.predict(past), plain.predict(past), rtol=1e-6, atol=1e-6)
+    assert train.run(["--data-parallel", "--model-parallel", "2", "--device", "cpu"]) == 2
+    assert "item 16b" in capsys.readouterr().err
 
 
 def _free_port() -> int:

@@ -257,6 +257,17 @@ def test_fit_is_bit_deterministic_for_a_seed(tmp_path):
         assert torch.equal(p1[k], p2[k]), k
 
 
+def test_fit_times_each_step_in_its_history(tmp_path):
+    """``step_ms``: an epoch's list of step times beside its ``step_loss``,
+    without a wrapper around the step."""
+    cfg = tiny_cfg(tmp_path)
+    tr = trainer(cfg, tmp_path)
+    hist = tr.fit(walker_ds(n=8), epochs=2)
+    assert [len(e) for e in hist["step_ms"]] == [len(e) for e in hist["step_loss"]]
+    assert len(hist["step_ms"]) == 2 and all(len(e) >= 1 for e in hist["step_ms"])
+    assert all(np.isfinite(ms) and ms > 0 for e in hist["step_ms"] for ms in e)
+
+
 def test_read_metadata_tolerates_corruption(tmp_path):
     """A truncated metadata.json (a hard kill mid-write) reads as None, and
     the metadata keeps the JAX package's ``default=str``."""
