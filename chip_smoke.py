@@ -14,6 +14,8 @@
                                    # this one): serving paths of two trees, A/B
     python3 chip_smoke.py --parallel            # phases 1, 10 and 16 only (16 on
                                    # every visible card: a process or replica each)
+    python3 chip_smoke.py --tp-trace            # phase 1, then a tensor-parallel
+                                   # training step profiled on every card (4+)
     python3 chip_smoke.py --train-time DIR...   # phase 1, then phase 10's train
                                    # command (and the UNet's) from each checkout
                                    # DIR, in turns: wall and fit seconds
@@ -146,8 +148,19 @@ non-zero without a result line:
      ``device_prefetch``, every batch bitwise equal to the resident
      dataset's, and one UNet ``fit`` epoch of phase 9's length fed from a
      stream (launches held a step, ms a step against resident, the busy
-     share of a streamed step).  Every check of the phase runs; it fails at
-     its end if any did.
+     share of a streamed step); tensor parallelism on one card, the ranks
+     of a model group of 2 and of 4 as threads (``LocalGroup``): every cut
+     module kind of DDPM-DiT, DDPM-UNet (FM-UNet's backbone too), FM-DiT
+     (DiT2D) and ConvRNN at the serving width, f32 and
+     bf16, each rank's output held against the unsharded module's (f32
+     within 1e-6·max|ref| or bitwise, the ConvRNN's cuDNN convs 1e-5, bf16
+     2e-2), its launches held to N ×
+     the unsharded module's; on four cards or more also ``train
+     --data-parallel --model-parallel M [--fsdp]`` (DDPM-DiT and DDPM-UNet
+     at data 2 × model 2, with and without FSDP, and DDPM-DiT at model 4)
+     held to the plain fit (``WORLD_TOL``), the uncut parameters equal
+     across each model group, ms a step and each card's peak memory.
+     Every check of the phase runs; it fails at its end if any did.
 
 Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
@@ -160,7 +173,8 @@ distillation runs and the D004 request (phase 12), ConvRNN's serving and
 commands (phase 13), the serve process, the artifacts and the artifact
 server (phase 14, the processes' counts from their log lines), the
 training run on the ETL's windows (phase 15), and each parallel path
-(phase 16: the commands' counts from their log lines); the counts
+(phase 16: the commands' counts from their log lines; the tensor-parallel
+shard check as one path); the counts
 are held to the launches each forward, training or distillation step makes
 (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
@@ -1070,10 +1084,9 @@ def profile_request(pred, past, arch) -> dict:
     return profile_busy(lambda: pred.predict(past), f"profile serving {arch} b64")
 
 
-def profile_busy(fn, label) -> dict:
-    """Device busy share of one call of ``fn`` (which ends synchronised),
-    from a torch.profiler trace: kernel time on the card over the call's
-    wall time."""
+def kernel_times(fn) -> tuple[float, dict, int]:
+    """One call of ``fn`` (which ends synchronised) under torch.profiler →
+    its wall µs, the card's µs by kernel name, and the launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1092,6 +1105,14 @@ def profile_busy(fn, label) -> dict:
             continue
         kernels += 1
         by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
+    return wall_us, by_name, kernels
+
+
+def profile_busy(fn, label) -> dict:
+    """Device busy share of one call of ``fn`` (which ends synchronised),
+    from a torch.profiler trace: kernel time on the card over the call's
+    wall time."""
+    wall_us, by_name, kernels = kernel_times(fn)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     res = dict(wall_ms_profiled=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
@@ -3619,6 +3640,400 @@ def dp_stream(workdir: Path, cli_cfg) -> dict:
     return paths_out
 
 
+# Tensor parallelism on one card: each rank of a model group of TP_SIZES[k]
+# as a thread (``LocalGroup``: NCCL refuses two ranks on one card), each
+# sharded module kind of the serving width at TP_BATCH rows held against
+# the unsharded module: f32 within TP_TOL["f32"]·max|ref| (or bitwise),
+# bf16 within TP_TOL["bf16"]·max|ref|; launches held to N × the
+# unsharded module's.  "" is the whole model (f32 within forward_f32:
+# many layers' reduction orders in a row).  The ConvRNN's convs are
+# cuDNN's, whose algorithm for O/N output channels sums each output's
+# 9·C_in terms in another order: f32 within TP_TOL["f32_cudnn"] (measured
+# up to 1.37e-6·max|ref| through a GRU cell and the 5-frame encoder, PR 13
+# call 6).
+TP_SIZES = (2, 4)
+TP_BATCH = 64
+TP_TOL = {"f32": 1e-6, "f32_cudnn": 1e-5, "bf16": 2e-2}
+TP_KINDS = {
+    "DDPM-DiT": ("dif_time_embeddings", "patch_embed", "blocks.0.spatial_attn",
+                 "blocks.0.temporal_attn", "blocks.0.mlp", "blocks.0", "final_layer", ""),
+    "DDPM-UNet": ("time_embeddings", "encoder_blocks.0", "encoder_blocks.0.conv_1",
+                  "encoder_blocks.1", "encoder_blocks.2", "encoder_blocks.4",
+                  "encoder_blocks.4.attention", "decoder_blocks.2", ""),
+    # The per-frame DiT2D: one attention a block over the frame's tokens.
+    "FM-DiT": ("time_embeddings", "patch_embed", "blocks.0.attn", "blocks.0.mlp",
+               "blocks.0", "final_layer", ""),
+    # Library convs only (no kernel of the port): GRU cells, whose fused
+    # gate conv leaves each rank of 2 or 4 no part of one gate, an up conv
+    # (cut on torch dim 1), the encoder and the rollout.
+    "ConvRNN": ("encoder.encoder_cell_list.1", "encoder", "forecaster_cell_list.0",
+                "forecaster_cell_list.1", ""),
+}
+# A kind whose module the forward calls through its parent's fused kernel
+# takes its parent's input.
+TP_INPUT_OF = {"encoder_blocks.0.conv_1": "encoder_blocks.0"}
+
+
+class LocalGroup:
+    """``size`` ranks of a model group as threads of this process
+    (:meth:`run`), exchanging tensors by reference: the group a
+    ``ModelShard`` gathers over when there is no process group (NCCL
+    refuses two ranks on one card).  One rank runs at a time (a turn passes
+    at each gather), so the ranks' work reaches the card in a fixed order
+    and the kernels' launch counts stay exact.  Forward only: the autograd
+    engine runs a device's backwards on one thread, where the ranks would
+    wait for each other."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._barrier = threading.Barrier(size)
+        self._turn = threading.Lock()
+        self._slots: list = [None] * size
+
+    def _wait(self) -> None:
+        self._turn.release()
+        try:
+            self._barrier.wait()
+        finally:
+            self._turn.acquire()
+
+    def all_gather(self, x: torch.Tensor, rank: int) -> list:
+        self._slots[rank] = x
+        self._wait()
+        parts = list(self._slots)
+        self._wait()
+        return parts
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every rank, each on its own thread → the results
+        by rank; the first failure re-raised."""
+        out: list = [None] * self.size
+        errors: list = []
+
+        def body(rank):
+            try:
+                with self._turn:
+                    out[rank] = fn(rank)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+def _tensors(out) -> list:
+    """The tensors of a module's output, nested tuples and lists flattened
+    in order (None skipped)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in (out or ()) for t in _tensors(o)]
+
+
+def tp_shards(cfg) -> dict:
+    """Phase 16 (a): for N in :data:`TP_SIZES`, each model of the serving
+    config (DDPM-DiT, DDPM-UNet, FM-DiT, ConvRNN; seeded, perturbed
+    weights) in f32 and bf16 cut over N ranks
+    (``sharding.cut_model``), every kind of :data:`TP_KINDS` run by the N
+    ranks on the card on the inputs the unsharded forward gives it; each
+    rank's output (its slices joined by the gather rule inside the module)
+    held against the unsharded module's.  The conv kernel runs on O/N output
+    channels, attention on H/N heads (one head a rank at N = 4), GroupNorm
+    and the fused resblock on gathered activations and weights.  → the
+    launch counts of the check (a path)."""
+    import copy
+
+    from crowdmod_tpu_torch.models import factory
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.parallel import sharding, tensor
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED)
+    f, h, w = cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS
+    future = torch.randn(TP_BATCH, f, h, w, 3, generator=gen).to(DEVICE)
+    past = torch.randn(TP_BATCH, cfg.DATASET.PAST_LEN, h, w, 4, generator=gen).to(DEVICE)
+    t = torch.randint(0, cfg.MODEL.DDPM.TIMESTEPS, (TP_BATCH,), generator=gen).to(DEVICE)
+    t_fm = torch.floor(torch.rand(TP_BATCH, generator=gen) * cfg.MODEL.FM.TIME_MAX_POS)
+    inputs = {  # arch → (channels, args, kwargs) of the whole model
+        "DDPM-DiT": (3, (future, t, past[..., :3]), {}),
+        "DDPM-UNet": (3, (future, t, past[..., :3]), {}),
+        "FM-DiT": (3, (future, t_fm.to(DEVICE), past[..., :3]), {}),
+        "ConvRNN": (4, (past,), {"future_len": f}),
+    }
+    total, res = {k: 0 for k in launch_counts()}, {}
+    try:
+        for arch, kinds in TP_KINDS.items():
+            channels, model_args, model_kwargs = inputs[arch]
+            for dtype in (torch.float32, torch.bfloat16):
+                model = factory.build_backbone(cfg, arch, channels, dtype=dtype)
+                model.reset_parameters(torch.Generator().manual_seed(SEED))
+                perturb_(model, SEED + 1)
+                model.to(DEVICE).eval()
+                seen, hooks = {}, []
+
+                def keep(name):  # each kind's first call: (args, kwargs, outputs)
+                    # Lists copied: the ConvRNN's rollout refills its state lists.
+                    def hook(mod, args, kwargs, out):
+                        args = tuple(list(a) if isinstance(a, list) else a for a in args)
+                        seen.setdefault(name, (args, kwargs, _tensors(out)))
+                    return hook
+
+                for name in kinds:
+                    if name and name not in TP_INPUT_OF:
+                        hooks.append(model.get_submodule(name).register_forward_hook(
+                            keep(name), with_kwargs=True))
+                with torch.no_grad():
+                    seen[""] = (model_args, model_kwargs, model(*model_args, **model_kwargs))
+                for hk in hooks:
+                    hk.remove()
+                for name in set(kinds) & set(TP_INPUT_OF):
+                    parent = TP_INPUT_OF[name]
+                    with torch.no_grad():
+                        x = seen[parent][0][0]
+                        seen[name] = ((x,), {}, model.get_submodule(name)(x))
+                for n in TP_SIZES:
+                    group = LocalGroup(n)
+                    ranks = [sharding.cut_model(copy.deepcopy(model), n, r, group)
+                             for r in range(n)]
+                    for name in kinds:
+                        args, kwargs, ref = seen[name]
+                        reset_launch_counts()
+                        with torch.no_grad():
+                            model.get_submodule(name)(*args, **kwargs)
+                        torch.cuda.synchronize()
+                        one = launch_counts()
+                        reset_launch_counts()
+
+                        def rank_call(r):  # grad mode is per thread
+                            with torch.no_grad():
+                                return ranks[r].get_submodule(name)(*args, **kwargs)
+
+                        outs = group.run(rank_call)
+                        torch.cuda.synchronize()
+                        got = launch_counts()
+                        want = {k: n * v for k, v in one.items()}
+                        if got != want:
+                            fail(f"TP {arch} {name or 'model'} N={n}: launches {got}, "
+                                 f"want {want}")
+                        for k, v in got.items():
+                            total[k] += v
+                        refs = _tensors(ref)  # a cell's or the encoder's state too
+                        scale = max(float(r.float().abs().max()) for r in refs)
+                        err = max(float((o.float() - r.float()).abs().max())
+                                  for out in outs for o, r in zip(_tensors(out), refs))
+                        bitwise = all(torch.equal(o, r) for out in outs
+                                      for o, r in zip(_tensors(out), refs))
+                        tol = (TP_TOL["bf16"] if dtype == torch.bfloat16
+                               else TOL["forward_f32"] if not name
+                               else TP_TOL["f32_cudnn"] if arch == "ConvRNN"
+                               else TP_TOL["f32"])
+                        if not (bitwise or err <= tol * scale):
+                            fail(f"TP {arch} {name or 'model'} N={n} {_dn(dtype)}: "
+                                 f"{err} > {tol}·{scale}")
+                        res[f"{arch} {name or 'model'} N{n} {_dn(dtype)}"] = dict(
+                            bitwise=bitwise, max_rel=err / max(scale, 1e-30), tol=tol,
+                            cut=len(tensor.model_shards(ranks[0].get_submodule(name))),
+                            launches_per_rank={k: v for k, v in one.items() if v})
+                    del ranks
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log("parallel tensor shards on one card (ranks as threads)", checks=len(res),
+        bitwise=sum(r["bitwise"] for r in res.values()), launches=total, **res)
+    return {"16 tensor shards": total}
+
+
+TP_RUNS = (("DDPM-DiT", 2, False), ("DDPM-DiT", 2, True), ("DDPM-UNet", 2, False),
+           ("DDPM-UNet", 2, True), ("DDPM-DiT", 4, False))
+
+
+def tp_training(cli_cfg, workdir: Path, world: int) -> dict:
+    """Phase 16 (b), on four cards or more: ``train --data-parallel
+    --model-parallel M [--fsdp]`` (one process a card, data world/M ×
+    model M) for each run of :data:`TP_RUNS`, one after another, on phase
+    10's pickles at the serving width (batch 64, bf16, EMA 0.999); then
+    each model's plain ``Trainer.fit`` of the same seed and data on one
+    card, under the commands' TF32 switches.  Each run's per-step losses
+    (within ``WORLD_TOL["loss"]``), its checkpoint in a plain ``Trainer``
+    (each state within ``WORLD_TOL["state_share"]`` of its training's
+    movement), the uncut parameters equal across each model group (the
+    command's ``model group`` line) and its launches a step are held;
+    ms a step and each card's peak memory are recorded."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    list_path = workdir / "ATC_datafiles.yml"
+    epochs = {"TRAIN": {"EPOCHS": 1, "EMA_DECAY": 0.999}}
+
+    def config(name):
+        (workdir / name).mkdir()
+        return write_config(cli_cfg.updated({
+            "DATA_FS": {"SAVE_DIR": str(workdir / name / "ckpts"),
+                        "OUTPUT_DIR": str(workdir / name / "out")},
+            "MODEL": {"DDPM": {"UNET": epochs, "DIT": epochs}}}), workdir / name / "ATC.yml")
+
+    outs, paths, res = {}, {}, {"world": world}
+    for arch, m, fsdp in TP_RUNS:
+        label = f"{arch} data {world // m} x model {m}{' FSDP' if fsdp else ''}"
+        cfg_path = config(label.replace(" ", "_"))
+        t0 = time.perf_counter()
+        proc = start_cli("train", "--arch", arch, "--epochs", "1", "--seed", str(CLI_SEED),
+                         "--configList-yml-file", str(list_path), "--config-yml-file",
+                         str(cfg_path), "--data-parallel", "--model-parallel", str(m),
+                         *(["--fsdp"] if fsdp else []))
+        outs[label] = (arch, cfg_path, finish_cli(proc, f"train {label}"),
+                       time.perf_counter() - t0)
+
+    refs = {}
+    reset_launch_counts()  # not a path of this phase: the plain references
+    for arch in ("DDPM-DiT", "DDPM-UNet"):
+        cfg = load_config(str(config(f"plain_{arch}")), str(list_path))
+        train_ds, val_ds = ingest.get_training_dataset(cfg, 3, seed=CLI_SEED, device=DEVICE)
+        tr = Trainer(cfg, arch, device=DEVICE, seed=CLI_SEED,
+                     run_dir=str(workdir / f"plain_{arch}" / "run"))
+        init = {k: v.detach().clone() for k, v in tr.params.items()}
+        with command_precision():
+            hist = tr.fit(train_ds, val_ds, epochs=1)
+        refs[arch] = (cfg, hist, tr.params, tr.ema_params, init, tr.plateau.lr,
+                      len(val_ds) // cfg.DATASET.BATCH_SIZE)
+    for label, (arch, cfg_path, out, wall) in outs.items():
+        cfg, hist, params, ema, init, lr, evals = refs[arch]
+        steps = len(hist["step_loss"][0])
+        per_step, per_fwd = TRAIN_PER_STEP[arch](cfg), PER_FORWARD[arch](cfg)
+        want = {k: per_step.get(k, 0) * steps + per_fwd.get(k, 0) * evals
+                for k in set(per_step) | set(per_fwd)}
+        paths[f"16 train TP {label}"] = hold_launches(
+            f"train {label}", json.loads(logged(out, "kernel launches: ")), want, 1)
+        group = json.loads(logged(out, "model group: "))
+        if not group["uncut_equal"]:
+            fail(f"{label}: the uncut parameters parted within a model group")
+        runs = [json.loads(ln.split("train steps: ", 1)[1]) for ln in out.splitlines()
+                if "train steps: " in ln]
+        back = Trainer(cfg, arch, device=DEVICE, seed=SEED)
+        back.load(str(Path(load_config(str(cfg_path)).DATA_FS.SAVE_DIR)
+                      / ckpt.checkpoint_name(cfg, arch, "000")))
+        bound = 2 * lr * steps
+        step_ms = [ms for epoch in runs[0]["step_ms"] for ms in epoch]
+        res[label] = dict(
+            mesh=logged(out, "mesh: "), model_group=group, wall_s=wall,
+            losses=hold_series(f"{label} step losses", runs[0]["step_loss"], hist["step_loss"],
+                               WORLD_REASON, tol=WORLD_TOL["loss"]),
+            params=hold_state_share(f"{label} params", back.params, params, init, bound),
+            ema=hold_state_share(f"{label} EMA", back.ema_params, ema, init, bound),
+            step_ms_median=statistics.median(step_ms[1:]), step_ms=step_ms,
+            plain_step_ms_median=statistics.median(hist["step_ms"][0][1:]),
+            peak_memory_gb_per_card=[r["peak_memory_gb"] for r in runs])
+    log(f"parallel tensor-parallel training b64 ({world} cards)", **res)
+    return paths
+
+
+# ``--tp-trace`` (four cards or more): where a tensor-parallel step's time
+# goes.  DDPM-DiT at the serving width, batch TP_TRACE_BATCH, data world/2 ×
+# model 2 without and with FSDP, TP_TRACE_STEPS steps profiled on every
+# rank after TP_TRACE_WARM; then the plain step on one card.
+TP_TRACE_BATCH = 64
+TP_TRACE_WARM, TP_TRACE_STEPS = 3, 5
+
+
+def step_trace(fn) -> dict:
+    """One call of ``fn`` (ending synchronised) under the profiler: its wall
+    ms, the card's kernel ms, of them NCCL's (its kernels wait on the card
+    for their peers, so this holds the ranks' waits for each other too),
+    and the launches."""
+    wall_us, by_name, launches = kernel_times(fn)
+    nccl = sum(t for name, t in by_name.items() if "nccl" in name.lower())
+    return dict(wall_ms=wall_us / 1e3, busy_ms=sum(by_name.values()) / 1e3,
+                nccl_ms=nccl / 1e3, launches=launches)
+
+
+def tp_trace_rank(rank: int, world: int, port: int, device: str, overrides: dict,
+                  out: str) -> None:
+    """One process of :func:`tp_trace` → rank 0 writes every rank's traces
+    (and its plain step's) as JSON to ``out``."""
+    import torch.distributed as dist
+
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.parallel import multiprocess
+    from crowdmod_tpu_torch.parallel.mesh import make_mesh
+    from crowdmod_tpu_torch.train.trainer import StepDraws, Trainer
+
+    dev = multiprocess.initialize(init_method=f"tcp://localhost:{port}", num_processes=world,
+                                  process_id=rank, device_type=device, timeout_s=300)
+    cfg = load_config("serving/ATC.yml", overrides=overrides)
+    p, f = cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN
+    h, w = cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS
+    gen = torch.Generator().manual_seed(SEED)
+    batch = tuple(torch.randn(TP_TRACE_BATCH, n, h, w, 3, generator=gen).to(dev)
+                  for n in (p, f))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def trace(mesh, mode):
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = Trainer(cfg, "DDPM-DiT", device=dev, seed=SEED, mesh=mesh,
+                         param_sharding=mode, run_dir=tmp).setup()
+            draws = StepDraws(generator=torch.Generator(device=dev).manual_seed(SEED))
+
+            def steps(n):
+                for _ in range(n):
+                    tr._train_step(*tr._rank_args(batch, draws))
+                sync()
+
+            with command_precision():
+                steps(TP_TRACE_WARM)
+                return step_trace(lambda: steps(TP_TRACE_STEPS))
+
+    mesh = make_mesh(data=world // 2, model=2)
+    res = {mode: trace(mesh, mode) for mode in ("tp", "fsdp")}
+    if rank == 0:
+        res["plain"] = trace(None, "tp")
+    seen = [None] * world
+    dist.all_gather_object(seen, res)
+    if rank == 0:
+        Path(out).write_text(json.dumps(seen))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_trace(world: int, overrides: dict | None = None) -> dict:
+    """``--tp-trace``: :func:`tp_trace_rank` on ``world`` processes, a card
+    each → a step's wall ms, the busy share and NCCL's share of each rank,
+    TP (data world/2 × model 2) and TP + FSDP beside the plain step."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if world < 4 or world % 2:
+        raise AssertionError(f"--tp-trace needs an even world of 4 or more, not {world}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out = Path(tmp) / "trace.json"
+        mp.spawn(tp_trace_rank, args=(world, port, DEVICE, overrides or {}, str(out)),
+                 nprocs=world, join=True)
+        ranks = json.loads(out.read_text())
+    res = {"world": world, "steps": TP_TRACE_STEPS}
+    for mode in ("plain", "tp", "fsdp"):
+        runs = [r[mode] for r in ranks if mode in r]
+        res[mode] = dict(
+            step_ms=[r["wall_ms"] / TP_TRACE_STEPS for r in runs],
+            busy_share=[r["busy_ms"] / r["wall_ms"] for r in runs],
+            nccl_share_of_wall=[r["nccl_ms"] / r["wall_ms"] for r in runs],
+            launches_per_step=[r["launches"] / TP_TRACE_STEPS for r in runs])
+    log(f"tensor-parallel step traced DDPM-DiT b{TP_TRACE_BATCH} "
+        f"(data {world // 2} x model 2, {world} cards)", **res)
+    return res
+
+
 def phase_parallel(workdir: Path) -> dict:
     """Phase 16 on phase 10's workspace: a process (or a replica) a card
     over NCCL, a world of one on one card.  Every check runs; the phase
@@ -3632,11 +4047,15 @@ def phase_parallel(workdir: Path) -> dict:
         nvidia_smi=nvidia_smi(), nccl_available=dist.is_nccl_available())
     cli_cfg = load_config(str(workdir / "ATC.yml"), str(workdir / "ATC_datafiles.yml"))
     paths = {}
+    parts = [("train", dp_training, (cli_cfg, workdir, world)),
+             ("metrics", dp_metrics, (workdir, world)),
+             ("serving", dp_serving, (workdir, world)),
+             ("stream", dp_stream, (workdir, cli_cfg)),
+             ("tensor shards", tp_shards, (load_config("serving/ATC.yml"),))]
+    if world >= 4:  # data 2 x model 2 needs four cards: NCCL takes one rank a card
+        parts.append(("tensor training", tp_training, (cli_cfg, workdir, world)))
     with collecting("phase 16"):
-        for part, fn, args in (("train", dp_training, (cli_cfg, workdir, world)),
-                               ("metrics", dp_metrics, (workdir, world)),
-                               ("serving", dp_serving, (workdir, world)),
-                               ("stream", dp_stream, (workdir, cli_cfg))):
+        for part, fn, args in parts:
             t0 = time.perf_counter()
             paths.update(fn(*args))
             log("parallel part done", part=part, seconds=time.perf_counter() - t0)
@@ -3742,6 +4161,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-time"] and len(sys.argv) > 2:
         phase_train_time([Path(t).resolve() for t in sys.argv[2:]])
         log("train time done", seconds=time.perf_counter() - t_start)
+        return 0
+    if sys.argv[1:] == ["--tp-trace"]:
+        tp_trace(torch.cuda.device_count())
+        log("tp trace done", seconds=time.perf_counter() - t_start)
         return 0
     if sys.argv[1:] == ["--parallel"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -18,8 +18,11 @@ Adam moments and EMA (FSDP), ``--multihost`` joins a launch made outside
 (``CROWDMOD_*`` variables or torchrun).  ``DATASET.BATCH_SIZE`` stays the
 global batch.  Process 0 owns the run directory and commits the
 checkpoints; process N logs to ``train.pN.log`` and tracks into
-``<run_dir>/.procN``.  ``--model-parallel N`` (tensor parallelism) exits 2:
-ROADMAP.md Queue 1 item 16b.
+``<run_dir>/.procN``.  ``--model-parallel N`` (with ``--data-parallel``)
+adds tensor parallelism: a ("data", "model") mesh of world/N × N, the
+model's large weights cut over the model axis (``TPU.MESH.MODEL`` and
+``TPU.MESH.DATA`` when the flag is absent; on ``--device cpu`` the spawn
+makes one process a mesh position).
 
     python -m crowdmod_tpu_torch.cli train --arch DDPM-DiT \\
         --config-yml-file ATC.yml --configList-yml-file ATC_datafiles.yml
@@ -33,7 +36,7 @@ import os
 import sys
 
 from crowdmod_tpu_torch.cli import common_parser, setup_logging
-from crowdmod_tpu_torch.parallel import launch, multiprocess
+from crowdmod_tpu_torch.parallel import launch, multiprocess, tensor
 
 COMMAND = "crowdmod_tpu_torch.cli.train"
 
@@ -58,8 +61,9 @@ def build_parser():
                    help="With --data-parallel: also shard parameters, Adam "
                         "moments and EMA over the processes (FSDP).")
     p.add_argument("--model-parallel", type=int, default=None, metavar="N",
-                   help="Tensor parallelism over N cards: not ported yet "
-                        "(ROADMAP.md Queue 1 item 16b); exits 2 for N > 1.")
+                   help="With --data-parallel: tensor parallelism over N "
+                        "processes (the mesh's \"model\" axis; overrides "
+                        "TPU.MESH.MODEL).")
     p.add_argument("--multihost", action="store_true",
                    help="With --data-parallel: join a launch made outside "
                         "(CROWDMOD_COORDINATOR/NUM_PROCESSES/PROCESS_ID, or "
@@ -75,7 +79,13 @@ def run(argv=None) -> int:
     if code is not None:
         return code
     if args.data_parallel:
-        return launch.run_ranks(COMMAND, argv, args.device, args.multihost)
+        from crowdmod_tpu_torch.config import load_config
+        from crowdmod_tpu_torch.parallel.mesh import mesh_shape
+
+        cfg = load_config(args.config_yml_file, args.configList_yml_file)
+        data, model = mesh_shape(cfg, args.model_parallel)
+        return launch.run_ranks(COMMAND, argv, args.device, args.multihost,
+                                data=data, model=model)
     from crowdmod_tpu_torch.train.trainer import resolve_device
 
     return run_rank(args, resolve_device(args.device))
@@ -106,6 +116,9 @@ def run_rank(args, device) -> int:
         logging.info("data parallel: process %d/%d (%s) on %s, mesh %s, %s", rank,
                      multiprocess.process_count(), multiprocess.backend(), device,
                      tuple(mesh.shape), "FSDP" if args.fsdp else "DDP")
+        logging.info("mesh: %s, this process at (data %d, model %d)",
+                     dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                     mesh["data"].get_local_rank(), mesh["model"].get_local_rank())
         if rank:
             # One writer: process 0 owns the run directory, the others
             # track beside it.
@@ -134,6 +147,15 @@ def run_rank(args, device) -> int:
         )
     peak = (torch.cuda.max_memory_allocated(trainer.device) / 2**30
             if trainer.device.type == "cuda" else None)
+    if mesh is not None and mesh["model"].size() > 1:
+        # Every rank of a model group computes the uncut layers alike: their
+        # parameters must not have parted.
+        agree = tensor.uncut_agree(trainer.model)
+        logging.info("model group: %s", json.dumps({
+            "mesh": list(mesh.shape), "cut": len(tensor.model_shards(trainer.model)),
+            "uncut_equal": agree}))
+        if not agree:
+            raise RuntimeError("the uncut parameters parted within a model group")
     logging.info("train steps: %s", json.dumps({
         "step_loss": history.get("step_loss"), "step_ms": history.get("step_ms"),
         "peak_memory_gb": peak}))

@@ -30,6 +30,12 @@ Dropout (training mode) draws its masks from the ``generator`` passed to
 the forward, before each block runs, and hands them to the block; with
 ``remat`` each block runs under ``torch.utils.checkpoint`` (the JAX
 package's ``TPU.REMAT``), and its recompute applies the same masks.
+
+Under tensor parallelism every projection whose weight is cut over "model"
+(the time MLPs, AdaLN, attention, MLP, final layer, patch embedding) runs
+column-parallel through :func:`~crowdmod_tpu_torch.ops.attention.dense`
+or :func:`~crowdmod_tpu_torch.parallel.tensor.column`; a cut position
+embedding is gathered at use.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from crowdmod_tpu_torch.models.backbones.embeddings import TimestepEmbedding
 from crowdmod_tpu_torch.ops.attention import MultiHeadAttention, dense
 from crowdmod_tpu_torch.ops.dropout import dropout, keep_mask
+from crowdmod_tpu_torch.parallel import tensor
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -250,10 +257,9 @@ class PatchEmbed4D(nn.Module):
         tp, hp, wp = t // pt, h // p, w // p
         x = x.reshape(b, tp, pt, hp, p, wp, p, c).permute(0, 1, 3, 5, 7, 2, 4, 6)
         x = x.reshape(b, tp, hp * wp, c * pt * p * p)  # features (C, pt, p, p)
-        weight = self.proj.weight.reshape(self.proj.out_channels, -1)
-        return F.linear(
-            x.to(self.dtype), weight.to(self.dtype), self.proj.bias.to(self.dtype)
-        )
+        dt = self.dtype
+        return tensor.column(self.proj, x, lambda x, w, b: F.linear(
+            x.to(dt), w.reshape(w.shape[0], -1).to(dt), b.to(dt)))
 
 
 def unpatch4d(
@@ -377,9 +383,11 @@ class _DiTBase(nn.Module):
     def _tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Patch tokens ``(B, T_p, N_s, D)`` plus the position embeddings."""
         dt = self.dtype
-        tokens = self.patch_embed(x) + self.spatial_pos_embed[:, None].to(dt)
+        spatial = tensor.whole(self, "spatial_pos_embed")
+        tokens = self.patch_embed(x) + spatial[:, None].to(dt)
         if self.temporal_pos_embed is not None:
-            tokens = tokens + self.temporal_pos_embed[:, : tokens.shape[1], None].to(dt)
+            temporal = tensor.whole(self, "temporal_pos_embed")
+            tokens = tokens + temporal[:, : tokens.shape[1], None].to(dt)
         return tokens
 
     def _run_block(self, block, tokens, *args):

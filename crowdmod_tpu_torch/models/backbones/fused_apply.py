@@ -12,6 +12,10 @@ attention epilogue, Cin and Cout multiples of 8, and a volume of at least
 is forward only, so a block whose parameters require grad while grad is
 enabled is not eligible either: it runs unfused, through the kernels that
 have a gradient.
+
+Under tensor parallelism the block's weights are gathered at use (its
+GroupNorm after conv1 needs every channel) and packed every forward;
+``temb_proj`` is the column-parallel ``dense_1``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from crowdmod_tpu_torch.ops.attention import dense
 from crowdmod_tpu_torch.ops.conv3d import jax_kernel, weights_key
 from crowdmod_tpu_torch.ops.kernels import fused_resblock
 from crowdmod_tpu_torch.ops.kernels.resblock import PACKED, pack_resblock
+from crowdmod_tpu_torch.parallel.tensor import whole
 
 # Minimum (T·H·W) volume routed to the kernel: level 0 of the ATC geometry
 # is 8·12·36 = 3456; one downsample divides it by 8.
@@ -43,19 +48,20 @@ def eligible(block, x: torch.Tensor, training: bool) -> bool:
 
 def weights_from_block(block) -> dict:
     """The block's parameters as the fused kernel's weight dict (JAX
-    layout, views of the parameters)."""
+    layout, views of the parameters; weights cut over "model" gathered
+    whole)."""
     w = {
         "gn1_scale": block.normalize_1.weight,
         "gn1_bias": block.normalize_1.bias,
-        "w1": jax_kernel(block.conv_1.weight),
+        "w1": jax_kernel(whole(block.conv_1, "weight")),
         "b1": block.conv_1.bias,
         "gn2_scale": block.normalize_2.weight,
         "gn2_bias": block.normalize_2.bias,
-        "w2": jax_kernel(block.conv_2.weight),
+        "w2": jax_kernel(whole(block.conv_2, "weight")),
         "b2": block.conv_2.bias,
     }
     if block.match_input is not None:
-        w["w_skip"] = jax_kernel(block.match_input.weight)
+        w["w_skip"] = jax_kernel(whole(block.match_input, "weight"))
         w["b_skip"] = block.match_input.bias
     return w
 

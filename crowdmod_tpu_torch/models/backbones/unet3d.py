@@ -28,6 +28,12 @@ Dropout (training mode) draws each ResnetBlock's channel mask from the
 the block; with ``remat`` each ResnetBlock runs under
 ``torch.utils.checkpoint`` (the JAX package's ``TPU.REMAT``), and its
 recompute applies the same mask.
+
+Under tensor parallelism every layer whose weight is cut over "model" runs
+column-parallel (:func:`~crowdmod_tpu_torch.parallel.tensor.column`): the
+convs, the time projections, the 1×1 skip, the stride-2 downsample (a
+library call on its local channels) and the attention; the fused
+resblock gathers its block's weights at use (:mod:`.fused_apply`).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from crowdmod_tpu_torch.ops.attention import MultiHeadAttention, dense
 from crowdmod_tpu_torch.ops.conv3d import Conv3DSame, lecun_normal_
 from crowdmod_tpu_torch.ops.dropout import dropout, keep_mask
 from crowdmod_tpu_torch.ops.norm import GroupNormSiLU
+from crowdmod_tpu_torch.parallel import tensor
 
 
 class SpatialAttentionBlock(nn.Module):
@@ -108,8 +115,8 @@ class ResnetBlock3D(nn.Module):
         h = h + dense(F.silu(temb.to(dt)), self.dense_1, dt)[:, None, None, None, :]
         h = self.conv_2(dropout(self.normalize_2(h), keep, self.dropout_rate))
         if self.match_input is not None:
-            m = self.match_input
-            x = F.linear(x.to(dt), m.weight.flatten(1).to(dt), m.bias.to(dt))
+            x = tensor.column(self.match_input, x, lambda x, w, b: F.linear(
+                x.to(dt), w.flatten(1).to(dt), b.to(dt)))
         h = h + x
         if self.attention is not None:
             h = self.attention(h)
@@ -125,14 +132,16 @@ class DownSample3D(nn.Module):
         self.downsample = nn.Conv3d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, conv = self.dtype, self.downsample
-        # (B, T, H, W, C) seen as (B, C, T, H, W); the reference weight
-        # (O, I, kh, kw, kl) reordered to (O, I, kl, kh, kw).
-        y = F.conv3d(
-            x.to(dt).permute(0, 4, 1, 2, 3), conv.weight.permute(0, 1, 4, 2, 3).to(dt),
-            conv.bias.to(dt), stride=2, padding=1,
-        )
-        return y.permute(0, 2, 3, 4, 1).contiguous()
+        dt = self.dtype
+
+        def op(x, w, b):
+            # (B, T, H, W, C) seen as (B, C, T, H, W); the reference weight
+            # (O, I, kh, kw, kl) reordered to (O, I, kl, kh, kw).
+            y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), w.permute(0, 1, 4, 2, 3).to(dt),
+                         b.to(dt), stride=2, padding=1)
+            return y.permute(0, 2, 3, 4, 1).contiguous()
+
+        return tensor.column(self.downsample, x, op)
 
 
 class NearestUpsample3D(nn.Module):

@@ -12,6 +12,11 @@ checkpoint importer reads: the GRU's ``reset_gate``, ``update_gate`` and
 the LSTM's one ``conv`` producing the gates in the order ``i, f, o, g``.
 Each convolution pads ``k // 2`` on every side and runs in the cell's
 compute ``dtype`` on float32 parameters.
+
+Under tensor parallelism each convolution whose weight is cut over "model"
+runs column-parallel (:func:`conv2d`); the GRU's reset and update gates
+are then cut as the halves of JAX's one fused gate conv, and run as that
+conv over this rank's block of its ``[reset | update]`` outputs.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from crowdmod_tpu_torch.ops.conv3d import lecun_normal_
+from crowdmod_tpu_torch.parallel import tensor
 
 
 def init_state(batch: int, h: int, w: int, hidden: int, dtype=torch.float32,
@@ -33,10 +39,13 @@ def init_state(batch: int, h: int, w: int, hidden: int, dtype=torch.float32,
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``conv`` of ``x`` with the weights cast to ``dtype`` (the parameters
-    stay float32, as flax keeps them)."""
-    bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride=conv.stride,
-                    padding=conv.padding)
+    stay float32, as flax keeps them); column-parallel over the channels
+    where the weight is cut over "model"."""
+    def op(x, w, b):
+        return F.conv2d(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype),
+                        stride=conv.stride, padding=conv.padding)
+
+    return tensor.column(conv, x, op, dim=1)
 
 
 def make_conv(cin: int, cout: int, k: int, *, stride: int = 1, bias: bool = False) -> nn.Conv2d:
@@ -72,8 +81,18 @@ class ConvGRUCell(nn.Module):
         h_prev, c_prev = state
         dt = self.dtype
         combined = torch.cat([x.to(dt), h_prev.to(dt)], dim=1)
-        reset = torch.sigmoid(conv2d(self.reset_gate, combined, dt))
-        update = torch.sigmoid(conv2d(self.update_gate, combined, dt))
+        gates = tensor.shard_of(self, "gates")
+        if gates is None:
+            reset = torch.sigmoid(conv2d(self.reset_gate, combined, dt))
+            update = torch.sigmoid(conv2d(self.update_gate, combined, dt))
+        else:  # this rank's block of the fused [reset | update] conv
+            r, u = self.reset_gate, self.update_gate
+            both = tensor.column(
+                r, combined, lambda x, w, b: F.conv2d(
+                    x, w.to(dt), None if b is None else b.to(dt), padding=r.padding),
+                dim=1, shard=gates, weight=torch.cat([r.weight, u.weight]),
+                bias=None if r.bias is None else torch.cat([r.bias, u.bias]))
+            reset, update = torch.sigmoid(both).chunk(2, dim=1)
         cand_in = torch.cat([x.to(dt), reset * h_prev], dim=1)
         candidate = torch.tanh(conv2d(self.conv_cand, cand_in, dt))
         h_next = (1.0 - update) * candidate + update * h_prev

@@ -36,6 +36,7 @@ from crowdmod_tpu_torch.models.convrnn.cells import (
     make_conv,
     reset_conv,
 )
+from crowdmod_tpu_torch.parallel import tensor
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -78,13 +79,18 @@ class UpConv(nn.ConvTranspose2d):
         reset_conv(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Column-parallel where the weight ``(I, O, k, k)`` is cut over
+        "model" on its output dim (torch dim 1)."""
         dt = self.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        out = F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, stride=2,
-                                 padding=self.padding)
         lo, hi = self.extra
-        h, w = out.shape[-2:]
-        return out[..., lo:h - hi, lo:w - hi]
+
+        def op(x, w, b):
+            out = F.conv_transpose2d(x.to(dt), w.to(dt), None if b is None else b.to(dt),
+                                     stride=2, padding=self.padding)
+            h, w = out.shape[-2:]
+            return out[..., lo:h - hi, lo:w - hi]
+
+        return tensor.column(self, x, op, dim=1)
 
 
 class Encoder(nn.Module):

@@ -12,6 +12,11 @@ the JAX package routes its Pallas kernel only when dropout is off.  With
 dropout on (training), the attention weights' keep mask is drawn by the
 caller (:meth:`MultiHeadAttention.keep_mask`, from an explicit generator)
 and passed in.
+
+Under tensor parallelism (:mod:`crowdmod_tpu_torch.parallel.tensor`)
+:func:`dense` is column-parallel, and :class:`MultiHeadAttention` runs the
+attention on the rank's heads when the model group divides them (its
+q/k/v rows are whole heads), else on every head of the gathered q, k, v.
 """
 
 from __future__ import annotations
@@ -22,15 +27,17 @@ from torch import nn
 
 from crowdmod_tpu_torch.ops.dropout import keep_mask
 from crowdmod_tpu_torch.ops.kernels import fused_attention
+from crowdmod_tpu_torch.parallel import tensor
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype`` with the f32 weights cast at use,
-    as a flax ``Dense(dtype=...)`` does."""
-    return F.linear(
-        x.to(dtype), layer.weight.to(dtype),
-        None if layer.bias is None else layer.bias.to(dtype),
-    )
+    as a flax ``Dense(dtype=...)`` does; column-parallel where the weight
+    is cut over "model"."""
+    def op(x, w, b):
+        return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
+
+    return tensor.column(layer, x, op)
 
 
 def dot_product_attention(
@@ -118,6 +125,9 @@ class MultiHeadAttention(nn.Module):
         self, q_in: torch.Tensor, kv_in: torch.Tensor | None = None,
         keep: torch.Tensor | None = None,
     ) -> torch.Tensor:
+        shard = tensor.shard_of(self, "in_proj_weight")
+        if shard is not None:
+            return self._forward_cut(shard, q_in, kv_in, keep)
         d = q_in.shape[-1]
         w = self.in_proj_weight.to(self.dtype)
         b = self.in_proj_bias.to(self.dtype)
@@ -132,3 +142,37 @@ class MultiHeadAttention(nn.Module):
             dropout_rate=self.dropout_rate, training=self.training, keep=keep,
         )
         return dense(out.flatten(-2), self.out_proj, self.dtype)
+
+    def _forward_cut(self, shard, q_in, kv_in, keep) -> torch.Tensor:
+        """The forward with q, k and v cut over the model group: this rank
+        holds rows ``shard.index[rank]`` of the packed projection, a block
+        of each of q, k and v.  When the group divides the heads, those
+        rows are whole heads and the attention runs on them alone, then the
+        heads are gathered; else q, k and v are gathered first and every
+        rank runs every head."""
+        d, n, dt = q_in.shape[-1], shard.size, self.dtype
+        dl = d // n
+        w = self.in_proj_weight.to(dt)  # (3·d/n, d): this rank's q, k, v rows
+        b = tensor.split(self.in_proj_bias, shard).to(dt)
+        q_in = tensor.reduce_grad(q_in, shard).to(dt)
+        if kv_in is None:
+            q, k, v = F.linear(q_in, w, b).chunk(3, dim=-1)
+        else:
+            kv_in = tensor.reduce_grad(kv_in, shard).to(dt)
+            q = F.linear(q_in, w[:dl], b[:dl])
+            k, v = F.linear(kv_in, w[dl:], b[dl:]).chunk(2, dim=-1)
+        heads, dh = self.num_heads, d // self.num_heads
+        run = lambda q, k, v, h, keep: dot_product_attention(
+            *(t.contiguous().unflatten(-1, (h, dh)) for t in (q, k, v)),
+            dropout_rate=self.dropout_rate, training=self.training, keep=keep,
+        ).flatten(-2)
+        blocks = tensor.shard_of(self, "features")  # a contiguous block a rank
+        if heads % n == 0:
+            local = heads // n
+            if keep is not None:
+                keep = keep[..., shard.rank * local:(shard.rank + 1) * local, :, :]
+            out = tensor.gather_features(run(q, k, v, local, keep), blocks)
+        else:
+            q, k, v = (tensor.gather_features(t, blocks) for t in (q, k, v))
+            out = run(q, k, v, heads, keep)
+        return dense(out, self.out_proj, dt)

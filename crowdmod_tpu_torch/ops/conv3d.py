@@ -23,6 +23,11 @@ pack, and the VJP of the plain conv (:func:`conv3d_same_vjp`, the library's
 convolution backward) with respect to the input, the reference-layout
 weight and the bias, as the JAX package's ``custom_vjp`` differentiates
 its direct conv.
+
+Under tensor parallelism (:mod:`crowdmod_tpu_torch.parallel.tensor`) the
+module's weight holds this rank's output channels: the kernel runs on
+those O/N channels, its pack made from the local slice (the pack cache is
+keyed on the local tensor), and the channels are gathered.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch.nn.grad import conv3d_input, conv3d_weight
 
 from crowdmod_tpu_torch.ops.kernels import conv3d_same_im2col, conv3d_same_tapgemm
 from crowdmod_tpu_torch.ops.kernels.conv3d import pack_im2col, pack_tapgemm
+from crowdmod_tpu_torch.parallel import tensor
 
 IMPLS = ("im2col", "tapgemm")
 
@@ -155,5 +161,8 @@ class Conv3DSame(nn.Module):
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d_same(x.to(self.dtype).contiguous(), self.weight, self.bias,
-                           self.packed_weight(), self.impl)
+        def op(x, w, b):
+            return conv3d_same(x.to(self.dtype).contiguous(), w, b, self.packed_weight(),
+                               self.impl)
+
+        return tensor.column(self, x, op)

@@ -9,7 +9,9 @@ one process group:
   ``MASTER_ADDR``, or from explicit arguments (the commands' own spawn
   passes a ``file://`` rendezvous).  NCCL on the card, gloo on the CPU.
 * :func:`global_batch` — this process's rows of a global batch (every
-  process reads the same batch; each trains on its slice).
+  process reads the same batch; each trains on its slice).  Given a mesh,
+  the rows are the data index's: the ranks of one model group take the
+  same rows, and the gathers and the mean run over the data axis.
 * :func:`process_allgather`, :func:`all_gather_rows`,
   :func:`mean_over_processes` — the gathers and the reduction that
   checkpoints, sampling and the loss need.
@@ -180,15 +182,25 @@ def barrier(name: str = "crowdmod") -> None:
         dist.barrier()
 
 
-def rank_rows(n: int) -> slice:
-    """This process's rows of a global batch of ``n``: the ``process_index``-th
-    of ``process_count`` equal contiguous slices."""
-    world = process_count()
-    if n % world:
+def data_coords(mesh=None) -> tuple[int, int, Any]:
+    """(this process's data index, the data size, the data group): the
+    mesh's "data" axis, else every process on it (group None: the world)."""
+    if mesh is None or not active():
+        return process_index(), process_count(), None
+    axis = mesh["data"]
+    return axis.get_local_rank(), axis.size(), axis.get_group()
+
+
+def rank_rows(n: int, mesh=None) -> slice:
+    """This process's rows of a global batch of ``n``: its data index's
+    share of the data size's equal contiguous slices (the process's of the
+    processes' without a mesh)."""
+    index, size, _ = data_coords(mesh)
+    if n % size:
         raise ValueError(f"a global batch of {n} rows does not split over "
-                         f"{world} processes; use a multiple of {world}")
-    m = n // world
-    return slice(process_index() * m, (process_index() + 1) * m)
+                         f"{size} data-parallel processes; use a multiple of {size}")
+    m = n // size
+    return slice(index * m, (index + 1) * m)
 
 
 def _tree_map(fn, tree):
@@ -199,14 +211,14 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def global_batch(batch: Any) -> Any:
+def global_batch(batch: Any, mesh=None) -> Any:
     """This process's rows of ``batch`` (tensors or arrays with the global
     batch on dim 0, in nested tuples, lists or dicts): the global batch is
-    the concatenation of every process's rows in process order.  The batch
-    itself without a process group."""
-    if process_count() == 1:
+    the concatenation of every data index's rows in order.  The batch
+    itself without a process group or on a data axis of one."""
+    if data_coords(mesh)[1] == 1:
         return batch
-    return _tree_map(lambda x: x[rank_rows(x.shape[0])], batch)
+    return _tree_map(lambda x: x[rank_rows(x.shape[0], mesh)], batch)
 
 
 def process_allgather(tree: Any) -> Any:
@@ -223,25 +235,27 @@ def process_allgather(tree: Any) -> Any:
     return _tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every process's ``x`` (equal shapes) concatenated on dim 0 in process
+def all_gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Every data index's ``x`` (equal shapes) concatenated on dim 0 in
     order, on every process; ``x`` itself without a process group."""
-    if process_count() == 1:
+    _, size, group = data_coords(mesh)
+    if size == 1:
         return x
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(process_count())]
-    dist.all_gather(parts, x)
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 
 
-def mean_over_processes(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the processes (an all-reduce), equal on every
-    process; ``x`` itself without a process group."""
-    if process_count() == 1:
+def mean_over_processes(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``x`` over the data indices (an all-reduce), equal on
+    every process; ``x`` itself without a process group."""
+    _, size, group = data_coords(mesh)
+    if size == 1:
         return x
     y = x.detach().to(device(), torch.float64).clone()
-    dist.all_reduce(y)
-    return (y / process_count()).to(x.dtype)
+    dist.all_reduce(y, group=group)
+    return (y / size).to(x.dtype)
 
 
 def all_processes_equal(value, *, atol: float = 0.0, name: str = "value") -> bool:

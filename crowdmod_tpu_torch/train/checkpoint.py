@@ -12,10 +12,12 @@ slice's work.
 
 Under a process group a save is collective: every process gathers the
 full state (:func:`full_state_dict`, :func:`full_optimizer_state`; FSDP's
-shards become whole tensors), process 0 writes it between two barriers
+shards over "data", then the tensor-parallel slices over "model", become
+whole tensors), process 0 writes it between two barriers
 (:func:`commit_checkpoint`), and the files are those of a one-process save.
 A load onto a sharded model puts each tensor back in its shard layout
-(:func:`load_full_state_dict`, :func:`load_optimizer_state`).
+(:func:`load_full_state_dict`, :func:`load_optimizer_state`), whatever
+mesh wrote it.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from pathlib import Path
 import torch
 
 from crowdmod_tpu_torch.config import FrozenConfig
-from crowdmod_tpu_torch.parallel import multiprocess
+from crowdmod_tpu_torch.parallel import multiprocess, tensor
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
@@ -119,28 +121,44 @@ def save_checkpoint(
 
 
 def _sharded(module: torch.nn.Module) -> bool:
-    from torch.distributed.tensor import DTensor
+    """Whether FSDP shards ``module``.  Not read from its parameters: the
+    root unit keeps its parameters gathered, as plain tensors, from a
+    forward without gradients to the next step, while its ``state_dict``
+    still gives the shards (a model wholly in the root, as the ConvRNN is,
+    would pass for unsharded after ``evaluate``)."""
+    from torch.distributed.fsdp import FSDPModule
 
-    return any(isinstance(p, DTensor) for p in module.parameters())
+    return isinstance(module, FSDPModule)
 
 
 def full_state_dict(module: torch.nn.Module) -> dict:
-    """``module``'s state_dict with whole tensors: for an FSDP-sharded
-    module, gathered on every process (a collective: every process calls
-    it); otherwise ``state_dict()`` itself (views of the parameters)."""
+    """``module``'s state_dict with whole tensors: for an FSDP-sharded or
+    model-cut module, gathered on every process (a collective: every
+    process calls it); otherwise ``state_dict()`` itself (views of the
+    parameters)."""
     if not _sharded(module):
-        return module.state_dict()
-    from torch.distributed.checkpoint.state_dict import (
-        StateDictOptions,
-        get_model_state_dict,
-    )
+        sd = module.state_dict()
+    else:
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            get_model_state_dict,
+        )
 
-    return get_model_state_dict(module, options=StateDictOptions(full_state_dict=True))
+        sd = get_model_state_dict(module, options=StateDictOptions(full_state_dict=True))
+    shards = tensor.model_shards(module)
+    if not shards:
+        return sd
+    with torch.no_grad():
+        return {k: tensor.gather_weight(v, shards[k]) if k in shards else v
+                for k, v in sd.items()}
 
 
 def load_full_state_dict(module: torch.nn.Module, state: dict) -> None:
     """Load a whole-tensor state_dict into ``module``, into its shards when
-    FSDP shards it (every process calls it)."""
+    FSDP shards it or the model axis cuts it (every process calls it)."""
+    shards = tensor.model_shards(module)
+    state = {k: tensor.local_slice(v, shards[k]) if k in shards else v
+             for k, v in state.items()}
     if not _sharded(module):
         module.load_state_dict(state)
         return
@@ -152,19 +170,56 @@ def load_full_state_dict(module: torch.nn.Module, state: dict) -> None:
     set_model_state_dict(module, state, options=StateDictOptions(full_state_dict=True))
 
 
-def full_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+def _param_shards(model) -> list:
+    """(shard or None, shape over "data") of each parameter of ``model``,
+    in the order the optimizer holds them."""
+    if model is None:
+        return []
+    shards = tensor.model_shards(model)
+    return [(shards.get(n), tuple(p.shape)) for n, p in model.named_parameters()]
+
+
+def full_optimizer_state(optimizer: torch.optim.Optimizer, model=None) -> dict:
     """The optimizer's ``state_dict()`` with its FSDP-sharded moments
     gathered whole (:func:`~crowdmod_tpu_torch.parallel.multiprocess.
-    process_allgather`), in the one-process format: state keyed by the
-    parameter's index, the step and learning rate as they are."""
-    return multiprocess.process_allgather(optimizer.state_dict())
+    process_allgather`), then the moments of ``model``'s model-cut
+    parameters gathered over "model", in the one-process format: state
+    keyed by the parameter's index, the step and learning rate as they
+    are."""
+    sd = multiprocess.process_allgather(optimizer.state_dict())
+    params = _param_shards(model)
+    if not any(shard for shard, _ in params):
+        return sd
+    state = {}
+    with torch.no_grad():
+        for i, moments in sd["state"].items():
+            shard, shape = params[i]
+            state[i] = {k: tensor.gather_weight(v, shard)
+                        if shard is not None and isinstance(v, torch.Tensor)
+                        and tuple(v.shape) == shape else v
+                        for k, v in moments.items()}
+    return {**sd, "state": state}
 
 
-def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
-    """``optimizer.load_state_dict(state)``, then each moment of an
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict,
+                         model=None) -> None:
+    """``optimizer.load_state_dict(state)`` with each moment of ``model``'s
+    model-cut parameters cut to the rank's slice, then each moment of an
     FSDP-sharded parameter cut to that parameter's shard layout."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
+    params = _param_shards(model)
+    if any(shard for shard, _ in params):
+        cut = {}
+        for i, moments in state["state"].items():
+            shard, shape = params[i]
+            if shard is not None:
+                whole = shape[:shard.dim] + (shard.full,) + shape[shard.dim + 1:]
+                moments = {k: tensor.local_slice(v, shard)
+                           if isinstance(v, torch.Tensor) and tuple(v.shape) == whole else v
+                           for k, v in moments.items()}
+            cut[i] = moments
+        state = {**state, "state": cut}
     optimizer.load_state_dict(state)
     for group in optimizer.param_groups:
         for p in group["params"]:

@@ -27,11 +27,16 @@ reads the same shuffled batch and trains on its rows
 (``param_sharding="tp"``) or FSDP (``"fsdp"``); each draws the global
 batch's draws from the shared generator and keeps its rows (the dropout
 masks through :class:`~crowdmod_tpu_torch.ops.dropout.BatchRows`), so a run
-on W processes takes the steps of the one-process run.  The epoch and eval
-losses are averaged over the processes, and held equal on all of them,
-since they decide the learning rate, the NaN watchdog and the checkpoints.
-Sampling splits the batch over the processes and gathers the samples;
-checkpoints are collective and written once.
+on W processes takes the steps of the one-process run.  A "model" axis
+over more than one process adds tensor parallelism: the model is cut to
+each rank's output features (:func:`~crowdmod_tpu_torch.parallel.sharding.
+shard_params`), the EMA alike, and the rows are cut by the data index, so
+the ranks of one model group train on the same rows with the same draws.
+The epoch and eval losses are averaged over the data axis, and held equal
+on every process, since they decide the learning rate, the NaN watchdog
+and the checkpoints.  Sampling splits the batch over the data axis and
+gathers the samples; checkpoints are collective and written once, in the
+one-process format.
 """
 
 from __future__ import annotations
@@ -211,8 +216,8 @@ class Trainer:
         if param_sharding not in ("tp", "fsdp"):
             raise ValueError(f"unknown param-sharding mode {param_sharding!r}; "
                              "expected 'tp' or 'fsdp'")
-        # "tp": replicated weights, DDP (the "model" axis has size 1);
-        # "fsdp": parameters, Adam moments and EMA sharded over "data".
+        # "tp": DDP over "data" (weights replicated, or cut over "model");
+        # "fsdp": parameters, Adam moments and EMA also sharded over "data".
         self.mesh = mesh
         self.param_sharding = param_sharding
         self.conv_impl = conv_impl
@@ -424,7 +429,7 @@ class Trainer:
                 x0 = torch.randn(future.shape, generator=gen, device=dev, dtype=future.dtype)
             if t is None:
                 t = torch.rand((b,), generator=gen, device=dev)
-        rows = multiprocess.rank_rows(b)
+        rows = multiprocess.rank_rows(b, self.mesh)
 
         def cut(x):
             return None if x is None else x[rows]
@@ -438,7 +443,7 @@ class Trainer:
         mesh, both as they are without one."""
         if self.mesh is None:
             return batch, draws
-        return (multiprocess.global_batch(batch),
+        return (multiprocess.global_batch(batch, self.mesh),
                 self._rank_draws(draws, batch[1], deterministic=deterministic))
 
     def _process_mean(self, losses: torch.Tensor, name: str) -> torch.Tensor:
@@ -449,7 +454,7 @@ class Trainer:
         alone would wait alone in the collective save."""
         if self.mesh is None:
             return losses
-        losses = multiprocess.mean_over_processes(losses)
+        losses = multiprocess.mean_over_processes(losses, self.mesh)
         if not multiprocess.all_processes_equal(losses, name=name):
             raise RuntimeError(f"the {name} differs between the processes")
         return losses
@@ -645,7 +650,7 @@ class Trainer:
         payload = {
             "params": self.params,
             "step": self.state.step,
-            "optimizer": ckpt.full_optimizer_state(self.state.optimizer),
+            "optimizer": ckpt.full_optimizer_state(self.state.optimizer, self.model),
             "lr": get_learning_rate(self.state.optimizer),
         }
         if self.ema_model is not None:
@@ -681,7 +686,7 @@ class Trainer:
         if "step" in payload:
             state.step = int(payload["step"])
         if "optimizer" in payload:
-            ckpt.load_optimizer_state(state.optimizer, payload["optimizer"])
+            ckpt.load_optimizer_state(state.optimizer, payload["optimizer"], self.model)
             self.plateau = self.plateau._replace(lr=get_learning_rate(state.optimizer))
         return meta
 
@@ -723,16 +728,17 @@ class Trainer:
         nothing: its rollout is deterministic.
 
         Under a mesh (``history`` aside) every process calls it with the
-        same batch: the batch is padded to a multiple of the processes by
-        repeating its last row, each process samples its rows with its rows
-        of each step's draws for the whole batch (drawn a step at a time),
-        and the samples are gathered on every process, padding cut."""
+        same batch: the batch is padded to a multiple of the data size by
+        repeating its last row, each data index samples its rows with its
+        rows of each step's draws for the whole batch (drawn a step at a
+        time; a model group's ranks sample theirs together), and the samples
+        are gathered on every process, padding cut."""
         past = torch.as_tensor(past, dtype=torch.float32, device=self.device)
         if self.mesh is None or history:
             return self._sample_impl(past, generator, noise=noise, history=history)
         n = past.shape[0]
-        pad = (-n) % multiprocess.process_count()
-        rows = multiprocess.rank_rows(n + pad)
+        pad = (-n) % multiprocess.data_coords(self.mesh)[1]
+        rows = multiprocess.rank_rows(n + pad, self.mesh)
 
         def padded(x):
             return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
@@ -750,7 +756,7 @@ class Trainer:
                 return padded(whole(t))[rows]
 
         out = self._sample_impl(padded(past)[rows], None, noise=noise)
-        return multiprocess.all_gather_rows(out)[:n]
+        return multiprocess.all_gather_rows(out, self.mesh)[:n]
 
     def _sample_impl(self, past, generator, *, noise=None, history=False):
         _, f, h, w = self._grid_shapes()

@@ -421,12 +421,19 @@ def test_data_parallel_spawn_trains_on_the_cpu(tmp_path):
             run([*common, *flags])
 
 
-def test_model_parallel_exits_2_naming_its_roadmap_item(capsys):
+def test_model_parallel_exits_2_naming_its_roadmap_item(capsys, monkeypatch):
+    """Tensor parallelism is ported: ``--model-parallel 2`` runs (as in
+    ``test_torch_tensor_parallel.py``), and a mesh that does not cover the
+    launch's processes — a model axis of 2 over a manual launch of 3 —
+    exits 2 naming the mesh, before any handshake."""
     from crowdmod_tpu_torch.cli import train
 
-    assert train.run(["--data-parallel", "--model-parallel", "2", "--device", "cpu"]) == 2
-    assert "ROADMAP.md Queue 1 item 16b" in capsys.readouterr().err
-    assert launch.MODEL_PARALLEL_NOT_PORTED.endswith("item 16b")
+    monkeypatch.setenv("CROWDMOD_NUM_PROCESSES", "3")
+    assert train.run(["--data-parallel", "--multihost", "--model-parallel", "2",
+                      "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "data x model mesh does not cover the 3 processes" in err
+    assert "16b" not in err and launch.mesh_mismatch(3, None, 2) in err
 
 
 def _status(base, path, payload=None):

@@ -360,7 +360,8 @@ def test_data_parallel_names_its_roadmap_item(convrnn, capsys):
     """Data-parallel serving is ported: on the CPU one replica, whose future
     is the plain predictor's, and two replicas on the CPU split a bucket
     (rounded up to an even size) and give the same future.  Tensor
-    parallelism, not ported yet, names ROADMAP.md item 16b."""
+    parallelism is ported: ``train`` refuses a model axis under 1 with
+    exit 2, before any handshake."""
     from crowdmod_tpu_torch.cli import train
     from crowdmod_tpu_torch.serving import Predictor
 
@@ -375,8 +376,8 @@ def test_data_parallel_names_its_roadmap_item(convrnn, capsys):
                     batch_buckets=(1, 4))
     assert two.batch_buckets == (2, 4)
     np.testing.assert_allclose(two.predict(past), plain.predict(past), rtol=1e-6, atol=1e-6)
-    assert train.run(["--data-parallel", "--model-parallel", "2", "--device", "cpu"]) == 2
-    assert "item 16b" in capsys.readouterr().err
+    assert train.run(["--data-parallel", "--model-parallel", "0", "--device", "cpu"]) == 2
+    assert "the model axis needs at least 1 process" in capsys.readouterr().err
 
 
 def _free_port() -> int:
