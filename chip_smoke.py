@@ -14,6 +14,7 @@
                                    # this one): serving paths of two trees, A/B
     python3 chip_smoke.py --parallel            # phases 1, 10 and 16 only (16 on
                                    # every visible card: a process or replica each)
+    python3 chip_smoke.py --commands            # phases 1, 10 and 17 only
     python3 chip_smoke.py --tp-trace            # phase 1, then a tensor-parallel
                                    # training step profiled on every card (4+)
     python3 chip_smoke.py --train-time DIR...   # phase 1, then phase 10's train
@@ -159,8 +160,30 @@ non-zero without a result line:
      --data-parallel --model-parallel M [--fsdp]`` (DDPM-DiT and DDPM-UNet
      at data 2 × model 2, with and without FSDP, and DDPM-DiT at model 4)
      held to the plain fit (``WORLD_TOL``), the uncut parameters equal
-     across each model group, ms a step and each card's peak memory.
+     across each model group, ms a step and each card's peak memory; with
+     ``--parallel`` also
+     ``generate-samples --data-parallel``'s sampling (the command's
+     ``sample_sequences`` on every rank through ``launch.run_ranks``) on
+     phase 10's DDPM-DiT checkpoint, its samples bitwise equal to one
+     card's (on more cards within ``WORLD_TOL``).
      Every check of the phase runs; it fails at its end if any did.
+ 17. the remaining commands on phase 10's workspace: ``generate-samples``'
+     device half (checkpoint, test set, ids, the DDIM-eta 25 + Sparsity
+     sampler at NSAMPLES4PLOTS = 20, the overlay metrics on the card) for
+     DDPM-DiT and DDPM-UNet in this process, launches held per forward, the
+     logged L1 norm held to the samples', the overlays to the CPU's from
+     the same sequences (PSNR within 1e-4 dB, SSIM and TV 1e-5 of max|CPU|);
+     ``sweep --arch DDPM-UNet --trials 2 --epochs-per-trial 1`` as a
+     process (every trial's loss finite, the trials numpy's draws of the
+     JAX package's search space, ``best.json``, launches from its log);
+     ``doctor`` twice as a process (every check ok, the second with
+     ``--skip-mesh``; each finds all five kernel libraries that phase 1
+     built in the source-hash cache and compiles none, by ``build_all``'s
+     own count); ``generate-samples
+     --plot-type Static`` and
+     ``Dynamic`` whole where matplotlib is installed; then
+     ``measure_round_trip``, a ``StepTimer`` over DiT sample calls and a
+     ``trace`` of one, with the card's name and power limit.
 
 Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
@@ -174,7 +197,9 @@ commands (phase 13), the serve process, the artifacts and the artifact
 server (phase 14, the processes' counts from their log lines), the
 training run on the ETL's windows (phase 15), and each parallel path
 (phase 16: the commands' counts from their log lines; the tensor-parallel
-shard check as one path); the counts
+shard check as one path; the data-parallel sampling from each rank's
+counts), each model's generate-samples sampling, the sweep and each doctor
+run (phase 17, the processes' counts from their log lines); the counts
 are held to the launches each forward, training or distillation step makes
 (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
@@ -346,7 +371,9 @@ def phase_device() -> dict:
     smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    seconds = build.build_all()
+    t0 = time.perf_counter()
+    built = build.build_all()
+    seconds = time.perf_counter() - t0
     regs = {
         n: [ln.strip() for ln in build.library_path(n).with_suffix(".log")
             .read_text().splitlines() if "registers" in ln or "spill" in ln]
@@ -354,7 +381,7 @@ def phase_device() -> dict:
     }
     log("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=round(seconds, 3), ptxas=regs)
+        build_s=round(seconds, 3), built=list(built), ptxas=regs)
     return {"kind": name, "smi": smi}
 
 
@@ -3557,6 +3584,85 @@ def dp_serving(workdir: Path, world: int) -> dict:
     return {"16 serving DDPM-DiT": launches}
 
 
+def build_parser():
+    """``generate-samples``' flags and ``--samples-out``: this script is the
+    command module that :func:`dp_samples` gives ``launch.run_ranks`` (each
+    rank runs :func:`run_rank`)."""
+    from crowdmod_tpu_torch.cli import generate_samples
+
+    p = generate_samples.build_parser()
+    p.add_argument("--samples-out", required=True)
+    return p
+
+
+def run_rank(args, device) -> int:
+    """One rank of ``generate-samples --data-parallel``'s device half
+    (:func:`~crowdmod_tpu_torch.cli.generate_samples.sample_sequences`, the
+    command's own): rank r saves its launches, and rank 0 the gathered
+    samples and their L1 norm, to ``--samples-out``.r (the card's machine
+    may have no matplotlib, so the command's drawing half is not run)."""
+    from crowdmod_tpu_torch.cli import generate_samples
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.parallel import multiprocess
+
+    cfg = load_config(args.config_yml_file, args.configList_yml_file)
+    out = generate_samples.sample_sequences(cfg, args, device)
+    rank = multiprocess.process_index()
+    torch.save({"pred": out["pred"].cpu() if rank == 0 else None, "l1": out["l1"],
+                "launches": out["launches"]}, f"{args.samples_out}.{rank}")
+    return 0
+
+
+def dp_samples(workdir: Path, world: int) -> dict:
+    """(f) ``generate-samples --data-parallel``'s sampling (one process a
+    card, the command's ``sample_sequences`` through ``launch.run_ranks``)
+    on phase 10's DDPM-DiT checkpoint, its samples bitwise equal to the same
+    sampling on one card in this process (on more cards within
+    :data:`WORLD_TOL`), its launches each rank's (per forward × the
+    sampler's steps)."""
+    from crowdmod_tpu_torch.cli import generate_samples
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.parallel import launch
+
+    argv = [*sample_args(workdir, "DDPM-DiT"), "--device", DEVICE]
+    cfg = load_config(str(workdir / "ATC.yml"), str(workdir / "ATC_datafiles.yml"))
+    reset_launch_counts()
+    plain = generate_samples.sample_sequences(
+        cfg, generate_samples.build_parser().parse_args(argv), DEVICE)
+    plain_launches = launch_counts()
+    out = workdir / "dp_samples.pt"
+    t0 = time.perf_counter()
+    code = launch.run_ranks("chip_smoke", [*argv, "--data-parallel", "--samples-out",
+                                           str(out)], DEVICE, False)
+    wall = time.perf_counter() - t0
+    if code:
+        raise RuntimeError(f"generate-samples --data-parallel sampling exited {code}")
+    ranks = [torch.load(f"{out}.{r}", weights_only=True) for r in range(world)]
+    steps = cfg.MODEL.DDPM.ETA_STEPS
+    per_forward = PER_FORWARD["DDPM-DiT"](cfg)
+    for r, got in enumerate(ranks):
+        hold_launches(f"generate-samples --data-parallel rank {r}", got["launches"],
+                      per_forward, steps)
+    launches = {k: sum(got["launches"][k] for got in ranks) for k in plain_launches}
+    hold_launches("generate-samples one card", plain_launches, per_forward, steps)
+    pred = ranks[0]["pred"]
+    if world == 1:
+        vs_one = {"bitwise": torch.equal(pred, plain["pred"].cpu())}
+        if not vs_one["bitwise"]:
+            fail("generate-samples --data-parallel samples differ from one card's")
+    else:
+        vs_one = hold_series("generate-samples --data-parallel against one card", pred,
+                             plain["pred"], f"each card samples {pred.shape[0] // world} of "
+                             f"the {pred.shape[0]} rows", scale=float(pred.abs().max()),
+                             tol=WORLD_TOL["sample"])
+    log("parallel generate-samples DDPM-DiT --data-parallel", world=world, wall_s=wall,
+        samples=list(pred.shape), l1=ranks[0]["l1"], l1_one_card=plain["l1"],
+        vs_one_card=vs_one, launches=launches)
+    return {"16 generate-samples DDPM-DiT": launches,
+            "16 generate-samples DDPM-DiT one card": plain_launches}
+
+
 def dp_stream(workdir: Path, cli_cfg) -> dict:
     """(e) ``FileWindowStream`` over phase 10's three pickles through
     ``device_prefetch`` onto the card: every batch bitwise equal to each
@@ -4034,10 +4140,11 @@ def tp_trace(world: int, overrides: dict | None = None) -> dict:
     return res
 
 
-def phase_parallel(workdir: Path) -> dict:
+def phase_parallel(workdir: Path, samples: bool = False) -> dict:
     """Phase 16 on phase 10's workspace: a process (or a replica) a card
-    over NCCL, a world of one on one card.  Every check runs; the phase
-    fails at its end if any did.  → each path's launch counts."""
+    over NCCL, a world of one on one card; with ``samples`` (``--parallel``)
+    also generate-samples' data-parallel sampling.  Every check runs; the
+    phase fails at its end if any did.  → each path's launch counts."""
     from crowdmod_tpu_torch.config import load_config
 
     import torch.distributed as dist
@@ -4052,6 +4159,8 @@ def phase_parallel(workdir: Path) -> dict:
              ("serving", dp_serving, (workdir, world)),
              ("stream", dp_stream, (workdir, cli_cfg)),
              ("tensor shards", tp_shards, (load_config("serving/ATC.yml"),))]
+    if samples:
+        parts.insert(4, ("samples", dp_samples, (workdir, world)))
     if world >= 4:  # data 2 x model 2 needs four cards: NCCL takes one rank a card
         parts.append(("tensor training", tp_training, (cli_cfg, workdir, world)))
     with collecting("phase 16"):
@@ -4059,6 +4168,213 @@ def phase_parallel(workdir: Path) -> dict:
             t0 = time.perf_counter()
             paths.update(fn(*args))
             log("parallel part done", part=part, seconds=time.perf_counter() - t0)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the remaining commands (generate-samples, sweep, doctor) and the
+# profiling hooks
+# ---------------------------------------------------------------------------
+
+# Overlay metrics on the card against the CPU's from the same sequences:
+# PSNR and masked PSNR in dB (absolute), SSIM and TV relative to max|CPU|.
+OVERLAY_TOL = {"psnr": 1e-4, "mpsnr": 1e-4, "ssim": 1e-5, "tv": 1e-5}
+SWEEP_TRIALS = 2
+TIMER_REQUESTS = 5  # the StepTimer's DiT sample calls
+
+
+def sample_args(workdir: Path, arch: str) -> list[str]:
+    """``generate-samples`` arguments on phase 10's workspace (no device)."""
+    return ["--config-yml-file", str(workdir / "ATC.yml"), "--configList-yml-file",
+            str(workdir / "ATC_datafiles.yml"), "--arch", arch, "--seed", str(CLI_SEED)]
+
+
+def hold_overlays(label, card: dict, cpu: dict) -> dict:
+    """The card's overlay metrics against the CPU's (NaN where both are:
+    a frame with an empty density mask) → the worst error of each."""
+    worst = {}
+    for name, tol in OVERLAY_TOL.items():
+        got, want = card[name], cpu[name]
+        if got.shape != want.shape or not np.array_equal(np.isnan(got), np.isnan(want)):
+            raise AssertionError(f"{label} {name}: shapes or NaNs differ")
+        err = np.nan_to_num(np.abs(got.astype(np.float64) - want), nan=0.0)
+        scale = 1.0 if name in ("psnr", "mpsnr") else float(np.nanmax(np.abs(want)))
+        worst[name] = float(err.max()) / scale
+        if not worst[name] <= tol:
+            raise AssertionError(f"{label} {name}: {worst[name]} > {tol}")
+    return worst
+
+
+def check_doctor(out: str, run: int) -> dict:
+    """One ``doctor`` report: every check ``ok`` (six on the first run,
+    five on the second, ``--skip-mesh``), no warning or failure, and every
+    kernel library found in the source-hash cache (phase 1 built them in
+    this checkout; ``build_all`` compiled none) → the kernel probes'
+    launches (from its kernels line)."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("  ") and "[" in ln]
+    checks = 6 if run == 1 else 5
+    if len(lines) != checks or not all("[ok]" in ln for ln in lines) \
+            or f"{checks} ok, 0 warnings, 0 failures" not in out:
+        raise AssertionError(f"doctor run {run}: not every check ok:\n{out}")
+    if "5/5 libraries from the source-hash cache, 0 built" not in out:
+        raise AssertionError(f"doctor run {run} built a kernel library:\n{out}")
+    return json.loads(logged(out, "launches "))
+
+
+def commands_sampling(workdir: Path, cfg, arch: str) -> dict:
+    """``generate-samples``' device half for ``arch`` in this process (the
+    command's ``sample_sequences``: checkpoint, test set, ids, sampler,
+    overlays on the card): launches held per forward × the sampler's
+    steps, the logged L1 norm held to the samples', the card's overlays
+    to the CPU's from the same sequences."""
+    from crowdmod_tpu_torch.cli import generate_samples
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from crowdmod_tpu_torch.viz.plot_samples import overlay_metrics
+
+    args = generate_samples.build_parser().parse_args(
+        [*sample_args(workdir, arch), "--device", DEVICE])
+    reset_launch_counts()  # this arch's generate-samples path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate_samples.sample_sequences(cfg, args, DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hold_launches(f"generate-samples {arch}", launch_counts(),
+                             PER_FORWARD[arch](cfg), cfg.MODEL.DDPM.ETA_STEPS)
+    if out["launches"] != launches:
+        raise AssertionError(f"generate-samples {arch}: logged launches {out['launches']}")
+    pred, seqs = out["pred"], out["seqs"]
+    n = cfg.MODEL.NSAMPLES4PLOTS
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    if tuple(pred.shape) != (n, *f_shape) or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"generate-samples {arch}: samples {tuple(pred.shape)}, finite "
+                             f"{bool(torch.isfinite(pred).all())}")
+    l1_f64 = float(pred.double().abs().sum())
+    if out["l1"] != float(pred.abs().sum()) or abs(out["l1"] - l1_f64) > 1e-5 * l1_f64:
+        raise AssertionError(f"generate-samples {arch}: logged L1 {out['l1']} against "
+                             f"{l1_f64} (float64)")
+    cpu_seqs = seqs.cpu()
+    cpu = overlay_metrics(cpu_seqs[0::2], cpu_seqs[1::2], cfg.METRICS, cfg.MACROPROPS.EPS)
+    worst = hold_overlays(f"generate-samples {arch} overlays", out["overlays"], cpu)
+    log(f"commands generate-samples {arch}: sample_sequences b{n}", wall_s=wall,
+        l1=out["l1"], l1_float64=l1_f64, overlays_card_vs_cpu=worst,
+        overlay_tolerance=OVERLAY_TOL, launches=launches)
+    return {f"17 generate-samples {arch}": launches}
+
+
+def commands_timing(workdir: Path, cfg) -> dict:
+    """``utils.profiling`` on the card: ``measure_round_trip``, a
+    ``StepTimer`` over DDPM-DiT sample calls (the generate-samples batch,
+    stopped on the samples' device) and a ``trace`` of one (its Chrome
+    trace's events and kernel time)."""
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+    from crowdmod_tpu_torch.train.trainer import Trainer
+    from crowdmod_tpu_torch.utils import StepTimer, trace
+    from crowdmod_tpu_torch.utils.profiling import measure_round_trip
+
+    round_trip = measure_round_trip(iters=20, device=DEVICE)
+    tr = Trainer(cfg, "DDPM-DiT", device=DEVICE, seed=SEED)
+    tr.load(str(workdir / "ckpts" / ckpt.checkpoint_name(cfg, "DDPM-DiT", "000")))
+    test_ds = ingest.get_test_dataset(cfg, tr.mprops_count, seed=CLI_SEED, device=DEVICE)
+    past = test_ds.gather(np.arange(cfg.MODEL.NSAMPLES4PLOTS))[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tr.sample(past, gen)  # warm
+    timer = StepTimer()
+    for _ in range(TIMER_REQUESTS):
+        timer.start()
+        out = tr.sample(past, gen)
+        timer.stop(block_on=out)
+    trace_dir = workdir / "trace"
+    with trace(str(trace_dir)):
+        out = tr.sample(past, gen)
+        torch.cuda.synchronize()
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    res = dict(round_trip_ms=1e3 * round_trip,
+               sample_b=past.shape[0], step_timer=timer.summary(),
+               trace_events=len(events), trace_kernels=len(kernels),
+               trace_kernel_ms=sum(e.get("dur", 0) for e in kernels) / 1e3,
+               trace_bytes=(trace_dir / "trace.json").stat().st_size,
+               nvidia_smi=nvidia_smi())
+    if not kernels:
+        raise AssertionError("profiling.trace recorded no kernel on the card")
+    log("commands profiling: round trip, StepTimer and trace of DiT sample calls", **res)
+    return res
+
+
+def phase_commands(workdir: Path) -> dict:
+    """Phase 17 on phase 10's workspace (its DDPM-DiT checkpoint from
+    ``train``, its DDPM-UNet checkpoint): ``sweep`` (2 trials of one epoch)
+    and ``doctor`` as processes while generate-samples' device half runs
+    here for both models; ``doctor --skip-mesh`` a second time (neither
+    builds a kernel library); ``generate-samples`` whole where matplotlib is
+    installed; then
+    the profiling hooks.  → each path's launch counts."""
+    from crowdmod_tpu_torch.cli.sweep import sample_trial, sweep_space
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.viz import plotting_unavailable
+
+    cfg = load_config(str(workdir / "ATC.yml"), str(workdir / "ATC_datafiles.yml"))
+    plots = plotting_unavailable() is None
+    log("commands", matplotlib=plots, nvidia_smi=nvidia_smi())
+    common = ["--config-yml-file", str(workdir / "ATC.yml"), "--configList-yml-file",
+              str(workdir / "ATC_datafiles.yml"), "--seed", str(CLI_SEED)]
+    t0 = time.perf_counter()
+    sweep_proc = start_cli("sweep", "--arch", "DDPM-UNet", "--trials", str(SWEEP_TRIALS),
+                           "--epochs-per-trial", "1", "--sweep-dir", str(workdir / "sweep"),
+                           *common)
+    doctor_procs = [start_cli("doctor")]
+    drawn = []
+    if plots:  # the whole command, each plot type, as a user runs it
+        drawn = [(kind, start_cli("generate-samples", *sample_args(workdir, "DDPM-DiT"),
+                                  "--plot-type", kind, "--output-dir",
+                                  str(workdir / f"samples_{kind}")))
+                 for kind in ("Static", "Dynamic")]
+    paths = {}
+    for arch in ("DDPM-DiT", "DDPM-UNet"):
+        paths.update(commands_sampling(workdir, cfg, arch))
+
+    doctors = [finish_cli(doctor_procs[0], "doctor")]
+    # The mesh was checked by the first run.
+    doctors.append(finish_cli(start_cli("doctor", "--skip-mesh"), "doctor (second run)"))
+    for i, out in enumerate(doctors):
+        paths[f"17 doctor {i + 1}"] = check_doctor(out, i + 1)
+    log("commands doctor", runs=2, kernels=[logged(o, "kernels ").strip() for o in doctors],
+        mesh=logged(doctors[0], "mesh (2 processes)").strip())
+
+    sweep_out = finish_cli(sweep_proc, "sweep")
+    records = [json.loads(ln) for ln in open(workdir / "sweep" / "sweep_results.jsonl")]
+    rng = np.random.default_rng(CLI_SEED)
+    want = [json.loads(json.dumps(sample_trial(sweep_space("DDPM-UNet"), rng)))
+            for _ in range(SWEEP_TRIALS)]
+    if [r["params"] for r in records] != want:
+        raise AssertionError(f"sweep trials {[r['params'] for r in records]} != {want}")
+    if not all(np.isfinite(r["train_loss"]) for r in records):
+        raise AssertionError(f"sweep: a trial's loss is not finite: {records}")
+    best = json.loads((workdir / "sweep" / "best.json").read_text())
+    paths["17 sweep DDPM-UNet"] = json.loads(logged(sweep_out, "kernel launches: "))
+    log("commands sweep DDPM-UNet", trials=[{k: r[k] for k in ("params", "train_loss",
+                                                               "val_loss", "wall_s")}
+                                            for r in records],
+        best=best, launches=paths["17 sweep DDPM-UNet"])
+
+    for kind, proc in drawn:
+        out = finish_cli(proc, f"generate-samples {kind}")
+        files = sorted(p.name for p in (workdir / f"samples_{kind}").iterdir())
+        n = cfg.MODEL.NSAMPLES4PLOTS
+        want_files = ({f"rho_seq_{i + 1}.png" for i in range(n)}
+                      | ({f"mprops_seq_{i + 1}.gif" for i in range(n)}
+                         | {f"mprops_GT_seq_{i + 1}.gif" for i in range(n)}
+                         if kind == "Dynamic" else set()))
+        if not want_files <= set(files) or (kind == "Static"
+                                            and not any(f.endswith(".svg") for f in files)):
+            raise AssertionError(f"generate-samples {kind}: files {files}")
+        paths[f"17 generate-samples {kind}"] = json.loads(logged(out, "kernel launches: "))
+        log(f"commands generate-samples DDPM-DiT --plot-type {kind}", files=len(files),
+            launches=paths[f"17 generate-samples {kind}"])
+    log("commands processes done", seconds=time.perf_counter() - t0)
+    commands_timing(workdir, cfg)
     return paths
 
 
@@ -4166,11 +4482,19 @@ def main() -> int:
         tp_trace(torch.cuda.device_count())
         log("tp trace done", seconds=time.perf_counter() - t_start)
         return 0
+    if sys.argv[1:] == ["--commands"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_cli(Path(tmp) / "cli")
+            t0 = time.perf_counter()
+            phase_commands(Path(tmp) / "cli")
+        log("commands done", seconds=time.perf_counter() - t_start,
+            phase_17_s=time.perf_counter() - t0)
+        return 0
     if sys.argv[1:] == ["--parallel"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_cli(Path(tmp) / "cli")
             t0 = time.perf_counter()
-            phase_parallel(Path(tmp) / "cli")
+            phase_parallel(Path(tmp) / "cli", samples=True)
         log("parallel done", seconds=time.perf_counter() - t_start,
             phase_16_s=time.perf_counter() - t0)
         return 0
@@ -4208,6 +4532,7 @@ def main() -> int:
         paths.update(timed("14 deploy", phase_deploy, Path(tmp), cfg))
         paths.update(timed("15 data", phase_data, Path(tmp)))
         paths.update(timed("16 parallel", phase_parallel, Path(tmp) / "cli"))
+        paths.update(timed("17 commands", phase_commands, Path(tmp) / "cli"))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

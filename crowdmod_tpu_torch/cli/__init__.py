@@ -18,11 +18,19 @@
     checkpoint that ``serve`` and ``generate-metrics`` resolve;
   * ``params``           — trainable parameters per architecture;
   * ``etl``              — raw trajectory CSVs → aggregated CSVs → macroprop
-    pickles (binned on the device) and their DATA_LIST.
+    pickles (binned on the device) and their DATA_LIST;
+  * ``generate-samples`` — sample a trained model on the device and draw the
+    static SVG grid or the GIFs (overlay metrics computed on the device)
+    and the density curves;
+  * ``sweep``            — random-search hyperparameter sweeps;
+  * ``compare``          — cross-model metric comparison figures;
+  * ``view``             — the synchronized HTML GIF viewer;
+  * ``doctor``           — deployment environment self-check.
 
-Each runs on the GPU unless given ``--device cpu``.  The JAX package's other
-commands are not ported yet; each exits with status 2 and names its
-ROADMAP.md Queue 1 item.
+Each runs on the GPU unless given ``--device cpu`` (``compare`` and ``view``
+run on the host only).  The plots need matplotlib: ``generate-samples``
+exits 2 without it, ``train`` and ``generate-metrics`` skip their PNGs and
+log why.
 """
 
 from __future__ import annotations
@@ -43,16 +51,11 @@ COMMANDS = {
     "import-checkpoint": "crowdmod_tpu_torch.cli.import_checkpoint",
     "params": "crowdmod_tpu_torch.utils.model_info",
     "etl": "crowdmod_tpu_torch.cli.etl",
-}
-
-# The JAX package's other commands → the ROADMAP.md Queue 1 item that ports
-# them.
-NOT_PORTED = {
-    "generate-samples": "item 17 (viz: its output is plots)",
-    "sweep": "item 17",
-    "compare": "item 17 (viz)",
-    "view": "item 17 (viz)",
-    "doctor": "item 17",
+    "generate-samples": "crowdmod_tpu_torch.cli.generate_samples",
+    "sweep": "crowdmod_tpu_torch.cli.sweep",
+    "compare": "crowdmod_tpu_torch.viz.compare_models",
+    "view": "crowdmod_tpu_torch.viz.html_viewer",
+    "doctor": "crowdmod_tpu_torch.cli.doctor",
 }
 
 
@@ -100,10 +103,6 @@ def main(argv: list[str] | None = None) -> int:
               + ",".join(COMMANDS) + "} [args...]")
         return 0
     cmd = argv.pop(0)
-    if cmd in NOT_PORTED:
-        print(f"{cmd!r} is not ported to PyTorch yet: ROADMAP.md Queue 1 "
-              f"{NOT_PORTED[cmd]}", file=sys.stderr)
-        return 2
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; expected one of {list(COMMANDS)}",
               file=sys.stderr)

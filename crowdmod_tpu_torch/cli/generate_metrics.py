@@ -1,10 +1,11 @@
 """Metrics entry point (the JAX package's ``cli/generate_metrics.py``).
 
 Runs the repeated-past protocol (``BATCH_SIZE × chunk`` samples a batch)
-with a trained checkpoint and the metric suite, writing the CSVs and the
-``metrics_files.json`` manifest under the JAX package's names.  The
-boxplot PNGs wait for the plotting module (ROADMAP.md Queue 1 item 17).
-The last log line gives the kernel launches of the run.
+with a trained checkpoint and the metric suite, writing the CSVs, the
+``metrics_files.json`` manifest and the ``BP_*.png`` boxplots under the
+JAX package's names.  On a host without matplotlib the boxplots are
+skipped, and a log line says so.  The last log line gives the kernel
+launches of the run.
 
 ``--data-parallel`` samples each protocol batch split over one process a
 card of this host (gloo and one process on ``--device cpu``), the samples
@@ -81,6 +82,7 @@ def run_rank(args, device) -> int:
     from crowdmod_tpu_torch.ops.kernels import KERNELS
     from crowdmod_tpu_torch.train import checkpoint as ckpt
     from crowdmod_tpu_torch.train.trainer import Trainer
+    from crowdmod_tpu_torch.viz import plotting_unavailable
 
     cfg = load_config(args.config_yml_file, args.configList_yml_file)
     require_valid(cfg, args.arch)
@@ -115,6 +117,7 @@ def run_rank(args, device) -> int:
     )
     if rank:  # one writer: process 0 commits the canonical files
         out_dir = os.path.join(out_dir, f".proc{rank}")
+    no_plots = plotting_unavailable()
     results = trainer.generate_metrics(
         test_ds,
         metric=args.metric,
@@ -123,14 +126,18 @@ def run_rank(args, device) -> int:
         output_dir=out_dir,
         epoch_tag=tag,
         seed=args.seed,
+        boxplots=no_plots is None,
     )
     summary = {
         k: float(v.mean()) for k, v in results.items()
         if hasattr(v, "mean")
     }
     logging.info("metric means: %s", json.dumps(summary, indent=2))
-    logging.info("metric artifacts written to %s (boxplots not written: "
-                 "plots are not ported yet, ROADMAP.md Queue 1 item 17)", out_dir)
+    if no_plots:
+        logging.info("metric artifacts written to %s; boxplots not written: %s",
+                     out_dir, no_plots)
+    else:
+        logging.info("metric artifacts written to %s", out_dir)
     logging.info("kernel launches: %s",
                  json.dumps({fn.__name__: fn.launches for fn in KERNELS}))
     return 0

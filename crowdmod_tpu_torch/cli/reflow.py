@@ -60,7 +60,7 @@ def run(argv=None) -> int:
 
     train_ds, _ = get_training_dataset(cfg, trainer.mprops_count, seed=args.seed,
                                        device=trainer.device)
-    with RunTracker(trainer.run_dir, config=cfg) as tracker:
+    with RunTracker(trainer.run_dir, config=cfg, use_wandb=False) as tracker:
         history = reflow(
             trainer, train_ds,
             rounds=args.rounds,

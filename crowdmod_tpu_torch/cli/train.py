@@ -7,9 +7,10 @@ trainer.Trainer` on the config's macroprop pickles, logging through
 ``config.json`` in the run directory) and keeping the best-loss checkpoint
 under ``DATA_FS.SAVE_DIR``; a log line gives the kernel launches of the
 run, another each step's loss and milliseconds (``Trainer.fit``'s
-history).  The JAX command's loss-curve plot (``losses.png``) waits for
-the plotting module (ROADMAP.md Queue 1 item 17).  Exit status 1 when
-the NaN watchdog aborts the run.
+history).  Process 0 draws the loss curves (``losses.png`` in the run
+directory); on a host without matplotlib it logs why it did not, and the
+losses stay in ``events.jsonl``.  Exit status 1 when the NaN watchdog
+aborts the run.
 
 Data parallelism (:mod:`crowdmod_tpu_torch.parallel.launch`):
 ``--data-parallel`` trains with DDP on one process a card of this host (on
@@ -161,9 +162,8 @@ def run_rank(args, device) -> int:
         "peak_memory_gb": peak}))
     logging.info("kernel launches: %s",
                  json.dumps({fn.__name__: fn.launches for fn in KERNELS}))
-    logging.info("losses.png not written: plots are not ported yet "
-                 "(ROADMAP.md Queue 1 item 17); the losses are in %s",
-                 os.path.join(trainer.run_dir, "events.jsonl"))
+    if rank == 0:
+        plot_losses(trainer, cfg, args.arch, history)
     if history.get("aborted"):
         logging.error(
             "training ABORTED (NaN watchdog); checkpoints in %s are from "
@@ -172,6 +172,23 @@ def run_rank(args, device) -> int:
         return 1
     logging.info("training done; best checkpoints in %s", cfg.DATA_FS.SAVE_DIR)
     return 0
+
+
+def plot_losses(trainer, cfg, arch: str, history: dict) -> None:
+    """``losses.png`` in the run directory, as the JAX command draws it; on
+    a host without matplotlib a log line says why there is none."""
+    from crowdmod_tpu_torch.viz import plotting_unavailable
+
+    no_plots = plotting_unavailable()
+    if no_plots:
+        logging.info("losses.png not written: %s; the losses are in %s", no_plots,
+                     os.path.join(trainer.run_dir, "events.jsonl"))
+        return
+    from crowdmod_tpu_torch.viz.plot_crowd import plot_losses as draw
+
+    draw(history.get("train_loss", []), history.get("val_loss", []),
+         subtitle=f"{arch} on {cfg.DATASET.NAME}",
+         save_path=os.path.join(trainer.run_dir, "losses.png"))
 
 
 if __name__ == "__main__":

@@ -98,6 +98,36 @@ def q_sample(
     return mean + std * eps, eps
 
 
+def ddpm_reverse_step(
+    sched: DiffusionSchedule,
+    eps_pred: torch.Tensor,
+    x: torch.Tensor,
+    t,
+    z: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ancestral reverse step x_t → x_{t-1} (DDPM Algorithm 2) in
+    PyTorch ops, with the noise ``z`` given; → ``(x_prev, sigma_t,
+    alpha_t)``, as the JAX package's composite step.  ``t`` is an int, a
+    0-d or a ``(B,)`` tensor; ``z`` is zeroed where ``t == 0``.  The
+    samplers run the fused kernel's step instead
+    (:func:`~crowdmod_tpu_torch.ops.kernels.fused_ancestral_update`)."""
+    buf = sched.on(x.device)
+    t = torch.as_tensor(t, dtype=torch.long, device=x.device)
+
+    def bcast(c):
+        return c.reshape(c.shape + (1,) * (x.ndim - c.ndim))
+
+    def at(name):
+        return bcast(buf[name][t])
+
+    beta_t = at("beta")
+    z = torch.where(bcast(t > 0), z, torch.zeros_like(z))
+    x_prev = at("one_by_sqrt_alpha") * (
+        x - beta_t / at("sqrt_one_minus_alpha_bar") * eps_pred
+    ) + torch.sqrt(beta_t) * z
+    return x_prev, torch.sqrt(beta_t), 1.0 - beta_t
+
+
 def ddim_tau_schedule(timesteps: int, divider: int) -> np.ndarray:
     """The reference's DDIM tau subset: ``arange(0, T-1, divider)``."""
     return np.arange(0, timesteps - 1, divider, dtype=np.int32)

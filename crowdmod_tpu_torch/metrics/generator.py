@@ -10,9 +10,9 @@ package's output.
 
 As in the JAX package, ``ENERGY`` applies the per-channel
 ``PRED_MPROPS_FACTOR`` before the continuity energy (the reference used the
-factor before assigning it).  The boxplots need ``viz``, which is not ported
-yet (ROADMAP.md Queue 1 item 17): :meth:`MetricsEngine.save_boxplots`
-raises.
+factor before assigning it).  :meth:`MetricsEngine.save_boxplots` draws the
+``BP_*.png`` suite from the host arrays (:mod:`crowdmod_tpu_torch.viz.
+plot_metrics`, matplotlib imported only then).
 """
 
 from __future__ import annotations
@@ -202,12 +202,12 @@ class MetricsEngine:
         return manifest
 
     def save_boxplots(self, title: str):
-        """The boxplot suite needs the plotting module, which is not ported
-        yet."""
-        raise NotImplementedError(
-            "metric boxplots are not ported to PyTorch yet: ROADMAP.md "
-            "Queue 1 item 17 (viz)"
-        )
+        """The ``BP_*.png`` boxplot suite of the computed metrics; matplotlib
+        is imported here, so the metrics run on a host without it."""
+        from crowdmod_tpu_torch.viz import plot_metrics as pm
+
+        pm.save_metric_boxplots(self.data, HEADERS, self.output_dir, title,
+                                pred_len=self.pred_len, past_len=self.past_len)
 
 
 def compute_metrics(
@@ -223,10 +223,10 @@ def compute_metrics(
     boxplots: bool = False,
 ) -> dict:
     """Run ``metric`` ∈ METRIC_CHOICES ('ALL': the full suite, ENERGY
-    included) and, with ``save``, write the CSVs and manifest; → the
-    engine's data.  ``boxplots`` (off unless asked for) reaches
-    :meth:`MetricsEngine.save_boxplots`, which raises until ``viz`` is
-    ported."""
+    included) and, with ``save``, write the CSVs and manifest, and with
+    ``boxplots`` also the boxplot PNGs (:meth:`MetricsEngine.
+    save_boxplots`; off unless asked for, unlike the JAX function: the
+    card's host may have no matplotlib); → the engine's data."""
     if metric not in METRIC_CHOICES:
         raise ValueError(f"metric {metric!r} not in {METRIC_CHOICES}")
     if metric in ("PSNR", "ALL"):

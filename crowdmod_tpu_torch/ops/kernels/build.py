@@ -21,7 +21,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 SMS = 132  # streaming multiprocessors of an H100 SXM, the plans' default card
@@ -62,11 +61,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: tuple[str, ...] = SOURCES) -> float:
+def build_all(names: tuple[str, ...] = SOURCES) -> tuple[str, ...]:
     """Compile every source in ``names`` whose library is missing, all in
-    parallel; returns the wall seconds spent.  The compiler's resource report
-    (``-Xptxas -v``) goes to a ``.log`` beside each library."""
-    t0 = time.perf_counter()
+    parallel; returns the names it compiled (none when every library was in
+    the source-hash cache).  The compiler's resource report (``-Xptxas -v``)
+    goes to a ``.log`` beside each library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
@@ -90,7 +89,7 @@ def build_all(names: tuple[str, ...] = SOURCES) -> float:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return time.perf_counter() - t0
+    return tuple(name for name, *_ in jobs)
 
 
 def load(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:

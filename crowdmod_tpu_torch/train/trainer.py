@@ -506,7 +506,7 @@ class Trainer:
 
         own_tracker = tracker is None
         if own_tracker:
-            tracker = RunTracker(self.run_dir, config=cfg)
+            tracker = RunTracker(self.run_dir, config=cfg, use_wandb=False)
 
         best = float("inf")
         if self._resumed:
@@ -877,6 +877,7 @@ class Trainer:
         epoch_tag: str | int = "000",
         seed: int = 42,
         draws=None,
+        boxplots: bool = False,
     ) -> dict:
         """The repeated-past protocol and the metric suite: each of the
         first ``batches_to_use`` batches of ``BATCH_SIZE × chunk`` test
@@ -887,8 +888,9 @@ class Trainer:
 
         ``draws``: a callable giving each protocol batch's
         :class:`ProtocolDraws` (default: a generator seeded ``seed`` on the
-        trainer's device).  The JAX package's boxplots are not written: the
-        plots are not ported yet."""
+        trainer's device).  ``boxplots``: also draw the boxplot PNGs (the
+        JAX method always does; here the caller asks, since the card's host
+        may have no matplotlib)."""
         cfg = self.cfg
         samples_per_batch = cfg.DATASET.BATCH_SIZE * chunk
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -932,6 +934,7 @@ class Trainer:
             run_tag=ckpt.run_tag(cfg, self.arch, epoch_tag),
             title=title,
             samples_per_batch=samples_per_batch,
+            boxplots=boxplots,
         )
         logging.info("metric protocol: %d samples in %d sample call(s), "
                      "sampling %.3f s, metric suite %.3f s", pred.shape[0],

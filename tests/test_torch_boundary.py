@@ -71,6 +71,12 @@ def test_importing_the_port_loads_no_jax():
         "import crowdmod_tpu_torch.data.etl, crowdmod_tpu_torch.data.synthetic\n"
         "import crowdmod_tpu_torch.data.ingest, crowdmod_tpu_torch.native\n"
         "import crowdmod_tpu_torch.cli.etl\n"
+        "import crowdmod_tpu_torch.cli.generate_samples, crowdmod_tpu_torch.cli.sweep\n"
+        "import crowdmod_tpu_torch.cli.doctor, crowdmod_tpu_torch.native.sanitize\n"
+        "import crowdmod_tpu_torch.viz.plot_samples, crowdmod_tpu_torch.viz.plot_metrics\n"
+        "import crowdmod_tpu_torch.viz.compare_models, crowdmod_tpu_torch.viz.html_viewer\n"
+        "import crowdmod_tpu_torch.utils, crowdmod_tpu_torch.core.scene\n"
+        "assert 'matplotlib' not in sys.modules, 'plots import matplotlib when drawn'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -88,8 +94,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without a device argument the port asks for CUDA, and raises where
     there is none rather than running on the CPU: the trainer and the
     predictor, the data helpers, the prefetch and the stream, the process
-    group, data-parallel serving and the data-parallel commands."""
-    from crowdmod_tpu_torch.cli import generate_metrics, train
+    group, data-parallel serving and the data-parallel commands, sampling
+    and sweeps."""
+    from crowdmod_tpu_torch.cli import generate_metrics, generate_samples, sweep, train
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.data import ingest
     from crowdmod_tpu_torch.data.prefetch import FileWindowStream, device_prefetch
@@ -117,7 +124,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                                                num_processes=1, process_id=0),
                lambda: load_predictor("4test/ATC.yml", "DDPM-DiT", data_parallel=True),
                lambda: train.run(["--data-parallel"]),
-               lambda: generate_metrics.run(["--data-parallel"])]
+               lambda: generate_metrics.run(["--data-parallel"]),
+               lambda: generate_samples.run(["--data-parallel"]),
+               lambda: sweep.run(["--trials", "1"])]
     for helper in helpers:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             helper()

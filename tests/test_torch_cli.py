@@ -3,11 +3,11 @@ the JAX package's on the tiny pickle workspace (``conftest.workspace``):
 ``train`` then ``generate-metrics`` (DDPM-UNet, then ``distill``; FM-DiT
 followed by ``reflow``; ConvRNN on the pickles' 4 channels), on the CPU,
 give the same checkpoint names and metadata keys, run files, metric CSV
-names, headers and columns and manifest keys as ``crowdmod_tpu.cli``'s run
-(the JAX run also writes ``losses.png`` and boxplot PNGs, which wait for
-the port's plotting module).  Commands not ported yet exit 2 and name their
-ROADMAP.md item; every command runs on the card unless given ``--device
-cpu``; ``params`` totals equal the JAX command's."""
+names, headers and columns and manifest keys as ``crowdmod_tpu.cli``'s run,
+and the same ``losses.png`` and boxplot PNG names (skipped, with a log line
+saying why, where matplotlib is missing).  Every JAX command dispatches in
+the port; every command runs on the card unless given ``--device cpu``;
+``params`` totals equal the JAX command's."""
 
 import json
 import os
@@ -27,9 +27,11 @@ from crowdmod_tpu_torch import cli, export_artifact
 from crowdmod_tpu_torch.cli import (
     distill,
     generate_metrics,
+    generate_samples,
     import_checkpoint,
     reflow,
     serve,
+    sweep,
     train,
 )
 from crowdmod_tpu_torch.utils import model_info
@@ -43,6 +45,22 @@ def _port_cli(*args, env=None):
         capture_output=True, text=True, cwd=REPO_ROOT, timeout=300,
         env=None if env is None else {**os.environ, **env},
     )
+
+
+def _wandb_stub_env(tmp):
+    """An environment whose ``wandb`` is a stub that marks ``wandb_init``
+    in ``tmp`` when a run is started (and then raises, so nothing waits on
+    a network); W&B mode online.  The JAX package's ``reflow`` and
+    ``distill`` track locally only, and so must the port's."""
+    stub = tmp / "wandb_stub"
+    stub.mkdir(exist_ok=True)
+    (stub / "wandb.py").write_text(
+        "import pathlib\n"
+        "def init(**kw):\n"
+        f"    pathlib.Path({str(tmp / 'wandb_init')!r}).write_text('init')\n"
+        "    raise RuntimeError('W&B stub')\n")
+    path = os.pathsep.join(p for p in (str(stub), os.environ.get("PYTHONPATH")) if p)
+    return {"PYTHONPATH": path, "WANDB_MODE": "online"}
 
 
 def _jax_workspace(ws):
@@ -73,7 +91,7 @@ def test_train_then_generate_metrics_match_jax(workspace):
               "--arch", "DDPM-UNet"]
     r = _port_cli("train", *common, "--device", "cpu", "--run-dir", str(ws["tmp"] / "run"))
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "losses.png not written" in r.stdout and "item 17" in r.stdout
+    assert (ws["tmp"] / "run" / "losses.png").exists()
     r = _port_cli("generate-metrics", *common, "--device", "cpu", "--metric", "ALL",
                   "--output-dir", str(ws["tmp"] / "metrics"))
     assert r.returncode == 0, r.stdout + r.stderr
@@ -99,14 +117,21 @@ def test_train_then_generate_metrics_match_jax(workspace):
     assert manifest.keys() == jax_manifest.keys()
     assert manifest["title"] == jax_manifest["title"]
     assert {os.path.basename(v) for k, v in manifest.items() if k != "title"} == set(port_csvs)
-    assert not [p for p in os.listdir(ws["tmp"] / "metrics") if p.endswith(".png")]
+    assert (ws["tmp"] / "jax_run" / "losses.png").exists()
+    pngs = sorted(p for p in os.listdir(ws["tmp"] / "metrics") if p.endswith(".png"))
+    assert pngs == sorted(p for p in os.listdir(ws["tmp"] / "jax_metrics")
+                          if p.endswith(".png"))
+    assert pngs == ["BP_BHATT.png", "BP_ENERGY.png", "BP_MF_MSE.png", "BP_PSNR.png",
+                    "BP_RE_DENSITY.png", "BP_SSIM.png"]
     assert os.path.exists(ws["tmp"] / "out" / "logs" / "genMetrics.log")
 
     # distill on the trained checkpoint (T = 5: one phase, 2 → 1 steps).
     steps = ["--steps", "1", "--start-steps", "2", "--epochs-per-phase", "1"]
-    r = _port_cli("distill", *common, *steps, "--device", "cpu")
+    r = _port_cli("distill", *common, *steps, "--device", "cpu",
+                  env=_wandb_stub_env(ws["tmp"]))
     assert r.returncode == 0, r.stdout + r.stderr
     assert "distillation complete" in r.stdout and "kernel launches" in r.stdout
+    assert not (ws["tmp"] / "wandb_init").exists()  # local tracking only, as JAX's
     assert jax_distill.run(jcommon + steps) == 0
     names = sorted(os.listdir(ws["tmp"] / "ckpts"))
     assert names == sorted(os.listdir(ws["tmp"] / "jax_ckpts"))
@@ -145,9 +170,11 @@ def test_fm_dit_train_metrics_reflow_match_jax(workspace):
                   "--output-dir", str(ws["tmp"] / "metrics"))
     assert r.returncode == 0, r.stdout + r.stderr
     r = _port_cli("reflow", *common, "--device", "cpu", "--rounds", "1",
-                  "--epochs-per-round", "1", "--coupling-steps", "2")
+                  "--epochs-per-round", "1", "--coupling-steps", "2",
+                  env=_wandb_stub_env(ws["tmp"]))
     assert r.returncode == 0, r.stdout + r.stderr
     assert "reflow complete" in r.stdout and "kernel launches" in r.stdout
+    assert not (ws["tmp"] / "wandb_init").exists()  # local tracking only, as JAX's
 
     jcommon = ["--config-yml-file", _jax_workspace(ws), "--configList-yml-file",
                ws["list"], "--arch", "FM-DiT"]
@@ -215,26 +242,63 @@ def test_convrnn_train_then_generate_metrics_match_jax(workspace):
 
 
 def test_every_jax_command_is_ported_or_named(capsys):
+    """The port dispatches every command of the JAX package's, and no other."""
     jax_main(["--help"])
     usage = capsys.readouterr().out
     jax_commands = set(usage.split("{", 1)[1].split("}", 1)[0].split(","))
-    assert jax_commands == set(cli.COMMANDS) | set(cli.NOT_PORTED)
-    assert not set(cli.COMMANDS) & set(cli.NOT_PORTED)
+    assert jax_commands == set(cli.COMMANDS) and len(jax_commands) == 14
+    assert not hasattr(cli, "NOT_PORTED")
 
 
-@pytest.mark.parametrize("command", sorted(cli.NOT_PORTED))
-def test_unported_command_exits_2_naming_its_item(command, capsys):
-    assert cli.main([command, "--help"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"Queue 1 {cli.NOT_PORTED[command]}" in err
+# The five commands that once exited 2 here: each now dispatches to its
+# port module (``--help`` is its own parser's, exit 0).
+LATE_COMMANDS = {"compare": "crowdmod_tpu_torch.viz.compare_models",
+                 "doctor": "crowdmod_tpu_torch.cli.doctor",
+                 "generate-samples": "crowdmod_tpu_torch.cli.generate_samples",
+                 "sweep": "crowdmod_tpu_torch.cli.sweep",
+                 "view": "crowdmod_tpu_torch.viz.html_viewer"}
+
+
+@pytest.mark.parametrize("command", sorted(LATE_COMMANDS))
+def test_unported_command_exits_2_naming_its_item(command, capsys, monkeypatch):
+    import importlib
+
+    module = importlib.import_module(LATE_COMMANDS[command])
+    ran = []
+    monkeypatch.setattr(module, "run", lambda argv: ran.append(argv) or 0)
+    assert cli.COMMANDS[command] == LATE_COMMANDS[command]
+    assert cli.main([command, "--config-yml-file", "x.yml"]) == 0
+    assert ran == [["--config-yml-file", "x.yml"]]
+    monkeypatch.undo()
+    with pytest.raises(SystemExit) as e:
+        cli.main([command, "--help"])
+    assert e.value.code == 0
+    assert "usage:" in capsys.readouterr().out
 
 
 def test_help_unknown_and_module_entry(capsys):
     assert cli.main(["--help"]) == 0
-    assert "generate-metrics" in capsys.readouterr().out
+    assert "generate-samples" in capsys.readouterr().out
     assert cli.main(["bogus"]) == 2
-    r = _port_cli("sweep")
-    assert r.returncode == 2 and "item 17" in r.stderr
+    r = _port_cli("doctor", "--device", "cpu", "--skip-mesh")
+    assert r.returncode == 0 and "crowdmod doctor" in r.stdout, r.stdout + r.stderr
+
+
+def test_plots_skipped_without_matplotlib(workspace, monkeypatch, capsys):
+    """Where matplotlib is missing, ``train`` and ``generate-metrics`` still
+    exit 0, write no PNG, and log that matplotlib is why."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    ws = workspace
+    common = ["--config-yml-file", ws["cfg"], "--configList-yml-file", ws["list"],
+              "--arch", "DDPM-UNet", "--device", "cpu"]
+    assert train.run(common + ["--run-dir", str(ws["tmp"] / "run")]) == 0
+    assert generate_metrics.run(common + ["--metric", "PSNR", "--output-dir",
+                                          str(ws["tmp"] / "metrics")]) == 0
+    out = capsys.readouterr().out
+    assert "losses.png not written: matplotlib is not installed" in out
+    assert "boxplots not written: matplotlib is not installed" in out
+    assert not list(ws["tmp"].rglob("*.png"))
+    assert (ws["tmp"] / "metrics" / "metrics_files.json").exists()
 
 
 # Each command's required arguments besides the config.
@@ -243,7 +307,8 @@ REQUIRED = {serve: [], export_artifact: ["--output", "x.pt2"], model_info: [],
 
 
 @pytest.mark.parametrize("module", [train, generate_metrics, reflow, distill, serve,
-                                    export_artifact, import_checkpoint, model_info])
+                                    export_artifact, import_checkpoint, model_info,
+                                    generate_samples, sweep])
 def test_commands_default_to_the_card(module, workspace):
     args = module.build_parser().parse_args(REQUIRED.get(module, []))
     assert args.device == "cuda"

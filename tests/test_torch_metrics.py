@@ -317,10 +317,18 @@ def test_engine_refuses_and_boxplots_raise(tmp_path):
                                   output_dir=str(tmp_path))
     with pytest.raises(ValueError, match="not in"):
         generator.compute_metrics(eng, "MOTION", CHUNK)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        generator.compute_metrics(eng, "PSNR", CHUNK, boxplots=True)
-    # The CSVs are written before the plots are asked for.
+    # The boxplots, drawn only when asked for: the same PNGs as the JAX
+    # engine's from the same arrays.
+    generator.compute_metrics(eng, "ALL", CHUNK, title="t", boxplots=True)
     assert (tmp_path / "metrics_files.json").exists()
+    jeng = jax_generator.MetricsEngine(jnp.asarray(pred), jnp.asarray(gt),
+                                       jax_load_config("4test/ATC.yml").METRICS,
+                                       output_dir=str(tmp_path / "jax"), past_len=5)
+    jax_generator.compute_metrics(jeng, "ALL", CHUNK, title="t", boxplots=True)
+    pngs = sorted(p.name for p in tmp_path.glob("*.png"))
+    assert pngs == sorted(p.name for p in (tmp_path / "jax").glob("*.png"))
+    assert pngs == ["BP_BHATT.png", "BP_ENERGY.png", "BP_MF_MSE.png", "BP_PSNR.png",
+                    "BP_RE_DENSITY.png", "BP_SSIM.png"]
 
 
 # ---------------------------------------------------------------------------
