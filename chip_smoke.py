@@ -15,6 +15,8 @@
     python3 chip_smoke.py --parallel            # phases 1, 10 and 16 only (16 on
                                    # every visible card: a process or replica each)
     python3 chip_smoke.py --commands            # phases 1, 10 and 17 only
+    python3 chip_smoke.py --cross-device        # phase 1, then phase 14's
+                                   # cross-device exports and their checks only
     python3 chip_smoke.py --tp-trace            # phase 1, then a tensor-parallel
                                    # training step profiled on every card (4+)
     python3 chip_smoke.py --train-time DIR...   # phase 1, then phase 10's train
@@ -56,27 +58,39 @@ non-zero without a result line:
      twins, in f32 (TF32 off, deterministic algorithms: every parameter
      within 1e-4·max|g| of the twins') and in bf16 (each parameter's
      gradient at cosine ≥ 0.99 with the f32 twins', the loss within 2e-2);
+     checkpoints: ``fit``'s asynchronously committed best checkpoint
+     bitwise equal to the state it ended with, an async save raced by two
+     more steps bitwise equal to the state of the call and byte for byte a
+     synchronous save's, the save's ms on the loop (sync and async), the
+     commit's ms, and one more epoch's wall with async and with sync
+     saves; the UNet's fused block's gradient (``FusedResblock``: the
+     kernel forward, the twin's VJP backward) at 32→32 and 96→32 against
+     autograd through the twin, f32 within 1e-4·max|g|, bf16 at cosine ≥
+     0.99, one launch a forward;
  10. the main path through the command line: synthetic walker sequences
      written as reference-layout pickles with a DATA_LIST and a copy of
      ``configs/serving/ATC.yml``; ``python -m crowdmod_tpu_torch.cli train``
      (DDPM-DiT, one epoch of 20 steps) then ``generate-metrics --metric ALL``
      on its checkpoint (1280 samples, 64 pasts × 20, in one sample call):
      every CSV and the manifest under the JAX package's names, finite, the
-     launches from the command's log line; DDPM-UNet's
+     launches from the command's log line; ``train``'s asynchronously
+     committed checkpoint bitwise equal to the state of the same ``fit``
+     run in this process, its files byte for byte that fit's; DDPM-UNet's
      ``Trainer.generate_metrics`` in this process, its metric suite on the
      card held bitwise to a second run and to the CPU's within the CPU
      tests' tolerances; each model's ``generate_metrics`` profiled (device
      busy share) and one f32 forward at batch 1280, kernels vs twins; then
-     flow matching: FM-DiT through ``train``, ``generate-metrics`` (250
+     flow matching: FM-DiT through ``train``, ``generate-metrics`` (100
      Euler steps, cut from the configured 1000, 1280 samples) and
      ``reflow`` (one round),
      its ``RF1`` checkpoint served at Euler 4, and FM-UNet's
      ``Trainer.generate_metrics`` in this process at 50 Euler steps;
  11. flow matching, each of FM-DiT (DiT2D, 216 tokens) and FM-UNet at the
      serving config's width with seeded random weights: serving through
-     ``load_predictor``/``BatchingQueue`` at Euler 1000 (buckets 1 and 64,
-     the p50 of batch 64, a profiled batch-64 request) and one Heun-50
-     request (the configured 500 steps cut for time); one f32
+     ``load_predictor``/``BatchingQueue`` at Euler 250 (buckets 1 and 64,
+     the p50 of batch 64, a profiled batch-64 request; the configured 1000
+     steps cut for time) and one Heun-50 request (the configured 500 steps
+     cut for time); one f32
      forward and one 25-step Euler chain, kernels vs twins; one short
      training epoch (phase 9's, without its gradient check) and
      ``evaluate``;
@@ -89,7 +103,7 @@ non-zero without a result line:
      → 4 steps, one epoch a phase), its ``D004`` checkpoint served by the
      Distilled sampler at 4 steps, and one UNet ``progressive_distill``
      phase in this process (ms a step, launches a step: two fused teacher
-     forwards, one unfused student forward);
+     forwards and one fused student forward, the student in eval mode);
  13. ConvRNN (GRU, 4 channels) at the configs' width: phase 9's training
      (one short epoch, ``evaluate``, ms a step, busy share, peak memory),
      serving at buckets 1 and 64, ``train`` then ``generate-metrics``
@@ -99,14 +113,18 @@ non-zero without a result line:
      convolutions are library calls, as they are XLA's in the JAX package).
 
  14. serving's deployment commands at the serving config's width, DDPM-DiT
-     and DDPM-UNet with seeded random weights: ``export`` (eight processes
-     at once: each model's DDIM-eta 25 + Sparsity sampler at buckets 1 and
-     64, the DiT's T = 1000 ancestral chain at 64, the DiT's DPM-Solver 20
-     at 64, the UNet's Distilled-eta:1.0:8 at 64, the DiT's DDIM-eta 25
-     with mass-preservation guidance at 1; export seconds, bytes, the
-     ``crowdmod::`` nodes of each graph), ``import-checkpoint`` and
-     ``params`` meanwhile; ``serve`` with both models as
-     a process (/healthz 503 then 200, HTTP p50 per bucket 1/8/64, a
+     and DDPM-UNet with seeded random weights: ``export`` (ten processes
+     at once, one intra-op thread each: each model's DDIM-eta 25 +
+     Sparsity sampler at buckets 1 and 64, the DiT's
+     T = 1000 ancestral chain at 64, the DiT's DPM-Solver 20 at 64, the
+     UNet's Distilled-eta:1.0:8 at 64, the DiT's DDIM-eta 25 with
+     mass-preservation guidance at 1, and the UNet's DDIM-eta at 64 and
+     the DiT's T = 1000 at 64 again from processes that see no card,
+     ``--device cpu --platform cuda``; export seconds, bytes, the
+     ``crowdmod::`` nodes of each graph), ``import-checkpoint``,
+     ``params`` and the ``serve`` process's start meanwhile; ``serve``
+     with both models as a process (/healthz 503 then 200, HTTP p50 per
+     bucket 1/8/64, a
      concurrent burst coalesced, a seeded request twice, SIGTERM → drained,
      exit 0, launches from its log); each artifact in this process against
      the un-exported ``sampler_fn`` for the same seed (bitwise, else within
@@ -115,7 +133,10 @@ non-zero without a result line:
      of the same sampler, a profiled batch-64 request; ``serve
      --artifact``, its seeded request held to a seeded ``Predictor``
      request of the same checkpoint (bitwise, else within the bf16
-     tolerance with the reason).  The ``import-checkpoint`` run takes a
+     tolerance with the reason); each cross-device artifact loaded on the
+     card, its nodes and one request's launches those of the card's
+     export, its future bitwise equal to that export's for the same
+     bucket and seed.  The ``import-checkpoint`` run takes a
      reference-format ``.pt`` of the DiT's weights; the imported checkpoint
      serves the original's future.
  15. the data path at the size of one hour of one ATC recording day:
@@ -193,8 +214,9 @@ phase 8, each model's training (phases 9, 11 and 13), each model's protocol run
 (phase 10; the DiT's in its own process, FM-DiT's commands each in theirs),
 each FM model's serving (phase 11), each fast sampler's serving, the
 distillation runs and the D004 request (phase 12), ConvRNN's serving and
-commands (phase 13), the serve process, the artifacts and the artifact
-server (phase 14, the processes' counts from their log lines), the
+commands (phase 13), the serve process, the artifacts, the cross-device
+artifacts and the artifact server (phase 14, the processes' counts from
+their log lines), the
 training run on the ETL's windows (phase 15), and each parallel path
 (phase 16: the commands' counts from their log lines; the tensor-parallel
 shard check as one path; the data-parallel sampling from each rank's
@@ -265,8 +287,8 @@ SOURCES = {
     "fused_resblock": "crowdmod_tpu_torch/csrc/resblock.cu",
 }
 # Kernel launches of one training step at ATC width: every standalone
-# forward kernel call of the UNet, with the level-0 blocks unfused (the fused
-# resblock is forward only: 2 GroupNorms and 2 convs each); the DiT trains
+# forward kernel call of the UNet, with the level-0 blocks unfused (training
+# mode is not deterministic: 2 GroupNorms and 2 convs each); the DiT trains
 # with dropout 0.1, so its attention takes the plain path.  The backward is
 # PyTorch ops (the kernels' VJPs) and launches none of them.
 TRAIN_PER_STEP = {
@@ -847,6 +869,82 @@ def check_resblock(cin, cout, dtype, gen, timing):
     return res
 
 
+RESBLOCK_GRAD_SHAPES = [(32, 32), (96, 32)]  # level 0: enc_0_0, dec_0_0
+
+
+def _grads_of(fn, x, temb, w, g) -> tuple[torch.Tensor, list]:
+    """``fn``'s output and the gradients of ``sum(out * g)`` for x,
+    temb_proj and every weight, in that order."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, temb, *w.values())]
+    out = fn(leaves[0], leaves[1], dict(zip(w, leaves[2:])))
+    out.backward(g)
+    torch.cuda.synchronize()
+    return out.detach(), [t.grad for t in leaves]
+
+
+def check_resblock_gradients(gen) -> dict:
+    """The fused block's gradient (``FusedResblock``: the kernel forward, the
+    VJP of the twin recomputed backward) at the level-0 shapes against
+    autograd through the twin on the card, f32 (TF32 off): every input's
+    gradient within ``grad_f32`` × its max|g|, the output within
+    ``resblock_f32``; bf16 kernels against the f32 twin: cosine ≥
+    ``grad_bf16_cos`` per input, the output within ``bf16``.  One kernel
+    launch a forward, none in the backward, held exactly."""
+    from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
+    from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock
+
+    t, h, wd = LEVELS[0]
+    res = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for cin, cout in RESBLOCK_GRAD_SHAPES:
+            x = _randn((UNET_BATCH, t, h, wd, cin), gen)
+            temb = _randn((UNET_BATCH, cout), gen)
+            w = _resblock_weights(cin, cout, gen, torch.bfloat16)  # both dtypes' values
+            g = _randn((UNET_BATCH, t, h, wd, cout), gen)
+            names = ["x", "temb_proj", *w]
+            ref_out, ref = _grads_of(
+                lambda x, tp, w: resblock_reference(x, tp, w), x, temb, w, g)
+            for dtype in (torch.float32, torch.bfloat16):
+                label = f"resblock gradient {cin}->{cout} {_dn(dtype)}"
+                packed = pack_resblock(w, dtype)
+                before = fused_resblock.launches
+                kinds = []
+
+                def kernel(x, tp, w):
+                    out = fused_resblock(x, tp, w, packed=packed)
+                    kinds.append(type(out.grad_fn).__name__)
+                    return out
+
+                out, got = _grads_of(kernel, x.to(dtype), temb.to(dtype), w, g.to(dtype))
+                launches = fused_resblock.launches - before
+                if launches != 1 or kinds != ["FusedResblockBackward"]:
+                    raise AssertionError(f"{label}: {launches} launches, grad_fn {kinds}")
+                tol = TOL["resblock_f32" if dtype == torch.float32 else "bf16"]
+                entry = dict(launches=launches,
+                             out_err=_rel_check(f"{label} forward", out, ref_out, tol))
+                for name, a, r in zip(names, got, ref):
+                    scale = r.abs().max().item()
+                    if dtype == torch.float32:
+                        err = (a - r).abs().max().item()
+                        if not err <= TOL["grad_f32"] * scale:
+                            raise AssertionError(f"{label} d{name}: {err} > "
+                                                 f"{TOL['grad_f32']} x {scale}")
+                        entry[f"d{name}"] = err / scale
+                    else:
+                        cos = torch.nn.functional.cosine_similarity(
+                            a.float().flatten(), r.flatten(), dim=0).item()
+                        if not cos >= TOL["grad_bf16_cos"]:
+                            raise AssertionError(f"{label} d{name}: cosine {cos}")
+                        entry[f"d{name}"] = cos
+                res[label] = entry
+                log(label, **entry)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return res
+
+
 def phase_unet_kernels(timing: bool = True) -> dict:
     """Every UNet kernel against its twin at every shape of the path, batch
     64, f32 and bf16, with TF32 off; times where ``timing``."""
@@ -1192,7 +1290,7 @@ def phase_serving(cfg_path: Path, arch: str, f_shape, per_forward) -> dict:
     p50 = {}
     for b in pred.batch_buckets:
         lat = []
-        for _ in range(5 if b < 256 else 3):
+        for _ in range(3 if b < 256 else 2):  # cut from 5 and 3 for time
             t0 = time.perf_counter()
             pred.predict(walkers[:b])
             lat.append(1e3 * (time.perf_counter() - t0))
@@ -1517,6 +1615,90 @@ def check_gradients(cfg, arch: str, workdir: Path) -> dict:
     return res
 
 
+def train_state(tr) -> dict:
+    """A copy on the host of everything a checkpoint of ``tr`` holds."""
+    import copy
+
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    return copy.deepcopy(ckpt._to_cpu({
+        "params": tr.params, "ema_params": tr.ema_params, "step": tr.state.step,
+        "optimizer": tr.state.optimizer.state_dict()}))
+
+
+def hold_checkpoint(label: str, path, want: dict) -> dict:
+    """The checkpoint at ``path`` against a kept copy of the state
+    (:func:`train_state`): weights, EMA, step and Adam's state, bitwise."""
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    payload, _ = ckpt.load_checkpoint(path)
+    parts = [part for part in ("params", "ema_params") if want[part] is not None]
+    if ("ema_params" in payload) != ("ema_params" in parts):
+        raise AssertionError(f"{label}: EMA in the checkpoint: {'ema_params' in payload}")
+    bad = [f"{part}.{k}" for part in parts
+           for k, v in want[part].items() if not torch.equal(payload[part][k], v)]
+    opt, got = want["optimizer"], payload["optimizer"]
+    bad += [f"optimizer.{i}.{k}" for i, m in opt["state"].items() for k, v in m.items()
+            if not (torch.equal(got["state"][i][k], v) if isinstance(v, torch.Tensor)
+                    else got["state"][i][k] == v)]
+    if bad or payload["step"] != want["step"] or got["param_groups"] != opt["param_groups"]:
+        raise AssertionError(f"{label}: the checkpoint is not the kept state: "
+                             f"{bad[:8]}, step {payload['step']} vs {want['step']}")
+    return {"bitwise": True, "tensors": sum(len(want[p]) for p in parts)}
+
+
+def check_async_saves(tr, cfg, train_ds, workdir: Path) -> dict:
+    """Checkpoints on the card.  An async save raced by two more training
+    steps (Adam and the EMA update the saved tensors in place) loads
+    bitwise to the state of the call, in the bytes of a synchronous save of
+    that state; the save's ms on the loop (sync, async) and the commit's
+    ms; one more epoch's wall with async saves and one with sync ones."""
+    import filecmp
+
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+    from crowdmod_tpu_torch.train.trainer import StepDraws
+
+    save_dir = cfg.DATA_FS.SAVE_DIR
+    kept = train_state(tr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync = Path(tr.save(str(workdir / "sync"), "race"))
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    path = Path(tr.save(save_dir, "race", async_save=True))
+    async_ms = 1e3 * (time.perf_counter() - t0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    batches = train_ds.batches(cfg.DATASET.BATCH_SIZE, shuffle=False)
+    for _ in range(2):
+        tr._train_step(next(batches), StepDraws(generator=gen))
+    ckpt.wait_for_saves()
+    res = {"raced": hold_checkpoint(f"{tr.arch} async save raced by 2 steps", path, kept)}
+    for name in (ckpt.STATE_FILE, ckpt.METADATA_FILE):
+        if not filecmp.cmp(path / name, sync / name, shallow=False):
+            raise AssertionError(f"{tr.arch} async save: {name} differs from the sync save's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save(save_dir, "commit", async_save=True)
+    ckpt.wait_for_saves()
+    commit_ms = 1e3 * (time.perf_counter() - t0)
+    epoch_s = {}
+    save = tr.save
+    for mode in ("async", "sync"):
+        if mode == "sync":
+            tr.save = lambda *a, async_save=False, **kw: save(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit(train_ds, epochs=1)
+        torch.cuda.synchronize()
+        epoch_s[mode] = time.perf_counter() - t0
+    tr.save = save
+    res.update(same_bytes_as_sync=True, state_mb=(path / ckpt.STATE_FILE).stat().st_size / 2**20,
+               sync_save_ms=sync_ms, async_save_ms_on_loop=async_ms, commit_ms=commit_ms,
+               epoch_s=epoch_s, epoch_steps=TRAIN_STEPS)
+    log(f"checkpoints {tr.arch}", **res)
+    return res
+
+
 def phase_training(arch: str, workdir: Path) -> dict:
     """``Trainer.fit`` for one epoch and ``evaluate`` at full width, batch
     64, bf16, with the launch counts set to 0 just before and read just
@@ -1548,6 +1730,11 @@ def phase_training(arch: str, workdir: Path) -> dict:
     hist = tr.fit(train_ds, epochs=1)
     per_step = TRAIN_PER_STEP[arch](cfg)
     train_launches = check_launches(f"{arch} training", before, per_step, TRAIN_STEPS)
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+
+    # fit's best checkpoint, saved asynchronously after the last step.
+    fit_ckpt = hold_checkpoint(f"{arch} fit's async 000", Path(cfg.DATA_FS.SAVE_DIR) / ckpt.
+                               checkpoint_name(cfg, arch, "000"), train_state(tr))
     before = launch_counts()
     val = tr.evaluate(val_ds)  # one batch: one forward, the fused blocks included
     eval_launches = check_launches(f"{arch} evaluate", before, PER_FORWARD[arch](cfg), 1)
@@ -1581,7 +1768,12 @@ def phase_training(arch: str, workdir: Path) -> dict:
         path = {k: path[k] + tap_launches[k] for k in path}
     log(f"training {arch} ATC b{batch}", **res)
     if arch.startswith("DDPM"):  # the FM family's loss runs the same kernels
+        res["checkpoints"] = dict(fit_000=fit_ckpt,
+                                  **check_async_saves(tr, cfg, train_ds, workdir))
         res["gradients"] = check_gradients(cfg, arch, workdir)
+    if arch == "DDPM-UNet":
+        res["resblock_gradients"] = check_resblock_gradients(
+            torch.Generator(device=DEVICE).manual_seed(SEED + 18))
     res["path_launches"] = path
     return res
 
@@ -1638,14 +1830,17 @@ def write_pickle_workspace(workdir: Path):
     return cfg_path, list_path, load_config(str(cfg_path), str(list_path))
 
 
-def run_cli(*args) -> tuple[float, str]:
+def run_cli(*args, env=None) -> tuple[float, str]:
     """``python -m crowdmod_tpu_torch.cli *args --device DEVICE`` from this
-    checkout → (wall seconds, its standard output); raises on a non-zero
-    exit."""
+    checkout, ``env`` added to the environment → (wall seconds, its
+    standard output); raises on a non-zero exit."""
+    import os
+
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "crowdmod_tpu_torch.cli", *args,
                         "--device", DEVICE], capture_output=True, text=True,
-                       cwd=Path(__file__).resolve().parent, timeout=600)
+                       cwd=Path(__file__).resolve().parent, timeout=600,
+                       env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
     if r.returncode:
         raise RuntimeError(f"cli {args[0]} exited {r.returncode}:\n"
@@ -1808,6 +2003,40 @@ def check_forward_batch(cfg, arch: str, ckpt_path: str, past) -> dict:
     return res
 
 
+def train_checkpoint(workdir: Path, cfg) -> dict:
+    """``train``'s asynchronously saved checkpoint (the DiT's, phase 10)
+    against a kept copy of the state of the same ``fit`` in this process
+    (same seed and data, the command's TF32 switches), bitwise, and its
+    files against that fit's (also saved asynchronously) byte for byte; no
+    staged directory or sidecar left."""
+    import filecmp
+
+    from crowdmod_tpu_torch.data import ingest
+    from crowdmod_tpu_torch.train import checkpoint as ckpt
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    name = ckpt.checkpoint_name(cfg, "DDPM-DiT", "000")
+    save_dir = Path(cfg.DATA_FS.SAVE_DIR)
+    left = [p.name for p in save_dir.iterdir()
+            if p.name.endswith((ckpt.STAGE_SUFFIX, ckpt.SIDECAR_SUFFIX))]
+    kept_cfg = cfg.updated({"DATA_FS": {"SAVE_DIR": str(workdir / "kept")}})
+    train_ds, val_ds = ingest.get_training_dataset(kept_cfg, 3, seed=CLI_SEED, device=DEVICE)
+    tr = Trainer(kept_cfg, "DDPM-DiT", device=DEVICE, seed=CLI_SEED,
+                 run_dir=str(workdir / "kept_run"))
+    t0 = time.perf_counter()
+    with command_precision():
+        tr.fit(train_ds, val_ds, epochs=1)
+    fit_s = time.perf_counter() - t0
+    res = hold_checkpoint("train's async checkpoint", save_dir / name, train_state(tr))
+    same = [f for f in (ckpt.STATE_FILE, ckpt.METADATA_FILE) if filecmp.cmp(
+        save_dir / name / f, workdir / "kept" / name / f, shallow=False)]
+    if left or len(same) != 2:
+        raise AssertionError(f"train's checkpoint: left {left}, same files {same}")
+    res.update(same_files_as_in_process_fit=same, in_process_fit_s=fit_s)
+    log("cli DDPM-DiT: train's async checkpoint", **res)
+    return res
+
+
 def phase_cli(workdir: Path) -> dict:
     """Phase 10.  The DiT through ``train`` and ``generate-metrics``, each a
     subprocess whose launches come from the command's log line; the UNet's
@@ -1848,6 +2077,7 @@ def phase_cli(workdir: Path) -> dict:
         generate_metrics_wall_s=gen_s, protocol=logged(gen_out, "metric protocol: "),
         train_windows=logged(train_out, "train windows: "), epoch=events[0],
         csv_files=files, launches=paths["cli DDPM-DiT"])
+    train_checkpoint(workdir, cfg)
 
     # The UNet: Trainer.generate_metrics in this process, seeded random
     # weights (EMA = weights).
@@ -1924,7 +2154,8 @@ FM_F32_STEPS = 25      # the f32 Euler chain held against the twins
 RF_COUPLING_STEPS = 4  # the teacher's Euler steps in phase 10's reflow
 RF_EULER_STEPS = 4     # the RF1 checkpoint's sampler
 FM_UNET_METRIC_STEPS = 50  # FM-UNet's protocol: Euler cut from 1000
-FM_DIT_METRIC_STEPS = 250  # FM-DiT's generate-metrics: Euler cut from 1000 for phase 16
+FM_DIT_METRIC_STEPS = 100  # FM-DiT's generate-metrics: Euler cut from 1000 for time
+FM_SERVE_STEPS = 250  # phase 11's Euler serving: cut from the configured 1000 for time
 
 
 def fm_forwards(cfg, requests: int) -> int:
@@ -1993,7 +2224,7 @@ def serve_buckets(pred, arch: str, f_shape, buckets, label: str, p50_buckets=Non
 
 def phase_fm_serving(cfg, cfg_path: Path, arch: str, ckpt_path: str, f_shape) -> dict:
     """``load_predictor`` at buckets 1 and 64 and a ``BatchingQueue`` at
-    Euler 1000, the p50 of ``FM_P50_BUCKETS``, a profiled batch-64 request,
+    the configured Euler steps, the p50 of ``FM_P50_BUCKETS``, a profiled batch-64 request,
     then one Heun request of ``FM_HEUN_STEPS``; launches held per
     forward."""
     from crowdmod_tpu_torch.serving import Predictor, load_predictor
@@ -2085,11 +2316,12 @@ def phase_fm_end_to_end(cfg, arch: str, ckpt_path: str) -> dict:
 
 def phase_fm(tmp: Path, cfg) -> dict:
     """Phase 11, each FM model at the serving config's width: serving
-    (Euler 1000 and Heun), the f32 check, then training; → each
-    model's path launches (serving, then training)."""
+    (Euler at ``FM_SERVE_STEPS`` and Heun), the f32 check, then training;
+    → each model's path launches (serving, then training)."""
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
 
     f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    cfg = cfg.updated({"MODEL": {"FM": {"INTEGRATOR_STEPS": {"EULER": FM_SERVE_STEPS}}}})
     paths = {}
     for arch in ("FM-DiT", "FM-UNet"):
         work = tmp / arch
@@ -2305,7 +2537,7 @@ def phase_unet_distill(cli_dir: Path) -> dict:
     """One UNet ``progressive_distill`` phase in this process (4 steps, one
     epoch of phase 10's training windows, seeded random weights): ms per
     step and launches held per step (two fused teacher forwards, one
-    unfused student forward)."""
+    fused student forward)."""
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.data import ingest
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
@@ -2334,9 +2566,9 @@ def phase_unet_distill(cli_dir: Path) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = len(stamps)
-    per_step = {k: 2 * v for k, v in PER_FORWARD[arch](cfg).items()}
-    for k, v in TRAIN_PER_STEP[arch](cfg).items():
-        per_step[k] = per_step.get(k, 0) + v
+    # The student is in eval mode, so its level-0 blocks fuse too (the
+    # kernel forward, the twin's VJP backward): three fused forwards a step.
+    per_step = {k: 3 * v for k, v in PER_FORWARD[arch](cfg).items()}
     launches = hold_launches("UNet progressive_distill", launch_counts(), per_step, steps)
     if not (steps == len(train_ds) // cfg.DATASET.BATCH_SIZE
             and np.isfinite(hist["loss"][DISTILL_TARGET]).all()):
@@ -2520,9 +2752,9 @@ def phase_convrnn(tmp: Path, cfg) -> dict:
 
 EXPORT_BUCKETS = (1, 64)
 SERVE_BUCKETS = (1, 8, 64)
-SERVE_REPS = 5       # sequential HTTP requests a bucket for the p50
+SERVE_REPS = 3       # sequential HTTP requests a bucket for the p50 (cut from 5)
 BURST = 16           # concurrent one-row requests a model (coalescing)
-ARTIFACT_REPS = 3    # artifact and Predictor requests a bucket, in turns (cut from 5)
+ARTIFACT_REPS = 1    # artifact and Predictor requests a bucket, in turns (cut from 5, then 3, 2)
 DEPLOY_SEED = 3
 # Exports beside each model's serving sampler and the DiT's T = 1000 chain:
 # name → (arch, the sampler's config overrides, bucket).
@@ -2532,6 +2764,13 @@ EXTRA_EXPORTS = {
     "DDPM-UNet Distilled-eta:1.0:8": ("DDPM-UNet", "Distilled-eta:1.0:8", 64),
     "DDPM-DiT DDIM-eta mass": ("DDPM-DiT", MASS, 1),
 }
+# Phase 14's export processes and the two commands beside them share the
+# host's cores: one intra-op thread each, not a pool each that contend.
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+# Cross-device exports: (name, bucket) of an export above, exported again in
+# a process that sees no card (``--device cpu --platform cuda``) and held to
+# the artifact exported on the card.
+CROSS_EXPORTS = (("DDPM-UNet", 64), ("DDPM-DiT T1000", 64))
 
 
 def scan_extra_calls() -> int:
@@ -2592,9 +2831,12 @@ def http(base: str, path: str, payload=None, timeout: float = 600):
         return code, body
 
 
-def start_server(*args) -> tuple[subprocess.Popen, str, list]:
+def start_server(*args, wait: bool = True) -> tuple:
     """``python -m crowdmod_tpu_torch.cli serve *args`` on a free port →
-    (process, base URL, the /healthz codes seen until it answered 200)."""
+    (process, base URL, the /healthz codes seen until it answered 200).
+    The codes are polled on a thread from the start; with ``wait=False``
+    the third element is instead ``ready()``, which waits for that thread
+    and returns them (the server starts while other work runs)."""
     import socket
 
     with socket.socket() as sock:
@@ -2607,20 +2849,33 @@ def start_server(*args) -> tuple[subprocess.Popen, str, list]:
         cwd=Path(__file__).resolve().parent, stdout=log_file,
         stderr=subprocess.STDOUT, text=True)
     proc.log_file = log_file
-    base, seen = f"http://127.0.0.1:{port}", []
-    deadline = time.perf_counter() + 300
-    while time.perf_counter() < deadline and proc.poll() is None:
-        try:
-            code = http(base, "/healthz", timeout=5)[0]
-        except OSError:
-            code = None  # not listening yet
-        if code is not None and (not seen or seen[-1] != code):
-            seen.append(code)
-        if code == 200:
-            return proc, base, seen
-        time.sleep(0.05)
-    proc.kill()
-    raise RuntimeError(f"serve never became ready:\n{server_log(proc)[-4000:]}")
+    base, seen, up = f"http://127.0.0.1:{port}", [], threading.Event()
+
+    def poll():
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline and proc.poll() is None:
+            try:
+                code = http(base, "/healthz", timeout=5)[0]
+            except OSError:
+                code = None  # not listening yet
+            if code is not None and (not seen or seen[-1] != code):
+                seen.append(code)
+            if code == 200:
+                up.set()
+                return
+            time.sleep(0.05)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+
+    def ready() -> list:
+        thread.join()
+        if not up.is_set():
+            proc.kill()
+            raise RuntimeError(f"serve never became ready:\n{server_log(proc)[-4000:]}")
+        return seen
+
+    return (proc, base, ready) if not wait else (proc, base, ready())
 
 
 def server_log(proc) -> str:
@@ -2645,18 +2900,29 @@ def model_metric(text: str, name: str, model: str) -> float:
     return float(next(ln for ln in text.splitlines() if ln.startswith(label)).split()[-1])
 
 
-def phase_serve_command(cfg, cfg_path: Path, walkers, f_shape) -> dict:
-    """``serve`` with both DDPM models: /healthz 503 then 200; p50 of the
-    HTTP latency per bucket; a concurrent burst (coalescing, from
-    /metrics); a seeded request twice; SIGTERM → drained, exit 0; the
-    launches from its log line held to 25 forwards a predictor call."""
+SERVE_ARCHS = ("DDPM-DiT", "DDPM-UNet")
+
+
+def launch_serve_command(cfg_path: Path) -> tuple:
+    """``serve`` with both DDPM models, started (:func:`start_server`,
+    ``wait=False``)."""
+    return start_server("--arch", SERVE_ARCHS[0], "--extra-arch", SERVE_ARCHS[1],
+                        "--config-yml-file", str(cfg_path), "--batch-buckets",
+                        *map(str, SERVE_BUCKETS), wait=False)
+
+
+def phase_serve_command(cfg, server, walkers, f_shape) -> dict:
+    """``serve`` with both DDPM models (``server``: from
+    :func:`launch_serve_command`): /healthz 503 then 200; p50 of the HTTP
+    latency per bucket; a concurrent burst (coalescing, from /metrics); a
+    seeded request twice; SIGTERM → drained, exit 0; the launches from its
+    log line held to 25 forwards a predictor call."""
     from concurrent.futures import ThreadPoolExecutor
 
-    archs = ("DDPM-DiT", "DDPM-UNet")
-    proc, base, seen = start_server(
-        "--arch", archs[0], "--extra-arch", archs[1], "--config-yml-file", str(cfg_path),
-        "--batch-buckets", *map(str, SERVE_BUCKETS))
+    archs = SERVE_ARCHS
+    proc, base, ready = server
     try:
+        seen = ready()
         if seen[0] != 503:
             raise AssertionError(f"/healthz before warmup: {seen} (expected 503 first)")
         res = {"healthz": seen, "p50_ms": {}}
@@ -2705,18 +2971,28 @@ def phase_serve_command(cfg, cfg_path: Path, walkers, f_shape) -> dict:
 
 def start_exports(workdir: Path, jobs) -> dict:
     """``export`` as one process an artifact, all at once; ``jobs`` are
-    (name, arch, config path, bucket) → {(name, bucket): (process, output
-    path)}."""
+    (name, arch, config path, bucket[, cross]) →
+    {(name, bucket): (process, output path)}.  A ``cross`` job exports the card's program from a
+    process that sees no card (``CUDA_VISIBLE_DEVICES`` empty, ``--device
+    cpu --platform cuda``), under the name ``"<name> cross"``."""
+    import os
+
     procs = {}
-    for name, arch, path, b in jobs:
+    for name, arch, path, b, *cross in jobs:
+        name = f"{name} cross" if cross and cross[0] else name
         out = workdir / "artifacts" / f"{name.replace(' ', '_')}.b{b}.pt2"
         log_file = tempfile.TemporaryFile("w+")
+        device = ["--device", "cpu", "--platform", "cuda"] if name.endswith(" cross") \
+            else ["--device", DEVICE]
+        env = {**os.environ, **ONE_THREAD}
+        if name.endswith(" cross"):
+            env["CUDA_VISIBLE_DEVICES"] = ""
         proc = subprocess.Popen(
             [sys.executable, "-m", "crowdmod_tpu_torch.cli", "export", "--arch", arch,
              "--config-yml-file", str(path), "--batch", str(b), "--output", str(out),
-             "--device", DEVICE],
+             *device],
             cwd=Path(__file__).resolve().parent, stdout=log_file,
-            stderr=subprocess.STDOUT, text=True)
+            stderr=subprocess.STDOUT, text=True, env=env)
         proc.log_file = log_file
         procs[(name, b)] = (proc, out)
     return procs
@@ -2727,6 +3003,7 @@ def finish_exports(procs: dict) -> dict:
     export seconds (from the command's log) and sidecar."""
     artifacts = {}
     for key, (proc, out) in procs.items():
+        proc.wait(timeout=900)  # server_log's own wait is 120 s
         stdout = server_log(proc)
         if proc.returncode:
             raise RuntimeError(f"export {key} exited {proc.returncode}:\n{stdout[-4000:]}")
@@ -2762,19 +3039,21 @@ def hold_artifact(label, out, ref) -> dict:
     return {"bitwise": False, "max_abs_diff": diff}
 
 
-def phase_artifacts(configs: dict, ckpts: dict, artifacts: dict, walkers, extra: int) -> dict:
+def phase_artifacts(configs: dict, ckpts: dict, artifacts: dict, walkers, extra: int,
+                    outputs: dict | None = None) -> dict:
     """Each artifact in this process (``configs``: export name → its
     config): its crowdmod:: nodes, load seconds, one request's launches held
     to (forwards + ``extra``) forwards, its output against the un-exported
-    ``sampler_fn`` (same seed), p50 per bucket in turns with the
-    ``Predictor`` on the same checkpoint and sampler (not the T = 1000
-    chain), the busy share of a batch-64 request.  → each artifact's
-    numbers."""
+    ``sampler_fn`` (same seed; kept in ``outputs`` by (name, bucket)), p50
+    per bucket in turns with the ``Predictor`` on the same checkpoint and
+    sampler (not the T = 1000 chain), the busy share of a batch-64 request.
+    → each artifact's numbers."""
     from crowdmod_tpu_torch.export_artifact import load_sampler, sampler_fn
     from crowdmod_tpu_torch.serving import Predictor
     from crowdmod_tpu_torch.train.trainer import Trainer
 
     res = {}
+    outputs = {} if outputs is None else outputs
     for name, c in configs.items():
         arch = name.split()[0]
         ancestral = c.MODEL.DDPM.SAMPLER == "DDPM"
@@ -2795,10 +3074,9 @@ def phase_artifacts(configs: dict, ckpts: dict, artifacts: dict, walkers, extra:
             before = launch_counts()
             out = sample(past, DEPLOY_SEED)
             torch.cuda.synchronize()
-            want = per_request(c, arch, steps + extra)
-            if arch == "DDPM-DiT" and ancestral:
-                want["fused_ancestral_update"] = steps + extra
+            want = request_launches(c, name, extra)
             launches = check_launches(f"artifact {name} b{b}", before, want, 1)
+            outputs[(name, b)] = out
             ref = direct(past, torch.tensor(DEPLOY_SEED))
             torch.cuda.synchronize()
             entry = dict(sampler=c.MODEL.DDPM.SAMPLER, guidance=c.MODEL.DDPM.GUIDANCE,
@@ -2825,6 +3103,52 @@ def phase_artifacts(configs: dict, ckpts: dict, artifacts: dict, walkers, extra:
     return res
 
 
+def request_launches(c, name: str, extra: int) -> dict:
+    """The launches one request of export ``name`` (config ``c``) makes."""
+    arch = name.split()[0]
+    steps = request_forwards(c)
+    want = per_request(c, arch, steps + extra)
+    if arch == "DDPM-DiT" and c.MODEL.DDPM.SAMPLER == "DDPM":
+        want["fused_ancestral_update"] = steps + extra
+    return want
+
+
+def phase_cross(configs: dict, artifacts: dict, outputs: dict, walkers, extra: int) -> dict:
+    """Each cross-device artifact (the card's program exported by a process
+    that saw no card) on the card: its sidecar names ``cuda`` alone, its
+    graph holds the ``crowdmod::`` nodes of the artifact exported on the
+    card from the same checkpoint, one request launches what that
+    artifact's does (held exactly), and its future equals that artifact's
+    for the same bucket and seed, bitwise."""
+    from crowdmod_tpu_torch.export_artifact import load_sampler
+
+    res = {}
+    for name, b in CROSS_EXPORTS:
+        card, cross = artifacts[(name, b)], artifacts[(f"{name} cross", b)]
+        label = f"cross artifact {name} b{b}"
+        nodes, card_nodes = crowdmod_nodes(cross["path"]), crowdmod_nodes(card["path"])
+        if cross["meta"]["platforms"] != ["cuda"] or nodes != card_nodes:
+            raise AssertionError(f"{label}: platforms {cross['meta']['platforms']}, "
+                                 f"nodes {nodes} vs the card's {card_nodes}")
+        t0 = time.perf_counter()
+        sample, _ = load_sampler(cross["path"])
+        load_s = time.perf_counter() - t0
+        past = torch.from_numpy(walkers[:b]).to(DEVICE)
+        before = launch_counts()
+        out = sample(past, DEPLOY_SEED)
+        torch.cuda.synchronize()
+        launches = check_launches(label, before, request_launches(configs[name], name, extra), 1)
+        if not torch.equal(out, outputs[(name, b)]):
+            raise AssertionError(f"{label}: differs from the card's export by "
+                                 f"{(out - outputs[(name, b)]).abs().max().item()}")
+        res[f"{name} b{b}"] = entry = dict(
+            bitwise=True, export_s=cross["export_s"], card_export_s=card["export_s"],
+            bytes=cross["meta"]["bytes"], card_bytes=card["meta"]["bytes"], load_s=load_s,
+            nodes=nodes, launches=launches)
+        log(label, **entry)
+    return res
+
+
 def hold_seeded(label, got, want) -> dict:
     """A seeded ``Predictor`` request (the eager sampler) against the
     artifact's future for the same seed: bitwise, else within the bf16
@@ -2843,17 +3167,24 @@ def hold_seeded(label, got, want) -> dict:
                       "(bf16 compute), and the chain carries the difference"}
 
 
-def phase_artifact_server(cfg, ckpt_path: str, artifacts: dict, walkers, f_shape,
+def launch_artifact_server(artifacts: dict) -> tuple:
+    """``serve --artifact`` with the DiT's two buckets, started
+    (:func:`start_server`, ``wait=False``)."""
+    paths = [str(artifacts[("DDPM-DiT", b)]["path"]) for b in EXPORT_BUCKETS]
+    return start_server("--arch", "DDPM-DiT", "--artifact", *paths, wait=False)
+
+
+def phase_artifact_server(cfg, ckpt_path: str, server, walkers, f_shape,
                           extra: int) -> dict:
-    """``serve --artifact`` with the DiT's two buckets: one seeded request of
-    2 rows (padded to 64), held to the same request to a ``Predictor`` of
-    the checkpoint the artifacts came from (the seed check), SIGTERM → exit
-    0, launches from its log."""
+    """``serve --artifact`` (``server``: from :func:`launch_artifact_server`):
+    one seeded request of 2 rows (padded to 64), held to the same request
+    to a ``Predictor`` of the checkpoint the artifacts came from (the seed
+    check), SIGTERM → exit 0, launches from its log."""
     from crowdmod_tpu_torch.serving import Predictor
 
-    paths = [str(artifacts[("DDPM-DiT", b)]["path"]) for b in EXPORT_BUCKETS]
-    proc, base, seen = start_server("--arch", "DDPM-DiT", "--artifact", *paths)
+    proc, base, ready = server
     try:
+        seen = ready()
         code, body = http(base, "/predict", {"past": walkers[:2].tolist(), "seed": 5})
         out = np.asarray(body["future"]) if code == 200 else None
         if out is None or out.shape != (2,) + f_shape or not np.isfinite(out).all():
@@ -2886,7 +3217,8 @@ def phase_import(cfg, workdir: Path, ckpt_path: str, walkers) -> dict:
     torch.save({"opt": {}, "model": payload["ema_params"]}, ref_pt)
     cfg_path = workdir / "ATC.yml"
     wall, out = run_cli("import-checkpoint", "--arch", "DDPM-DiT", "--config-yml-file",
-                        str(cfg_path), "--torch-ckpt", str(ref_pt), "--epoch-label", "001")
+                        str(cfg_path), "--torch-ckpt", str(ref_pt), "--epoch-label", "001",
+                        env=ONE_THREAD)
     imported = out.strip().splitlines()[-1]
     meta = ckpt.read_metadata(imported)
     if meta["source"] != f"torch-import:{ref_pt.resolve()}":
@@ -2904,8 +3236,11 @@ def phase_import(cfg, workdir: Path, ckpt_path: str, walkers) -> dict:
     return res
 
 
-def phase_params(cfg_path: Path) -> dict:
-    wall, out = run_cli("params", "--all-archs", "--config-yml-file", str(cfg_path))
+def phase_params(proc, t0: float) -> dict:
+    """``params --all-archs``, started at ``t0`` as ``proc``
+    (:func:`start_cli`): every model's count."""
+    out = finish_cli(proc, "params --all-archs")
+    wall = time.perf_counter() - t0
     totals = {ln.split(":")[0]: int(ln.split(":")[1].split()[0].replace(",", ""))
               for ln in out.splitlines() if "trainable params" in ln}
     if len(totals) != 5 or not all(totals.values()):
@@ -2915,15 +3250,18 @@ def phase_params(cfg_path: Path) -> dict:
     return res
 
 
-def phase_deploy(tmp: Path, cfg) -> dict:
-    """Phase 14 → its paths' launch counts (each read from its own run)."""
+def on_card(artifacts: dict) -> dict:
+    return {k: a for k, a in artifacts.items() if not k[0].endswith(" cross")}
+
+
+def deploy_setup(tmp: Path, cfg):
+    """Phase 14's checkpoints of both models, the configs of its exports and
+    the export jobs, and the walkers whose pasts its requests take."""
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
-    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
 
     work = tmp / "deploy"
     work.mkdir()
-    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
     ckpts = {}
     for arch in ("DDPM-DiT", "DDPM-UNet"):
         cfg_path, ckpts[arch] = write_checkpoint(cfg, arch, work)
@@ -2938,31 +3276,89 @@ def phase_deploy(tmp: Path, cfg) -> dict:
         configs[name] = (cfg.updated(sampler) if isinstance(sampler, dict)
                          else fast_config(cfg, sampler))
         jobs.append((name, arch, write_config(configs[name], work / f"extra{k}.yml"), b))
+    jobs += [(*job, True) for job in jobs if tuple(job[::3]) in CROSS_EXPORTS]
     p, f, h, w = (cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS,
                   cfg.MACROPROPS.COLS)
     walkers = synthetic_walkers(64, h, w, p + f)[:, :p]
+    return work, cfg, cfg_path, ckpts, configs, jobs, walkers
+
+
+def phase_cross_device(tmp: Path, cfg) -> dict:
+    """``--cross-device``: phase 14's cross-device checks alone: the
+    exports :data:`CROSS_EXPORTS` names, on the card and from a process
+    that sees no card, each on-card artifact in this process
+    (:func:`phase_artifacts`), then :func:`phase_cross`."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    work, cfg, _, ckpts, configs, jobs, walkers = deploy_setup(tmp, cfg)
+    jobs = [job for job in jobs if tuple(job[::3]) in CROSS_EXPORTS]
+    extra = scan_extra_calls()
+    t0 = time.perf_counter()
+    artifacts = finish_exports(start_exports(work, jobs))
+    export_wall = time.perf_counter() - t0
+    outputs = {}
+    phase_artifacts({name: configs[name] for name, _ in CROSS_EXPORTS}, ckpts,
+                    on_card(artifacts), walkers, extra, outputs)
+    reset_launch_counts()  # the cross-device artifacts' path
+    res = phase_cross(configs, artifacts, outputs, walkers, extra)
+    log("cross-device exports", wall_s=export_wall, processes=len(artifacts),
+        launches=launch_counts())
+    return res
+
+
+def phase_deploy(tmp: Path, cfg) -> dict:
+    """Phase 14 → its paths' launch counts (each read from its own run)."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    work, cfg, cfg_path, ckpts, configs, jobs, walkers = deploy_setup(tmp, cfg)
+    f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
     extra = scan_extra_calls()
     log("scan", extra_body_calls=extra, torch=torch.__version__)
 
     # The exports trace on the host; import-checkpoint and params run
-    # meanwhile.  Nothing timed runs until they are done.
+    # meanwhile, each a process.  Nothing timed runs until they are done.
     t0 = time.perf_counter()
     procs = start_exports(work, jobs)
+    params = start_cli("params", "--all-archs", "--config-yml-file", str(cfg_path),
+                       env=ONE_THREAD)
+    server = launch_serve_command(cfg_path)  # starts up meanwhile; measured after
     try:
-        phase_import(cfg, work, ckpts["DDPM-DiT"], walkers)
-        phase_params(cfg_path)
-    finally:
-        artifacts = finish_exports(procs)
-    export_wall = time.perf_counter() - t0
+        try:
+            phase_import(cfg, work, ckpts["DDPM-DiT"], walkers)
+            phase_params(params, t0)
+        finally:
+            artifacts = finish_exports(procs)
+    except BaseException:
+        server[0].kill()
+        raise
+    parts = {"exports, import-checkpoint, params": time.perf_counter() - t0}
     paths = {}
-    serve = phase_serve_command(cfg, cfg_path, walkers, f_shape)
-    paths["serve command"] = serve["launches"]
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    paths["serve command"] = part("serve command", phase_serve_command, cfg, server,
+                                  walkers, f_shape)["launches"]
     reset_launch_counts()  # the artifacts' path, in this process
-    phase_artifacts(configs, ckpts, artifacts, walkers, extra)
+    outputs = {}
+    part("artifacts", phase_artifacts, configs, ckpts, on_card(artifacts), walkers, extra,
+         outputs)
     paths["artifacts"] = launch_counts()
-    paths["serve --artifact"] = phase_artifact_server(cfg, ckpts["DDPM-DiT"], artifacts,
-                                                      walkers, f_shape, extra)["launches"]
-    log("deploy exports", wall_s=export_wall, processes=len(artifacts),
+    server = launch_artifact_server(artifacts)  # starts up during the cross checks
+    reset_launch_counts()  # the cross-device artifacts' path
+    try:
+        part("cross artifacts", phase_cross, configs, artifacts, outputs, walkers, extra)
+    except BaseException:
+        server[0].kill()
+        raise
+    paths["cross artifacts"] = launch_counts()
+    paths["serve --artifact"] = part("serve --artifact", phase_artifact_server, cfg,
+                                     ckpts["DDPM-DiT"], server, walkers, f_shape,
+                                     extra)["launches"]
+    log("deploy exports", seconds=parts, processes=len(artifacts),
         export_s={f"{n} b{b}": a["export_s"] for (n, b), a in artifacts.items()},
         bytes={f"{n} b{b}": a["meta"]["bytes"] for (n, b), a in artifacts.items()})
     paths = {f"14 {k}": v for k, v in paths.items()}
@@ -3102,7 +3498,7 @@ def phase_data(tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 STREAM_SEQS = 96  # sequences a stream file: 192 windows, 3 batches of 64
-DP_P50_REPS = 3   # batch-64 requests a predictor, each predictor's in a block
+DP_P50_REPS = 2   # batch-64 requests a predictor, each predictor's in a block (cut from 3)
 # Why a data-parallel series may part from its plain reference in the last
 # bits (held then within 1e-6 relative, the reason printed with the numbers).
 DP_REASON = {
@@ -4490,6 +4886,12 @@ def main() -> int:
         log("commands done", seconds=time.perf_counter() - t_start,
             phase_17_s=time.perf_counter() - t0)
         return 0
+    if sys.argv[1:] == ["--cross-device"]:
+        cfg = load_config("serving/ATC.yml")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_cross_device(Path(tmp), cfg)
+        log("cross-device done", seconds=time.perf_counter() - t_start)
+        return 0
     if sys.argv[1:] == ["--parallel"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_cli(Path(tmp) / "cli")
@@ -4513,6 +4915,8 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        log("phase done", name=name, seconds=seconds[name],
+            since_start=time.perf_counter() - t_start)
         return out
 
     kernels = timed("2 kernels", phase_kernels)

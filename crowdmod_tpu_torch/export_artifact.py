@@ -19,33 +19,48 @@ checkpoint.  On the card the program calls the port's kernels as the
     chain's noise is drawn up front: at T = 1000 and batch 64 it would be
     about 1 GB.
   * **One loop**: every sampler's steps run under
-    ``torch._higher_order_ops.scan``, so the program holds one traced step
-    whatever the step count (T = 1000 ancestral included), as the JAX
-    package exports its ``fori_loop``.  The per-step coefficients and
+    ``torch._higher_order_ops.scan`` while exporting, so the program holds
+    one traced step whatever the step count (T = 1000 ancestral
+    included), as the JAX package exports its ``fori_loop``; called
+    directly, :class:`SamplerModule` runs the same step in a Python loop.  The per-step coefficients and
     timesteps are the scan's inputs, tables computed on the host with the
     float32 arithmetic of the eager samplers (:mod:`..models.diffusion`).
     The model is a frozen copy whose conv and fused-block packs are made
     once, before the trace (``UNet3D.pin_packs``).
-  * ``--device``: an artifact exported on the card runs on a card; one
-    exported on the CPU runs the kernels' plain twins.
+  * **Platforms** (the JAX package's ``platforms``): an artifact holds a
+    program for each platform it was exported for, ``cuda`` (the card:
+    the ``crowdmod::`` operators, bf16 compute where the config asks for
+    it, tanh-GELU, the pinned conv and fused-block packs) or ``cpu`` (the
+    kernels' plain twins, float32, exact GELU), by default the device of
+    the exporting trainer.  :func:`load_sampler` runs the program of the
+    current device, and refuses an artifact that has none.
+  * **Cross-device export** (``export --platform cuda`` on a host without
+    a card): the program is traced on ``meta`` tensors under
+    :func:`~crowdmod_tpu_torch.ops.kernels.library.tracing_for`, so every
+    device-dependent choice is the card's, and its devices are then
+    rewritten ``meta`` → ``cuda:0``.  (A CPU build of torch cannot trace
+    fake CUDA tensors: indexing and matmul set a CUDA device guard.)  The
+    weights stay on the host in the saved program and move to the card at
+    load (:func:`_place`), so no CUDA device is queried while exporting;
+    the kernels' plans are made in the operators' CUDA implementations, at
+    run time.
 
 Every sampler exports: DDPM (ancestral; guidance None, Sparsity or mass
 preservation, its closed-form gradient in the loop), DDIM (None or
 Sparsity), DDIM-eta (any guidance), DPM-Solver++(2M) (the carry holds the
 previous x0 prediction), Distilled (η = 0 or η > 0), the flow-matching Euler
-and Heun integrators, and the ConvRNN rollout.  An artifact is exported for
-the device the command runs on: ``--platform`` (the JAX package's
-cross-device export) exits 2 naming ROADMAP.md Queue 1 item 14.
+and Heun integrators, and the ConvRNN rollout.
 """
 
 from __future__ import annotations
 
 import copy
+import io
 import json
 import os
-import sys
 import threading
 import time
+import zipfile
 from typing import Callable, Sequence
 
 import numpy as np
@@ -53,16 +68,42 @@ import torch
 from torch import nn
 
 from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update
-from crowdmod_tpu_torch.ops.kernels.library import normal
+from crowdmod_tpu_torch.ops.kernels.library import normal, tracing_for
+
+PLATFORMS = ("cpu", "cuda")
+MULTI_FORMAT = "torch.export, a program a platform"  # a zip of <platform>.pt2
+
+
+def _sampling_model(trainer, platform: str) -> nn.Module:
+    """A frozen copy of the trainer's sampling weights as ``platform``'s
+    program computes with them: in that platform's compute dtype, on the
+    CPU for a CPU program, else where the trainer's weights are."""
+    from crowdmod_tpu_torch.models import factory
+    from crowdmod_tpu_torch.train.trainer import platform_compute_dtype
+
+    source = trainer._sample_model()
+    dtype = (trainer.compute_dtype if platform == trainer.device.type
+             else platform_compute_dtype(trainer.cfg, platform))
+    if dtype == trainer.compute_dtype:
+        model = copy.deepcopy(source)
+    else:
+        model = factory.build_backbone(trainer.cfg, trainer.arch, trainer.mprops_count,
+                                       dtype=dtype, conv_impl=trainer.conv_impl)
+        model.load_state_dict(source.state_dict())
+    device = "cpu" if platform == "cpu" else trainer.device
+    return model.to(device).eval().requires_grad_(False)
+
 
 class SamplerModule(nn.Module):
     """A trainer's configured sampler as ``(past, seed) → future``, over a
-    frozen copy of its sampling weights.  Called directly it is the
-    un-exported sampler the artifact is held to: both run the same scan."""
+    frozen copy of its sampling weights, as ``platform``'s program (default:
+    the trainer's device's).  Called directly it is the un-exported sampler
+    the artifact is held to: both run the same step over the same tables."""
 
-    def __init__(self, trainer):
+    def __init__(self, trainer, platform: str | None = None):
         super().__init__()
-        model = copy.deepcopy(trainer._sample_model()).eval().requires_grad_(False)
+        self.platform = platform or trainer.device.type
+        model = _sampling_model(trainer, self.platform)
         if hasattr(model, "pin_packs"):
             model.pin_packs()
         self.model = model
@@ -70,6 +111,7 @@ class SamplerModule(nn.Module):
         _, f, h, w = trainer._grid_shapes()
         self.future_shape = (f, h, w, trainer.mprops_count)
         self.x0_prev = False  # DPM-Solver's carry holds the previous x0
+        self.host_buffers: set[str] = set()  # read on the host in every program
         if self.family != "ConvRNN":
             device = next(model.parameters()).device
             self._register("start", np.int64(-1))  # x_T's draw
@@ -80,6 +122,8 @@ class SamplerModule(nn.Module):
         """A (non-persistent) buffer from an array or tensor, on ``device``
         or on the host: a trace reads a module's tensors as its own."""
         t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+        if device is None:
+            self.host_buffers.add(name)
         self.register_buffer(name, t if device is None else t.to(device), persistent=False)
 
     def _denoiser(self, trainer, device) -> Callable:
@@ -141,7 +185,7 @@ class SamplerModule(nn.Module):
         check_sampler_guidance(node)
         if sampler == "DDPM":
             ts = np.arange(sched.timesteps - 1, -1, -1)
-            self._register("rows", ancestral_coefficients(sched, device).flip(0))
+            self._register("rows", ancestral_coefficients(sched, device).flip(0), device)
             self._register("z_scale", (ts > 0).astype(np.float32), device)  # z = 0 at t = 0
             if guidance == "mass_preservation":
                 # The composite step of ``ddpm_sample``: strength 1 − α_t = β_t.
@@ -224,7 +268,13 @@ class SamplerModule(nn.Module):
             x = draw(self.start)
             carry = (x, torch.zeros_like(x)) if self.x0_prev else (x,)
             xs = tuple(getattr(self, name) for name in self.tables)
-            return scan(body, carry, xs)[0][0]
+            if torch.compiler.is_compiling():
+                return scan(body, carry, xs)[0][0]
+            # Called directly, the same step a row at a time: an eager scan
+            # compiles its body with dynamo for every module and shape.
+            for row in zip(*xs):
+                carry = self.step(carry, past, draw, *row)
+            return carry[0]
 
 
 def dpm_rows(sched, steps: int) -> tuple[np.ndarray, np.ndarray]:
@@ -302,23 +352,37 @@ def sampler_fn(trainer) -> SamplerModule:
     return SamplerModule(trainer)
 
 
-def export_sampler(trainer, path: str | os.PathLike, *, batch_size: int) -> dict:
+def export_sampler(trainer, path: str | os.PathLike, *, batch_size: int,
+                   platforms: Sequence[str] | None = None) -> dict:
     """Export the trainer's sampler at ``batch_size`` to ``path`` (+ a
-    ``.json`` sidecar), on the trainer's device; returns the sidecar."""
+    ``.json`` sidecar), a program for each of ``platforms`` (default: the
+    trainer's device's); returns the sidecar.  One platform's artifact is
+    that program's ``torch.export`` archive, several platforms' a zip of
+    one archive each, ``<platform>.pt2``."""
     from torch._export.serde.schema import SCHEMA_VERSION
 
+    platforms = list(dict.fromkeys(platforms or [trainer.device.type]))
+    for platform in platforms:
+        if platform not in PLATFORMS:
+            raise ValueError(f"unknown platform {platform!r}; expected one of {PLATFORMS}")
     p, f, h, w = trainer._grid_shapes()
     c = trainer.mprops_count
-    past = torch.zeros((batch_size, p, h, w, c), device=trainer.device)
-    seed = torch.tensor(0, dtype=torch.int64)
-    program = torch.export.export(sampler_fn(trainer), (past, seed))
+    programs = {pl: export_program(SamplerModule(trainer, pl), (batch_size, p, h, w, c))
+                for pl in platforms}
     path = os.fspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.export.save(program, path)
+    if len(programs) == 1:
+        torch.export.save(programs[platforms[0]], path)
+    else:
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+            for platform, program in programs.items():
+                buf = io.BytesIO()
+                torch.export.save(program, buf)
+                zf.writestr(f"{platform}.pt2", buf.getvalue())
     meta = {
-        "format": "torch.export",
+        "format": "torch.export" if len(programs) == 1 else MULTI_FORMAT,
         "arch": trainer.arch,
-        "platforms": [trainer.device.type],
+        "platforms": platforms,
         "batch_size": batch_size,
         "past_shape": [batch_size, p, h, w, c],
         "future_shape": [batch_size, f, h, w, c],
@@ -331,10 +395,103 @@ def export_sampler(trainer, path: str | os.PathLike, *, batch_size: int) -> dict
     return meta
 
 
+def export_program(module: SamplerModule, past_shape) -> torch.export.ExportedProgram:
+    """``torch.export`` of ``module`` for its platform: traced on the
+    device its weights are on, or, for ``cuda`` from weights on the host,
+    traced on ``meta`` as the card's program (:func:`_export_cross`)."""
+    device = next(module.model.parameters()).device
+    seed = torch.tensor(0, dtype=torch.int64)
+    if device.type == module.platform:
+        return torch.export.export(module, (torch.zeros(past_shape, device=device), seed))
+    return _export_cross(module, past_shape, seed)
+
+
+def _export_cross(module: SamplerModule, past_shape, seed) -> torch.export.ExportedProgram:
+    """The card's program of ``module`` (weights on the host), traced on
+    ``meta``: while it is traced under :func:`tracing_for`, every tensor of
+    the module but the host buffers is a ``meta`` tensor of its shape,
+    strides and dtype (in place: the sampler's step closes over its own
+    model); then each ``meta`` device in the graphs and their tensors'
+    metadata becomes ``cuda:0``, and the program's weights are the host's
+    real tensors."""
+    import torch.utils._pytree as pytree
+
+    target = torch.device("cuda:0")
+    real, slots_of = {}, {}
+    for prefix, m in module.named_modules():
+        for slots in (m._parameters, m._buffers):
+            for k, t in slots.items():
+                if t is None or (m is module and k in module.host_buffers):
+                    continue
+                name = f"{prefix}.{k}" if prefix else k
+                real[name], slots_of[name] = t, (slots, k)
+                fake = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+                slots[k] = (nn.Parameter(fake, requires_grad=False)
+                            if isinstance(t, nn.Parameter) else fake)
+    try:
+        with tracing_for(module.platform):
+            program = torch.export.export(
+                module, (torch.empty(past_shape, device="meta"), seed))
+    finally:
+        for name, (slots, k) in slots_of.items():
+            slots[k] = real[name]
+
+    def on_target(v):
+        if isinstance(v, torch.device) and v.type == "meta":
+            return target
+        if isinstance(v, torch.Tensor) and v.device.type == "meta":
+            v.fake_device = target  # a FakeTensor's device
+        return v
+
+    for gm in program.graph_module.modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        for node in gm.graph.nodes:
+            node.args = pytree.tree_map(on_target, node.args)
+            node.kwargs = pytree.tree_map(on_target, node.kwargs)
+            if "val" in node.meta:
+                pytree.tree_map(on_target, node.meta["val"])
+        gm.recompile()
+    for table in (program._state_dict, program._constants):
+        for name, t in table.items():
+            if isinstance(t, torch.Tensor) and t.device.type == "meta":
+                if name not in real:
+                    raise ValueError(
+                        f"cross-device export: the program's tensor {name!r} is not a "
+                        "parameter or buffer of the sampler, so its value cannot cross")
+                table[name] = (nn.Parameter(real[name], requires_grad=False)
+                               if isinstance(t, nn.Parameter) else real[name])
+    program._example_inputs = None
+    return program
+
+
+def _place(program: torch.export.ExportedProgram) -> torch.export.ExportedProgram:
+    """Move each weight the program holds on the host, where its graph
+    computes on a card, to that card (a cross-device export's)."""
+    from torch.export.graph_signature import InputKind
+
+    placeholders = {n.name: n for n in program.graph.nodes if n.op == "placeholder"}
+    for spec in program.graph_signature.input_specs:
+        if spec.kind not in (InputKind.PARAMETER, InputKind.BUFFER,
+                             InputKind.CONSTANT_TENSOR):
+            continue
+        want = placeholders[spec.arg.name].meta["val"].device
+        table = program._state_dict if spec.target in program._state_dict \
+            else program._constants
+        t = table[spec.target]
+        if t.device != want:
+            table[spec.target] = (nn.Parameter(t.to(want), requires_grad=False)
+                                  if isinstance(t, nn.Parameter) else t.to(want))
+    return program
+
+
 def load_sampler(path: str | os.PathLike) -> tuple[Callable, dict]:
-    """Load an exported sampler: ``(callable(past, seed), metadata)``.  The
-    callable takes ``past`` as an array or tensor and ``seed`` as an int,
-    and returns the future as a tensor on the artifact's device."""
+    """Load an exported sampler: ``(callable(past, seed), metadata)``, the
+    program for this process's platform — ``cuda`` where a card is
+    visible, else ``cpu``, as the JAX package runs its default backend's —
+    which must be one of the artifact's.  The callable takes ``past`` as an
+    array or tensor and ``seed`` as an int, and returns the future as a
+    tensor on that platform's device."""
     import crowdmod_tpu_torch.ops.kernels  # noqa: F401  (the crowdmod:: operators)
 
     path = os.fspath(path)
@@ -342,11 +499,21 @@ def load_sampler(path: str | os.PathLike) -> tuple[Callable, dict]:
     if os.path.exists(path + ".json"):
         with open(path + ".json") as fh:
             meta = json.load(fh)
-    program = torch.export.load(path).module()
-    device = meta.get("platforms", ["cpu"])[0]
+    platform = "cuda" if torch.cuda.is_available() else "cpu"
+    platforms = meta.get("platforms", ["cpu"])
+    if platform not in platforms:
+        raise ValueError(
+            f"{path}: the artifact holds programs for {platforms}, not for this "
+            f"process's platform {platform!r}; export it with --platform {platform}")
+    if meta.get("format") == MULTI_FORMAT:
+        with zipfile.ZipFile(path) as zf:
+            source = io.BytesIO(zf.read(f"{platform}.pt2"))
+    else:
+        source = path
+    program = _place(torch.export.load(source)).module()
 
     def sample(past, seed):
-        past = torch.as_tensor(past, dtype=torch.float32).to(device)
+        past = torch.as_tensor(past, dtype=torch.float32).to(platform)
         with torch.no_grad():
             return program(past, torch.tensor(int(seed), dtype=torch.int64))
 
@@ -440,10 +607,10 @@ def build_parser():
     p.add_argument("--output", type=str, required=True,
                    help="Artifact path; a .json metadata sidecar is written "
                         "next to it (with several --batch, NAME.b<B>.EXT).")
-    p.add_argument("--platform", action="append", default=None,
-                   help="export for another device than --device (not ported "
-                        "yet: ROADMAP.md Queue 1 item 14); export on the "
-                        "target device instead")
+    p.add_argument("--platform", action="append", default=None, choices=PLATFORMS,
+                   help="Target platform(s), e.g. --platform cuda from a host "
+                        "without a card (repeatable: one artifact with a program "
+                        "per platform; default: the --device's).")
     return p
 
 
@@ -459,11 +626,6 @@ def run(argv=None) -> int:
     from crowdmod_tpu_torch.train.trainer import Trainer
 
     args = build_parser().parse_args(argv)
-    if args.platform:
-        print("--platform (cross-device export) is not ported to PyTorch yet: "
-              "ROADMAP.md Queue 1 item 14; every sampler exports for the device "
-              "the command runs on (--device)", file=sys.stderr)
-        return 2
     cfg = load_config(args.config_yml_file, args.configList_yml_file)
     require_valid(cfg, args.arch)
     setup_logging(os.path.join(cfg.DATA_FS.OUTPUT_DIR, "logs", "export.log"))
@@ -480,7 +642,7 @@ def run(argv=None) -> int:
             root, ext = os.path.splitext(args.output)
             out = f"{root}.b{b}{ext}"
         t0 = time.perf_counter()
-        meta = export_sampler(trainer, out, batch_size=b)
+        meta = export_sampler(trainer, out, batch_size=b, platforms=args.platform)
         logging.info("exported %s in %.1f s: %s", out, time.perf_counter() - t0,
                      json.dumps(meta))
         print(out)

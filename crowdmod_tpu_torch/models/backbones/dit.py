@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from crowdmod_tpu_torch.models.backbones.embeddings import TimestepEmbedding
 from crowdmod_tpu_torch.ops.attention import MultiHeadAttention, dense
 from crowdmod_tpu_torch.ops.dropout import dropout, keep_mask
+from crowdmod_tpu_torch.ops.kernels.library import platform_of
 from crowdmod_tpu_torch.parallel import tensor
 
 
@@ -75,7 +76,7 @@ def gelu_approximate(device: torch.device) -> str:
     """
     mode = os.environ.get("CROWDMOD_GELU")
     if mode is None:
-        mode = "tanh" if device.type == "cuda" else "exact"
+        mode = "tanh" if platform_of(device) == "cuda" else "exact"
     return "tanh" if mode == "tanh" else "none"
 
 

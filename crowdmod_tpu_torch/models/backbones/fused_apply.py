@@ -8,10 +8,11 @@ then calls :func:`fused_forward`, on the card (the kernel) and on the CPU
 
 Eligibility is the JAX package's: deterministic (not training), no
 attention epilogue, Cin and Cout multiples of 8, and a volume of at least
-:data:`MIN_FUSED_VOLUME` positions — the UNet's level-0 blocks.  The kernel
-is forward only, so a block whose parameters require grad while grad is
-enabled is not eligible either: it runs unfused, through the kernels that
-have a gradient.
+:data:`MIN_FUSED_VOLUME` positions — the UNet's level-0 blocks.  Whether a
+gradient is wanted does not enter: where one is, the block runs as
+:class:`~crowdmod_tpu_torch.ops.kernels.resblock.FusedResblock` (the
+kernel forward, the twin's VJP backward), as the JAX package's
+``custom_vjp`` does.
 
 Under tensor parallelism the block's weights are gathered at use (its
 GroupNorm after conv1 needs every channel) and packed every forward;
@@ -36,8 +37,6 @@ MIN_FUSED_VOLUME = 1024
 
 def eligible(block, x: torch.Tensor, training: bool) -> bool:
     if training or block.attention is not None:
-        return False
-    if torch.is_grad_enabled() and any(p.requires_grad for p in block.parameters()):
         return False
     cin, cout = x.shape[-1], block.out_channels
     if cin % 8 or cout % 8 or x.dim() != 5:

@@ -25,9 +25,35 @@ callable, so a seeded eager request gives what the artifact gives.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 LIB = torch.library.Library("crowdmod", "DEF")
+_TRACE_PLATFORM: str | None = None
+
+
+@contextlib.contextmanager
+def tracing_for(platform: str):
+    """Trace on ``meta`` tensors the program of ``platform`` (an export for
+    another device than the host's): meanwhile :func:`platform_of` answers
+    ``platform`` for the ``meta`` device.  The wrappers call their
+    operators on any tensor off the CPU, so a meta trace records the
+    ``crowdmod::`` operators either way."""
+    global _TRACE_PLATFORM
+    before, _TRACE_PLATFORM = _TRACE_PLATFORM, platform
+    try:
+        yield
+    finally:
+        _TRACE_PLATFORM = before
+
+
+def platform_of(device: torch.device) -> str:
+    """The platform whose program computes on ``device``: its type, and for
+    ``meta`` under :func:`tracing_for` the platform traced for."""
+    if device.type == "meta" and _TRACE_PLATFORM is not None:
+        return _TRACE_PLATFORM
+    return device.type
 
 
 def define(schema: str, cuda, fake) -> None:

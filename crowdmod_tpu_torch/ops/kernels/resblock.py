@@ -19,10 +19,12 @@ the weights passes the packed form as ``packed=`` so no call repacks.
 
 :func:`fused_resblock` runs :func:`resblock_reference` on CPU tensors and
 the kernel on CUDA tensors, or raises; it never falls back to the twin.
-The kernel is forward only, like the JAX package's inference path: on CUDA
-it raises where autograd would need a graph (an input that requires grad
-while grad is enabled) rather than return an output without one.  The
-kernel is the ``crowdmod::resblock`` operator (:mod:`.library`).
+Where autograd needs a graph (an input that requires grad while grad is
+enabled) it runs as :class:`FusedResblock`, the JAX package's
+``custom_vjp``: the kernel forward, and backward the VJP of
+:func:`resblock_reference` recomputed from the saved inputs (plain
+PyTorch ops on either device).  The kernel is the ``crowdmod::resblock``
+operator (:mod:`.library`).
 """
 
 from __future__ import annotations
@@ -190,6 +192,34 @@ def _check(x, temb_proj, p, num_groups) -> None:
             )
 
 
+class FusedResblock(torch.autograd.Function):
+    """:func:`fused_resblock` with a gradient: the kernel (the twin on the
+    CPU) forward from the packed weights; backward the VJP of
+    :func:`resblock_reference` recomputed from the saved ``(x, temb_proj,
+    w)``, as the JAX package's ``_fused_bwd``, so each weight of the block
+    (the skip's too) gets its gradient, never the pack."""
+
+    @staticmethod
+    def forward(ctx, x, temb_proj, keys, num_groups, eps, packed, *weights):
+        ctx.save_for_backward(x, temb_proj, *weights)
+        ctx.args = (keys, num_groups, eps)
+        return _forward(x, temb_proj, dict(zip(keys, weights)), num_groups, eps, packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        keys, num_groups, eps = ctx.args
+        wanted = ctx.needs_input_grad[:2] + ctx.needs_input_grad[6:]
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, wanted)]
+        with torch.enable_grad():
+            out = resblock_reference(inputs[0], inputs[1], dict(zip(keys, inputs[2:])),
+                                     num_groups=num_groups, eps=eps)
+        leaves = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, leaves, g))
+        dx, dtemb, *dw = (next(grads) if need else None for need in wanted)
+        return (dx, dtemb, None, None, None, None, *dw)
+
+
 def fused_resblock(
     x: torch.Tensor,
     temb_proj: torch.Tensor,
@@ -204,15 +234,16 @@ def fused_resblock(
     ``time_dense`` output.  CPU tensors take the plain twin; CUDA tensors
     the kernel, with ``packed`` (:func:`pack_resblock` of ``w``) when the
     caller has it."""
-    if x.device.type == "cpu":
-        return resblock_reference(x, temb_proj, w, num_groups=num_groups, eps=eps)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, temb_proj, *w.values())):
-        raise ValueError(
-            "fused_resblock: the kernel is forward only and an input requires "
-            "grad; run the block unfused (fused_apply.eligible) or under "
-            "torch.no_grad()"
-        )
+        return FusedResblock.apply(x, temb_proj, tuple(w), num_groups, eps, packed,
+                                   *w.values())
+    return _forward(x, temb_proj, w, num_groups, eps, packed)
+
+
+def _forward(x, temb_proj, w, num_groups: int, eps: float, packed) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return resblock_reference(x, temb_proj, w, num_groups=num_groups, eps=eps)
     p = packed if packed is not None else pack_resblock(w, x.dtype)
     return torch.ops.crowdmod.resblock(
         x, temb_proj, *(p[k] for k in PACKED), p["has_skip"], num_groups, float(eps))

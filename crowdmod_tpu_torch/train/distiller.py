@@ -8,9 +8,10 @@ each phase trains a student, initialised from its teacher, to reproduce in
 one deterministic DDIM step what the teacher does in two
 (:mod:`crowdmod_tpu_torch.models.diffusion.distill`); the student becomes
 the next phase's teacher, ``start_steps -> start_steps/2 -> ... ->
-target_steps``.  A step is two teacher forwards under ``no_grad`` (the
-UNet's level-0 blocks take the fused kernel there) and one student forward
-and backward (unfused, through the kernels that have a gradient).
+target_steps``.  A step is two teacher forwards under ``no_grad`` and one
+student forward and backward; both models are in eval mode, so the UNet's
+level-0 blocks take the fused kernel in all three (the student's through
+``FusedResblock``, whose backward is its twin's VJP).
 
 Randomness: ReFlow's coupling x0 and step t, and distillation's per-example
 step ``k`` and q-sample noise, come from a ``torch.Generator`` seeded

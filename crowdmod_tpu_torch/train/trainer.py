@@ -120,6 +120,14 @@ def check_sampler_guidance(node) -> None:
             )
 
 
+def platform_compute_dtype(cfg: FrozenConfig, platform: str) -> torch.dtype:
+    """The compute dtype of a program for ``platform``: bf16 where the JAX
+    package would use it (``TPU.COMPUTE_DTYPE``), with the card in the
+    TPU's place; float32 on the CPU."""
+    name = cfg.get_path("TPU.COMPUTE_DTYPE", "float32")
+    return torch.bfloat16 if name == "bfloat16" and platform == "cuda" else torch.float32
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
     absent (the port runs on the card unless told to use the CPU)."""
@@ -228,14 +236,7 @@ class Trainer:
         self.mprops_count = (mprops_count if mprops_count is not None
                              else (4 if arch == "ConvRNN" else 3))
         if compute_dtype is None:
-            # bf16 where the JAX package would use it, with the card in the
-            # TPU's place; float32 on the CPU.
-            name = cfg.get_path("TPU.COMPUTE_DTYPE", "float32")
-            compute_dtype = (
-                torch.bfloat16
-                if (name == "bfloat16" and self.device.type == "cuda")
-                else torch.float32
-            )
+            compute_dtype = platform_compute_dtype(cfg, self.device.type)
         self.compute_dtype = compute_dtype
         self.model = factory.build_backbone(
             cfg, arch, self.mprops_count, dtype=compute_dtype,
@@ -580,11 +581,16 @@ class Trainer:
                 else:
                     nan_streak = 0
 
+                # In-loop checkpoints commit in the background, so the disk
+                # writes overlap the next epoch; fit waits for them before
+                # it returns.
                 if epoch_loss < best:
                     best = epoch_loss
-                    self.save(save_dir, "000", extra={"epoch_loss": epoch_loss})
+                    self.save(save_dir, "000", extra={"epoch_loss": epoch_loss},
+                              async_save=True)
                 if epoch in late:
-                    self.save(save_dir, epoch, extra={"epoch_loss": epoch_loss})
+                    self.save(save_dir, epoch, extra={"epoch_loss": epoch_loss},
+                              async_save=True)
                 boundary()
             completed = not aborted
             history["aborted"] = aborted
@@ -607,6 +613,12 @@ class Trainer:
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGINT, prev_handler)
+            # A failed commit must not hide the training error, nor leave
+            # the tracker open.
+            try:
+                ckpt.wait_for_saves()
+            except Exception:
+                logging.exception("asynchronous checkpoint commit failed")
             if own_tracker:
                 tracker.finish()
             self.model.eval()
@@ -641,11 +653,15 @@ class Trainer:
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
-    def save(self, save_dir: str, epoch: int | str, extra: dict | None = None):
+    def save(self, save_dir: str, epoch: int | str, extra: dict | None = None, *,
+             async_save: bool = False):
         """The weights, EMA, step, Adam state and learning rate, with the
-        JAX package's metadata, under ``save_dir``.  Under a mesh every
-        process calls it: the state is gathered whole and process 0 writes
-        the files of a one-process save."""
+        JAX package's metadata, under ``save_dir``; ``async_save`` commits
+        in the background (:func:`~crowdmod_tpu_torch.train.checkpoint.
+        save_checkpoint`).  Under a mesh every process calls it: the state
+        is gathered whole and process 0 writes the files of a one-process
+        save, synchronously whatever ``async_save`` says, as the JAX
+        package's pods do."""
         name = ckpt.checkpoint_name(self.cfg, self.arch, epoch)
         payload = {
             "params": self.params,
@@ -656,8 +672,10 @@ class Trainer:
         if self.ema_model is not None:
             payload["ema_params"] = self.ema_params
         meta = ckpt.build_metadata(self.cfg, self.arch, epoch, extra)
-        save = ckpt.save_checkpoint if self.mesh is None else ckpt.commit_checkpoint
-        return save(os.path.join(save_dir, name), payload, meta)
+        path = os.path.join(save_dir, name)
+        if self.mesh is not None:
+            return ckpt.commit_checkpoint(path, payload, meta)
+        return ckpt.save_checkpoint(path, payload, meta, async_save=async_save)
 
     def load(self, path: str):
         """Load a port checkpoint directory — weights, EMA and, where it

@@ -56,9 +56,40 @@ def test_guided_configs_the_sampler_refuses_are_refused_by_the_export(over, matc
         sampler_fn(trainer)
 
 
-def test_cross_device_export_is_refused_naming_its_item(capsys):
-    from crowdmod_tpu_torch import cli
+def test_cross_device_export_runs_without_a_card(tmp_path):
+    """``export --device cpu --platform cuda`` on this host without a card
+    writes the card's artifact of the DiT's ancestral chain: its sidecar
+    says ``cuda``; its program holds a card step's operators (2·DEPTH
+    attentions, the fused step, the draw), tanh-GELU and bf16 attention;
+    loading it here is refused, naming the artifact's platforms, as the
+    JAX package refuses a backend the artifact was not lowered for."""
+    import json
 
-    assert cli.main(["export", "--output", "x.pt2", "--platform", "cuda",
-                     "--device", "cpu"]) == 2
-    assert "item 14" in capsys.readouterr().err
+    import yaml
+
+    from crowdmod_tpu_torch import cli
+    from crowdmod_tpu_torch.export_artifact import ArtifactPredictor, SamplerModule
+    from test_torch_export import TINY
+    from test_torch_export_cross import assert_cards_program
+
+    trainer = tiny_trainer(root=tmp_path, SAMPLER="DDPM", TIMESTEPS=20)
+    trainer.save(trainer.cfg.DATA_FS.SAVE_DIR, "000")
+    cfg_path = tmp_path / "cfg.yml"
+    cfg_path.write_text(yaml.safe_dump(trainer.cfg.to_dict()))
+    out = tmp_path / "card.pt2"
+    assert cli.main(["export", "--config-yml-file", str(cfg_path), "--arch", "DDPM-DiT",
+                     "--device", "cpu", "--platform", "cuda", "--batch", "2",
+                     "--output", str(out)]) == 0
+    meta = json.loads((tmp_path / "card.pt2.json").read_text())
+    assert meta["platforms"] == ["cuda"] and meta["format"] == "torch.export"
+    assert meta["bytes"] == out.stat().st_size > 0
+    facts = assert_cards_program(SamplerModule(trainer, "cuda"), torch.export.load(out),
+                                 {"crowdmod::ancestral_update": 1})
+    assert facts["body"]["crowdmod::attention"] == 2 * TINY["MODEL"]["DDPM"]["DIT"]["DEPTH"]
+    assert facts["gelu"] == {"tanh"}
+    assert facts["dtypes"]["crowdmod::attention"] == {torch.bfloat16}
+    assert facts["dtypes"]["crowdmod::ancestral_update"] == {torch.float32}
+    assert not torch.cuda.is_available()
+    for load in (lambda: load_sampler(out), lambda: ArtifactPredictor([str(out)])):
+        with pytest.raises(ValueError, match=r"programs for \['cuda'\]"):
+            load()
