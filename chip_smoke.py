@@ -22,6 +22,12 @@
     python3 chip_smoke.py --train-time DIR...   # phase 1, then phase 10's train
                                    # command (and the UNet's) from each checkout
                                    # DIR, in turns: wall and fit seconds
+    python3 chip_smoke.py --drills              # phase 1, phase 18, then the
+                                   # validation, ETL, protocol and stream drills,
+                                   # a 16-client HTTP soak and two quickstarts
+    python3 chip_smoke.py --multihost           # phase 1, then the multi-process
+                                   # rehearsal (2 and 4 processes over NCCL,
+                                   # a card each) and the scaling quickstart
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
@@ -205,8 +211,23 @@ non-zero without a result line:
      ``Dynamic`` whole where matplotlib is installed; then
      ``measure_round_trip``, a ``StepTimer`` over DiT sample calls and a
      ``trace`` of one, with the card's name and power limit.
+ 18. the operational drills (``tools/*_torch.py``): the training drill —
+     DDPM-UNet at ``configs/ATC.yml``'s width through the ``train``
+     command, SIGINT at epoch 2 of 6 (the emergency checkpoint whole on
+     disk), ``--resume`` to the end, every check of the JAX tool's report
+     held (continuity, the learning rate resumed, the best checkpoint the
+     global best and loadable, the abort checkpoint swept, retention), the
+     resumed run's launches from its log; and the HTTP soak — DDPM-DiT at
+     the serving width trained two epochs, served through ``ServingApp``,
+     the HTTP server and ``BatchingQueue`` at DDIM-eta 25 + Sparsity to 4
+     clients for 10 s: no error, a coalesced dispatch, p50/p95/p99, the
+     launches held to its sampling calls; the drill's processes start
+     beside phase 17 and run on beside the soak (for time: the card is
+     shared meanwhile).
 
-Phase 2 also holds attention at FM-DiT's token counts (216, 336 and 432:
+Phase 2 also holds attention at head dims 8 and 16 (a UNet at a base width
+of 16, as the quickstarts build it; Dh 8 also streamed at 2500 keys), at
+FM-DiT's token counts (216, 336 and 432:
 the serving grid, HERMES-CR-120, ATC_medium) and past them (1000 keys).
 Each path is driven with the launch counts set to 0 just before it and read
 just after: phases 3-4 (DiT), phases 6-7 (UNet), the tap-GEMM run of
@@ -233,6 +254,7 @@ import contextlib
 import dataclasses
 import datetime
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -550,12 +572,28 @@ def phase_kernels() -> dict:
             f"edge S432 Dh32 {dn}", 16, 4, 432, 432, 32, dtype, gen)
         attn[f"edge_s1000_{dn}"] = check_attention(
             f"edge S1000 Dh64 {dn}", 4, 4, 1000, 1000, 64, dtype, gen)
+    # Narrow heads: a UNet at a base width of 16 (the quickstarts') attends
+    # with 4 heads of 8 over its bottleneck's 96 positions; then Dh 16, and
+    # Dh 8 past what a block holds (2500 keys).  Their own generator: the
+    # cases above keep the inputs they had before these were added.
+    narrow = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for dh in (8, 16):
+            attn[f"narrow_dh{dh}_{dn}"] = check_attention(
+                f"narrow heads Dh{dh} S96 {dn}", 16, 4, 96, 96, dh, dtype, narrow, packed=True)
+        attn[f"edge_s2500_dh8_{dn}"] = check_attention(
+            f"edge S2500 Dh8 {dn}", 4, 4, 2500, 2500, 8, dtype, narrow)
     mma = ["spatial_b64_bfloat16", "unet_b64_bfloat16", "edge_s216_bfloat16",
-           "edge_s432_dh32_bfloat16"] + [f"fm_dit_s{s_}_bfloat16" for s_ in FM_DIT_TOKENS]
+           "edge_s432_dh32_bfloat16", "narrow_dh16_bfloat16"] + [
+               f"fm_dit_s{s_}_bfloat16" for s_ in FM_DIT_TOKENS]
+    if attn["narrow_dh8_bfloat16"]["plan"]["route"] != "simt":
+        raise AssertionError("attention Dh 8: not the SIMT route")
     for key in mma:
         if attn[key]["plan"]["route"] != "mma":
             raise AssertionError(f"attention {key}: route {attn[key]['plan']['route']}")
-    for key in ("fm_dit_s432_float32", "edge_s1000_float32", "edge_s1000_bfloat16"):
+    for key in ("fm_dit_s432_float32", "edge_s1000_float32", "edge_s1000_bfloat16",
+                "edge_s2500_dh8_float32", "edge_s2500_dh8_bfloat16"):
         if not attn[key]["plan"]["key_block"] < attn[key]["plan"]["keys_padded"]:
             raise AssertionError(f"attention {key}: not streamed ({attn[key]['plan']})")
     floor = launch_floor_ms()
@@ -574,7 +612,34 @@ def phase_kernels() -> dict:
                                        offsets=(1, 2, 1), rho=1, floor_ms=floor)
     if step["ragged_offset"]["plan"]["vec"] != 4 or step["mixed_offsets"]["plan"]["vec"] != 1:
         raise AssertionError("ancestral step: the offset views did not take their paths")
+    step["strided_eps"] = check_step_strided(gen)
     return {"attention": attn, "step": step}
+
+
+def check_step_strided(gen) -> dict:
+    """The wrapper on a strided ε̂: the future's time slice of a DiT's
+    unpatched ``(B, P + F, H, W, C)`` output, as ancestral sampling of an
+    ε-predicting DiT hands it over; kernel vs twin."""
+    from crowdmod_tpu_torch.ops.kernels import (
+        ancestral_update_reference,
+        fused_ancestral_update,
+        step_coefficients,
+    )
+
+    shape = (64, 3, 12, 36, 3)
+    x, z = _randn(shape, gen), _randn(shape, gen)
+    eps = _randn((64, 8, 12, 36, 3), gen)[:, 5:]
+    coeffs = step_coefficients(1.01, 0.02, 0.03, DEVICE)
+    out = fused_ancestral_update(x, eps, z, coeffs, lambda_guidance=0.6, sparsity=True)
+    ref = ancestral_update_reference(x, eps, z, inv_sqrt_alpha=coeffs[0],
+                                     beta_over_somab=coeffs[1], sigma=coeffs[2],
+                                     lambda_guidance=0.6, sparsity=True)
+    err = (out - ref).abs().max().item()
+    if eps.is_contiguous() or not err <= TOL["step"]:
+        raise AssertionError(f"ancestral step on a strided eps: max abs err {err}")
+    res = dict(shape=list(shape), eps_strides=list(eps.stride()), max_abs_err=err)
+    log("kernel step strided eps", **res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4817,6 +4882,195 @@ def phase_train_time(trees: list[Path]) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the operational drills (tools/*_torch.py)
+# ---------------------------------------------------------------------------
+
+DRILL_EPOCHS, DRILL_KILL = 6, 2   # the training drill: SIGINT at epoch 2 of 6
+DRILL_FILES, DRILL_PER_FILE = 4, 32  # 2 train files: 192 windows, 3 steps of 64
+SOAK_CLIENTS, SOAK_S, SOAK_RAMP_S = 4, 10.0, 2.0
+SERVING_SAMPLER = "DDIM-eta:1.0:25+Sparsity:0.6"  # configs/serving/ATC.yml's
+
+
+def drill_training(tmp: Path) -> dict:
+    """``tools/training_drill_torch.py``: DDPM-UNet at ``configs/ATC.yml``'s
+    width (base 32, mults 1-2-4, batch 64, bf16) through the ``train``
+    command, SIGINT at epoch 2 of 6, ``--resume`` to the end; every check
+    of its report held, the resumed run's launches (its log line) held to
+    its steps and evaluations."""
+    from crowdmod_tpu_torch.config import load_config
+    from tools import training_drill_torch
+
+    out = tmp / "training_drill"
+    t0 = time.perf_counter()
+    rc = training_drill_torch.main([
+        "--out", str(out), "--epochs", str(DRILL_EPOCHS), "--kill-epoch", str(DRILL_KILL),
+        "--files", str(DRILL_FILES), "--per-file", str(DRILL_PER_FILE),
+        "--timeout", "600", "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    report = json.loads((out / "report.json").read_text())
+    if rc or not all(report["checks"].values()):
+        raise AssertionError(f"training drill failed (rc {rc}): {report['checks']}")
+    log2 = (out / "phase2.log").read_text()
+    train_n, val_n = (int(v) for v in re.search(
+        r"train windows: (\d+), val windows: (\d+)", log2).groups())
+    cfg = load_config(str(out / "cfg.yml"))
+    batch, epochs = cfg.DATASET.BATCH_SIZE, report["phase2"]["epochs_logged"]
+    steps = epochs * (train_n // batch)
+    evals = epochs * max(val_n // batch, 1)
+    want = add_launches(
+        {k: v * steps for k, v in TRAIN_PER_STEP["DDPM-UNet"](cfg).items()},
+        {k: v * evals for k, v in PER_FORWARD["DDPM-UNet"](cfg).items()})
+    launches = hold_launches("training drill (resumed run)",
+                             json.loads(logged(log2, "kernel launches: ")), {}, 0, want)
+    log("drill training DDPM-UNet ATC b64", wall_s=wall, checks=report["checks"],
+        phase1=report["phase1"], phase2=report["phase2"], lr=report["lr"],
+        numbered=report["numbered_checkpoints"], train_windows=train_n,
+        val_windows=val_n, resumed_steps=steps, launches=launches)
+    return launches
+
+
+def drill_soak(tmp: Path) -> dict:
+    """``tools/soak_http_torch.py``: DDPM-DiT at the serving config's width
+    (hidden 256, depth 6) trained 2 epochs on walkers, served through
+    ``ServingApp`` + ``ThreadingHTTPServer`` + ``BatchingQueue`` at DDIM-eta
+    25 + Sparsity, 4 clients for 10 s: no error, a coalesced dispatch, the
+    launches held to the predictor's sampling calls (warmup included)."""
+    from crowdmod_tpu_torch.config import load_config
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+    from tools import soak_http_torch
+
+    out = tmp / "soak_http"
+    reset_launch_counts()  # the soak's path: DiT training (no kernel) + serving
+    rc = soak_http_torch.main([
+        "--config-yml-file", "serving/ATC.yml", "--sampler", SERVING_SAMPLER,
+        "--clients", str(SOAK_CLIENTS), "--duration", str(SOAK_S),
+        "--ramp-s", str(SOAK_RAMP_S), "--workdir", str(out),
+        "--out", str(out / "report.json"), "--device", DEVICE])
+    report = json.loads((out / "report.json").read_text())
+    if rc or report["errors"] or not report["coalesced_requests"]:
+        raise AssertionError(f"HTTP soak failed (rc {rc}): {report}")
+    cfg = load_config("serving/ATC.yml")
+    launches = hold_launches("HTTP soak", launch_counts(), PER_FORWARD["DDPM-DiT"](cfg),
+                             cfg.MODEL.DDPM.ETA_STEPS * int(report["predictions"]))
+    log("drill soak_http DDPM-DiT serving DDIM-eta 25 + Sparsity", **report,
+        nvidia_smi=nvidia_smi(), launches=launches)
+    return launches
+
+
+def start_drill(tmp: Path) -> tuple:
+    """The training drill on a thread → (thread, its result dict: the
+    launch counts under ``"launches"``, or the error under ``"error"``).
+    Its ``train`` processes count their own launches: the counts of this
+    process, which other phases hold meanwhile, see none of them."""
+    drill: dict = {}
+
+    def run():
+        try:
+            drill["launches"] = drill_training(tmp)
+        except BaseException as e:  # noqa: BLE001 - re-raised by phase_drills
+            drill["error"] = e
+
+    thread = threading.Thread(target=run, name="training-drill")
+    thread.start()
+    return thread, drill
+
+
+def phase_drills(tmp: Path, drill: tuple | None = None) -> dict:
+    """Phase 18: the HTTP soak in this process while the training drill
+    (``start_drill``; the default run starts it beside phase 17, for time)
+    runs its ``train`` processes, then the drill's end.  The card is
+    shared meanwhile, so the soak's latencies here are not serving's alone
+    (the ``--drills`` soak runs by itself).  → each path's launch counts."""
+    thread, result = drill or start_drill(tmp)
+    try:
+        soak = drill_soak(tmp)
+    finally:
+        thread.join()
+    if "error" in result:
+        raise result["error"]
+    return {"18 training drill": result["launches"], "18 HTTP soak": soak}
+
+
+def run_tool(label: str, *argv, timeout: float = 900) -> float:
+    """``python *argv`` from this checkout → wall seconds; raises on a
+    non-zero exit with the end of its output."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                       cwd=Path(__file__).resolve().parent, timeout=timeout)
+    wall = time.perf_counter() - t0
+    print(r.stdout[-6000:], flush=True)
+    if r.returncode:
+        raise RuntimeError(f"{label} exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+                           f"{r.stderr[-4000:]}")
+    return wall
+
+
+def phase_drills_full(tmp: Path) -> dict:
+    """``--drills``: the end-to-end validation (DDPM-UNet, 60 epochs, the
+    ≥ 3 dB criterion), the ETL drill at the ATC grid with the config's
+    UNet (the same criterion), the 1280-sample protocol over DDPM, DDIM and
+    DPM-Solver, the stream soak over 2 GB, the HTTP soak at 16 clients, the
+    library and serving quickstarts; each tool's checks held (its exit
+    status) → each report."""
+    reports = {}
+    validate = tmp / "validate.json"
+    wall = run_tool("validate_e2e", "tools/validate_e2e_torch.py", "--out", str(validate),
+                    "--device", DEVICE)
+    reports["validate_e2e"] = {**json.loads(validate.read_text()), "wall_s_process": wall}
+    etl = tmp / "etl.json"
+    wall = run_tool("etl_drill", "tools/etl_drill_torch.py", "--out", str(tmp / "etl"),
+                    "--full-width", "--rows", "12", "--cols", "36",
+                    "--report", str(etl), "--device", DEVICE)
+    reports["etl_drill"] = {**json.loads(etl.read_text()), "wall_s_process": wall}
+    wall = run_tool("eval_protocol_full", "tools/eval_protocol_full_torch.py", "--out",
+                    str(tmp / "protocol"), "--device", DEVICE, timeout=1500)
+    reports["eval_protocol_full"] = {**json.loads((tmp / "protocol" / "report.json")
+                                                  .read_text()), "wall_s_process": wall}
+    stream = tmp / "stream.json"
+    wall = run_tool("soak_stream", "tools/soak_stream_torch.py", "--dir", str(tmp / "stream"),
+                    "--out", str(stream), "--device", DEVICE)
+    reports["soak_stream"] = {**json.loads(stream.read_text()), "wall_s_process": wall}
+    soak = tmp / "soak.json"
+    wall = run_tool("soak_http", "tools/soak_http_torch.py", "--config-yml-file",
+                    "serving/ATC.yml", "--sampler", SERVING_SAMPLER, "--duration", "30",
+                    "--ramp-s", "5", "--workdir", str(tmp / "soak"), "--out", str(soak),
+                    "--device", DEVICE)
+    reports["soak_http_16"] = {**json.loads(soak.read_text()), "wall_s_process": wall}
+    for name in ("quickstart", "serving_quickstart"):
+        reports[name] = {"wall_s_process": run_tool(
+            name, f"examples/{name}_torch.py", "--out", str(tmp / name), "--device", DEVICE)}
+    for name, report in reports.items():
+        log(f"drills {name}", **report)
+    log("drills", nvidia_smi=nvidia_smi())
+    return reports
+
+
+def phase_multihost(tmp: Path) -> dict:
+    """``--multihost`` (a card a process; four cards): the multi-process
+    rehearsal over NCCL at the serving config's width, 2 processes (DDP)
+    and 4 (FSDP), each with ``train`` and ``generate-metrics --multihost``
+    on every rank; then the scaling quickstart at data 2 × model 2 with
+    FSDP and remat → each rehearsal's report."""
+    reports = {}
+    for nprocs, extra in ((2, []), (4, ["--fsdp"])):
+        out = tmp / f"dryrun_{nprocs}"
+        wall = run_tool(f"dryrun_multihost {nprocs}", "tools/dryrun_multihost_torch.py",
+                        "--nprocs", str(nprocs), *extra, "--cli", "--metrics",
+                        "--config", "serving/ATC.yml", "--out", str(out),
+                        "--device", DEVICE, timeout=1200)
+        report = json.loads((out / "report.json").read_text())
+        if not report["ok"]:
+            raise AssertionError(f"rehearsal of {nprocs} processes: {report}")
+        reports[f"{nprocs}{' fsdp' if extra else ''}"] = report
+        log(f"multihost rehearsal {nprocs} processes{' FSDP' if extra else ''}",
+            wall_s_process=wall, **report)
+    wall = run_tool("scaling_quickstart", "examples/scaling_quickstart_torch.py", "--data",
+                    "2", "--model", "2", "--out", str(tmp / "sq"), "--device", DEVICE)
+    log("multihost scaling quickstart 2x2", wall_s_process=wall, nvidia_smi=nvidia_smi())
+    return reports
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -4892,6 +5146,22 @@ def main() -> int:
             phase_cross_device(Path(tmp), cfg)
         log("cross-device done", seconds=time.perf_counter() - t_start)
         return 0
+    if sys.argv[1:] == ["--drills"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            t0 = time.perf_counter()
+            phase_drills(Path(tmp))
+            t1 = time.perf_counter()
+            phase_drills_full(Path(tmp))
+        log("drills done", seconds=time.perf_counter() - t_start, phase_18_s=t1 - t0,
+            drills_s=time.perf_counter() - t1)
+        return 0
+    if sys.argv[1:] == ["--multihost"]:
+        if torch.cuda.device_count() < 4:
+            raise SystemExit("--multihost needs four cards (a process a card)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_multihost(Path(tmp))
+        log("multihost done", seconds=time.perf_counter() - t_start)
+        return 0
     if sys.argv[1:] == ["--parallel"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_cli(Path(tmp) / "cli")
@@ -4936,7 +5206,10 @@ def main() -> int:
         paths.update(timed("14 deploy", phase_deploy, Path(tmp), cfg))
         paths.update(timed("15 data", phase_data, Path(tmp)))
         paths.update(timed("16 parallel", phase_parallel, Path(tmp) / "cli"))
+        # The training drill's processes run beside phase 17 and the soak.
+        drill = start_drill(Path(tmp))
         paths.update(timed("17 commands", phase_commands, Path(tmp) / "cli"))
+        paths.update(timed("18 drills", phase_drills, Path(tmp), drill))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

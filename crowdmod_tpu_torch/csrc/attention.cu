@@ -56,8 +56,11 @@
 //   to V's type, and their product with V.  Any Sk.  f32 stays exact (no
 //   TF32).
 //
-// Limits (checked by the Python wrapper, and again here): Dh in {32, 64};
-// Sk >= 1; the plan's shared memory at most 227 KB.  The last
+// Limits (checked by the Python wrapper, and again here): Dh in {8, 16, 32,
+// 64}, the mma route Dh in {16, 32, 64} (its k-slices are 16 deep; under
+// Dh 32 a simt lane past Dh owns no output element: the UNet's attention
+// at a base width of 16, 4 heads of 8); Sk >= 1; the plan's shared memory
+// at most 227 KB.  The last
 // dimension of each tensor must be contiguous; the other three strides are
 // arguments, so the caller's (B, S, H, Dh) projections are read in place.
 // The mma route needs 16-byte aligned rows (base address and strides).
@@ -363,7 +366,9 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, int heads, int sq, int sk,
                       long long problems, int per_block, int vec, float scale, Strides qs,
                       Strides ks, Strides vs, Strides os) {
-  constexpr int kDpl = kDh / 32;         // consecutive output elements a lane owns
+  // Consecutive output elements a lane owns; under Dh 32, lanes past Dh
+  // own none.
+  constexpr int kDpl = kDh >= 32 ? kDh / 32 : 1;
   constexpr int kLdk = kDh + 4;          // padded K row, 16-byte aligned
   constexpr int kVec = 16 / sizeof(T);   // elements of one 16-byte load
   constexpr int kPieces = kDh / kVec;
@@ -372,6 +377,7 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* smem = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const bool owner = kDh >= 32 || lane < kDh;
   const int sk4 = (sk + 3) & ~3;
   const long long first = (long long)blockIdx.x * per_block;
   const int np = (int)min((long long)per_block, problems - first);
@@ -415,8 +421,10 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * os.b + h * os.h + s * os.s;
     const float* kp = k_sh + (size_t)pi * sk * kLdk;
     const float* vp = v_sh + (size_t)pi * sk * kDh;
+    if (owner) {
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) q_sh[lane + 32 * i] = load_f(qrow + lane + 32 * i);
+      for (int i = 0; i < kDpl; ++i) q_sh[lane + 32 * i] = load_f(qrow + lane + 32 * i);
+    }
     __syncwarp();
 
     // Pass 1: f32 logits, one key per lane (16-byte shared reads; the
@@ -454,23 +462,25 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // Pass 3: f32 accumulation of w * V over the keys; the lane's kDpl
     // consecutive elements are one shared read.
-    float acc[kDpl];
+    if (owner) {
+      float acc[kDpl];
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) acc[i] = 0.f;
+      for (int i = 0; i < kDpl; ++i) acc[i] = 0.f;
 #pragma unroll 4
-    for (int j = 0; j < sk; ++j) {
-      const float w = p[j];
-      const float* vr = vp + j * kDh + kDpl * lane;
-      if constexpr (kDpl == 2) {
-        const float2 t = *reinterpret_cast<const float2*>(vr);
-        acc[0] = fmaf(w, t.x, acc[0]);
-        acc[1] = fmaf(w, t.y, acc[1]);
-      } else {
-        acc[0] = fmaf(w, vr[0], acc[0]);
+      for (int j = 0; j < sk; ++j) {
+        const float w = p[j];
+        const float* vr = vp + j * kDh + kDpl * lane;
+        if constexpr (kDpl == 2) {
+          const float2 t = *reinterpret_cast<const float2*>(vr);
+          acc[0] = fmaf(w, t.x, acc[0]);
+          acc[1] = fmaf(w, t.y, acc[1]);
+        } else {
+          acc[0] = fmaf(w, vr[0], acc[0]);
+        }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) store_f(orow + kDpl * lane + i, acc[i]);
+      for (int i = 0; i < kDpl; ++i) store_f(orow + kDpl * lane + i, acc[i]);
+    }
     __syncwarp();  // the next row overwrites q_sh and p
   }
 }
@@ -484,7 +494,7 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ o, int heads, int sq,
                                int sk, int query_rows, int vec, float scale, Strides qs,
                                Strides ks, Strides vs, Strides os) {
-  constexpr int kDpl = kDh / 32;
+  constexpr int kDpl = kDh >= 32 ? kDh / 32 : 1;  // as the resident form's
   constexpr int kLdk = kDh + 4;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPieces = kDh / kVec;
@@ -493,6 +503,7 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* smem = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const bool owner = kDh >= 32 || lane < kDh;
   const int rows = query_rows / kWarps;  // this warp's rows: r0 + warp + 8 i
   const long long bh = blockIdx.x;
   const long long b = bh / heads, h = bh % heads;
@@ -507,7 +518,7 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kStreamRows; ++i) {
     const int s = r0 + warp + kWarps * i;
-    if (i < rows && s < sq) {
+    if (owner && i < rows && s < sq) {
       const T* qrow = q + b * qs.b + h * qs.h + (long long)s * qs.s;
 #pragma unroll
       for (int c = 0; c < kDpl; ++c) q_sh[i * kDh + lane + 32 * c] = load_f(qrow + lane + 32 * c);
@@ -595,16 +606,18 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (i >= rows || r0 + warp + kWarps * i >= sq) continue;
       for (int j = lane; j < nk; j += 32) p[j] = round_like(expf(logit(i, j) - m[i]) / l[i], v);
       __syncwarp();
+      if (owner) {
 #pragma unroll 4
-      for (int j = 0; j < nk; ++j) {
-        const float w = p[j];
-        const float* vr = v_sh + j * kDh + kDpl * lane;
-        if constexpr (kDpl == 2) {
-          const float2 t = *reinterpret_cast<const float2*>(vr);
-          acc[i][0] = fmaf(w, t.x, acc[i][0]);
-          acc[i][1] = fmaf(w, t.y, acc[i][1]);
-        } else {
-          acc[i][0] = fmaf(w, vr[0], acc[i][0]);
+        for (int j = 0; j < nk; ++j) {
+          const float w = p[j];
+          const float* vr = v_sh + j * kDh + kDpl * lane;
+          if constexpr (kDpl == 2) {
+            const float2 t = *reinterpret_cast<const float2*>(vr);
+            acc[i][0] = fmaf(w, t.x, acc[i][0]);
+            acc[i][1] = fmaf(w, t.y, acc[i][1]);
+          } else {
+            acc[i][0] = fmaf(w, vr[0], acc[i][0]);
+          }
         }
       }
       __syncwarp();  // the next row overwrites p
@@ -614,7 +627,7 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kStreamRows; ++i) {
     const int s = r0 + warp + kWarps * i;
-    if (i >= rows || s >= sq) continue;
+    if (!owner || i >= rows || s >= sq) continue;
     T* orow = o + b * os.b + h * os.h + (long long)s * os.s;
 #pragma unroll
     for (int c = 0; c < kDpl; ++c) store_f(orow + kDpl * lane + c, acc[i][c]);
@@ -734,6 +747,9 @@ extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const
   if (problems == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
+    if (dh == 16)
+      return launch_mma<16>(q, k, v, o, heads, sq, sk, problems, per_block, warps, keys_padded,
+                            smem, scale, strides, s);
     if (dh == 32)
       return launch_mma<32>(q, k, v, o, heads, sq, sk, problems, per_block, warps, keys_padded,
                             smem, scale, strides, s);
@@ -748,8 +764,12 @@ extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const
                                                 warps, query_rows, smem, vec, scale, strides, s) \
                   : launch_simt<T, DH>(q, k, v, o, heads, sq, sk, problems, per_block, warps,   \
                                        smem, vec, scale, strides, s)
+  if (dtype == 0 && dh == 8) CROWDMOD_SIMT(float, 8);
+  if (dtype == 0 && dh == 16) CROWDMOD_SIMT(float, 16);
   if (dtype == 0 && dh == 32) CROWDMOD_SIMT(float, 32);
   if (dtype == 0 && dh == 64) CROWDMOD_SIMT(float, 64);
+  if (dtype == 1 && dh == 8) CROWDMOD_SIMT(bf16, 8);
+  if (dtype == 1 && dh == 16) CROWDMOD_SIMT(bf16, 16);
   if (dtype == 1 && dh == 32) CROWDMOD_SIMT(bf16, 32);
   if (dtype == 1 && dh == 64) CROWDMOD_SIMT(bf16, 64);
 #undef CROWDMOD_SIMT

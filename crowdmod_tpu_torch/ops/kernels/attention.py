@@ -34,8 +34,10 @@ import torch
 from crowdmod_tpu_torch.ops.kernels import build, library
 
 # Limits of the kernel (csrc/attention.cu): the head dims it is compiled for
-# and the shared memory a block can have.
-HEAD_DIMS = (32, 64)
+# (the mma route's k-slices are 16 deep: Dh 8 takes the simt route) and the
+# shared memory a block can have.
+HEAD_DIMS = (8, 16, 32, 64)
+MMA_HEAD_DIMS = (16, 32, 64)
 MAX_SMEM = 232448  # 227 KB
 MMA_MIN_QUERIES = 16  # one 16-row query tile; fewer take the SIMT route
 # The streamed SIMT form: keys a block stages at once, query rows a warp
@@ -93,6 +95,7 @@ def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> Attentio
     FM-DiT's 216: 1 on 14); Q (in whole tiles), K and V (keys padded to 16)
     in shared memory as bf16 rows of Dh + 8; fewer problems a block where
     they would overflow it, and where one problem does, the SIMT route.
+    Dh 8 has no mma tile: it takes the SIMT route.
     Otherwise the SIMT route: resident, 8 warps and 8 // sq problems a
     block (fewer where their keys would overflow shared memory), K and V as
     f32 rows plus a query row and a logit row a warp; or, where one
@@ -103,7 +106,8 @@ def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> Attentio
     keys16 = -(-sk // 16) * 16
     mma_smem = lambda n: 2 * (dh + 8) * n * (tiles * 16 + 2 * keys16)  # noqa: E731
     problems = b * h
-    if dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES and mma_smem(1) <= MAX_SMEM:
+    if (dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES and dh in MMA_HEAD_DIMS
+            and mma_smem(1) <= MAX_SMEM):
         per_block = max(1, 8 // tiles)
         while per_block > 1 and mma_smem(per_block) > MAX_SMEM:
             per_block -= 1

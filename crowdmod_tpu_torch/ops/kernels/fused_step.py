@@ -131,8 +131,11 @@ def fused_ancestral_update(
             sigma=coeffs[2], lambda_guidance=lambda_guidance, sparsity=sparsity,
             rho_channel=rho_channel,
         )
+    # The kernel reads flat buffers; the twin takes any strides (a DiT's ε̂
+    # with ε targets is a time slice of its unpatched tokens).
     return torch.ops.crowdmod.ancestral_update(
-        x, eps, z, coeffs, float(lambda_guidance), bool(sparsity), int(rho_channel))
+        x.contiguous(), eps.contiguous(), z.contiguous(), coeffs,
+        float(lambda_guidance), bool(sparsity), int(rho_channel))
 
 
 def _step_cuda(x, eps, z, coeffs, lambda_guidance, sparsity, rho_channel):
@@ -151,7 +154,8 @@ def _step_cuda(x, eps, z, coeffs, lambda_guidance, sparsity, rho_channel):
         if name != "coeffs" and (t.shape != x.shape or not t.is_contiguous()):
             raise ValueError(
                 f"fused_ancestral_update: {name} must be contiguous with "
-                f"x's shape {tuple(x.shape)}, got {tuple(t.shape)}"
+                f"x's shape {tuple(x.shape)}, got {tuple(t.shape)} with strides "
+                f"{t.stride()}"
             )
     if coeffs.shape != (3,) or not coeffs.is_contiguous():
         raise ValueError(

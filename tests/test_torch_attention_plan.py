@@ -95,6 +95,19 @@ def test_one_query_takes_the_simt_route_in_bf16():
     assert attention_plan(4, 4, 16, 15, 64, torch.bfloat16).route == "mma"
 
 
+@pytest.mark.parametrize("dh,route", [(8, "simt"), (16, "mma"), (32, "mma"), (64, "mma")])
+def test_narrow_heads_route_by_the_mma_tile(dh, route):
+    """A UNet at a base width of 16 attends with 4 heads of 8 at its
+    bottleneck: 8 has no 16-deep mma k-slice, so bf16 takes the SIMT route
+    there and the mma route from 16 up; f32 takes the SIMT route at every
+    head dim the kernel is compiled for."""
+    assert HEAD_DIMS == (8, 16, 32, 64)
+    assert attention_plan(8, 4, 96, 96, dh, torch.bfloat16).route == route
+    plan = attention_plan(8, 4, 96, 96, dh, torch.float32)
+    assert plan.route == "simt" and plan.smem_bytes == 4 * (
+        plan.problems_per_block * 96 * (2 * dh + 4) + 8 * (dh + 96))
+
+
 @pytest.mark.parametrize("sq", [1, 16, 54, 216, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_shared_memory_fits_at_the_most_keys(dtype, sq):

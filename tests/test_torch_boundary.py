@@ -1,6 +1,7 @@
 """The port's boundary: it imports nothing of JAX, of the JAX package or of
 pandas (the card's machine has none), and its entry points run on the card
-unless asked for the CPU.
+unless asked for the CPU.  The port's drills and quickstarts
+(``tools/*_torch.py``, ``examples/*_torch.py``) are held to both rules.
 
 Module names are matched exactly (``crowdmod_tpu`` or ``crowdmod_tpu.*``),
 never by prefix: ``crowdmod_tpu_torch`` starts with ``crowdmod_tpu``.
@@ -19,7 +20,21 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crowdmod_tpu", "pandas")
 PORT_FILES = sorted((REPO / "crowdmod_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
-]
+] + sorted((REPO / "tools").glob("*_torch.py")) + sorted((REPO / "examples").glob("*_torch.py"))
+# The drills and quickstarts of the port, with the arguments that keep a
+# call from writing anywhere but the test's directory.
+TOOLS = {
+    "tools.dryrun_multihost_torch": ["--out", "{tmp}"],
+    "tools.training_drill_torch": ["--out", "{tmp}"],
+    "tools.soak_http_torch": ["--workdir", "{tmp}"],
+    "tools.validate_e2e_torch": [],
+    "tools.etl_drill_torch": ["--out", "{tmp}"],
+    "tools.eval_protocol_full_torch": ["--out", "{tmp}"],
+    "tools.soak_stream_torch": ["--dir", "{tmp}", "--gb", "0"],
+    "examples.quickstart_torch": ["--out", "{tmp}"],
+    "examples.serving_quickstart_torch": ["--out", "{tmp}"],
+    "examples.scaling_quickstart_torch": ["--out", "{tmp}"],
+}
 
 
 def _forbidden(module: str) -> bool:
@@ -132,6 +147,25 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
             helper()
     assert not multiprocess.active()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_every_tool_of_the_port_is_checked():
+    names = {f"{p.parent.name}.{p.stem}" for p in PORT_FILES
+             if p.parent.name in ("tools", "examples")}
+    assert names == set(TOOLS)
+
+
+@pytest.mark.parametrize("module", sorted(TOOLS))
+def test_tool_entry_points_default_to_the_card(module, monkeypatch, tmp_path):
+    """Each drill and quickstart asks for CUDA without ``--device`` and
+    raises where there is none, before it writes or spawns anything."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a.format(tmp=tmp_path / "out") for a in TOOLS[module]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        importlib.import_module(module).main(argv)
+    assert not (tmp_path / "out").exists()
 
 
 def test_unported_archs_name_their_roadmap_item():

@@ -123,3 +123,24 @@ def test_vector_lanes_find_the_rho_channel(channels, phase):
                 np.testing.assert_allclose(got.numpy(), jax_out, atol=STEP_ATOL, rtol=0)
     # Every tail length n − head − 4·vectors can take for this C and phase.
     assert tails == {(rows * channels - (4 - phase) % 4) % 4 for rows in range(5, 13)}
+
+
+def test_the_wrapper_hands_the_kernel_contiguous_buffers(monkeypatch):
+    """Off the CPU the wrapper calls the operator with contiguous x, ε̂ and
+    z whatever their strides: an ε-predicting DiT's ε̂ is a time slice of
+    its unpatched tokens, which the kernel refused before (it reads flat
+    buffers)."""
+    from crowdmod_tpu_torch.ops.kernels import fused_ancestral_update
+
+    seen = []
+
+    def operator(x, eps, z, coeffs, lam, sparsity, rho):
+        seen.append([t.is_contiguous() for t in (x, eps, z)])
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(torch.ops.crowdmod, "ancestral_update", operator)
+    x = torch.empty((2, 3, 4, 6, 3), device="meta")
+    eps = torch.empty((2, 8, 4, 6, 3), device="meta")[:, 5:]
+    assert not eps.is_contiguous()
+    out = fused_ancestral_update(x, eps, x, torch.empty(3, device="meta"))
+    assert seen == [[True, True, True]] and out.shape == x.shape
