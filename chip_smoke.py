@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with CUDA
     python3 chip_smoke.py --conv-baseline DIR   # phase 1, then this tree's conv
-                                   # kernels against DIR/conv3d.cu (the e95bbf9 C interface)
-    python3 chip_smoke.py --conv-tiles          # phase 1, then every bf16 conv
-                                   # tile at every path shape (the plans' data)
+                                   # kernels against DIR/conv3d.cu, common.cuh,
+                                   # mma.cuh of commit cdc7807
+    python3 chip_smoke.py --conv-ab SRC...      # phase 1, then builds of variants
+                                   # of csrc/conv3d.cu against each other
+    python3 chip_smoke.py --conv-tiles          # phase 1, then every bf16 halo
+                                   # block at every path shape (the plans' data)
     python3 chip_smoke.py --gn-plans            # phase 1, then every bf16 GroupNorm
                                    # route and cluster size at every path shape
                                    # and serving bucket (the plan's data)
@@ -797,11 +800,13 @@ def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH):
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{label}: a second call gave other bits ({plan})")
+    # The plan's shared memory is the library's own count.
+    built_smem = smem_bytes(impl, plan, tuple(x.shape))
+    if built_smem != plan.smem_bytes:
+        raise AssertionError(f"{label}: plan smem {plan.smem_bytes} != built {built_smem}")
     res = dict(shape=[batch, t, h, w, cin, cout], impl=impl,
                dtype=_dn(dtype), max_abs_err=err, tolerance=f"{tol} x max|ref|",
-               bitwise_repeat=True,
-               plan={**dataclasses.asdict(plan), "smem_bytes": (
-                   smem_bytes(impl, plan) if dtype == torch.bfloat16 else 0)})
+               bitwise_repeat=True, plan=dataclasses.asdict(plan))
     if timing:
         # F.conv3d over the same channels-last memory (NDHWC, cuDNN).
         xc = x.permute(0, 4, 1, 2, 3)
@@ -822,18 +827,19 @@ def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH):
 
 def check_bucket_plans(gen, timing) -> dict:
     """The im2col plans of the other serving buckets: the plan depends on
-    the batch (split-K at levels 0-1 for small batches, a last row tile
-    only partly live), so one shape per plan that batch 64 does not check
-    (tile, K chunk, splits, partial tile; bf16, the final conv f32, as
+    the batch (split-K at levels 0-1 for small batches, a last tile only
+    partly live), so one shape per plan that batch 64 does not check (route,
+    block, chunk, tile, splits, partial tile; bf16, the final conv f32, as
     served) is checked, for bitwise repeats too, and timed."""
     from crowdmod_tpu_torch.ops.kernels.conv3d import im2col_plan
     from crowdmod_tpu_torch.serving import BATCH_BUCKETS
 
     def key(batch, level, cin, cout):
         dtype = torch.float32 if cout == 3 else torch.bfloat16
-        positions = batch * int(np.prod(LEVELS[level]))
-        p = im2col_plan((batch, *LEVELS[level], cin), cout, dtype)
-        return dtype, p.bm, p.bn, p.bk, p.kc, p.splits, positions % p.bm == 0
+        shape = (batch, *LEVELS[level])
+        p = im2col_plan((*shape, cin), cout, dtype)
+        ragged = any(n % k for n, k in zip(shape, p.tile) if k)  # a tile partly live
+        return dtype, p.route, p.bm, p.bn, p.kc, p.tile, p.splits, ragged
 
     seen = {key(UNET_BATCH, *shape) for shape in CONV_SHAPES}
     res = {}
@@ -1055,24 +1061,56 @@ def phase_unet_kernels(timing: bool = True) -> dict:
         log("group norm table, bf16 b64 [shape, calls a forward, ms, bound_ms, "
             "F.group_norm ms, route, k, threads]", rows=gn_rows)
         table = [[k] + [round(c[f], 5) for f in ("ms", "bound_ms", "library_ms", "tflops")]
-                 + [c["plan"][f] for f in ("bm", "bn", "bk", "kc", "splits", "blocks",
-                                           "smem_bytes")]
+                 + [c["plan"][f] for f in ("route", "bm", "bn", "kc", "tile", "stages",
+                                           "nbox", "splits", "blocks", "smem_bytes")]
                  for k, c in res["conv"].items()]
-        log("conv table [shape, ms, bound_ms, cudnn_ms, tflops, bm, bn, bk, kc, splits, "
-            "blocks, smem_bytes]", rows=table)
+        log("conv table [shape, ms, bound_ms, cudnn_ms, tflops, route, bm, bn, kc, tile, "
+            "stages, nbox, splits, blocks, smem_bytes]", rows=table)
     return res
 
 
 
+def baseline_conv_plan(impl: str, x_shape, cout: int, dtype, sms: int) -> tuple:
+    """The plan arguments commit cdc7807's ``im2col_plan`` / ``tapgemm_plan``
+    (``ops/kernels/conv3d.py``) gave its kernels: im2col (bm, bn, bk, kc,
+    splits), tap-GEMM (bk, kc); kc is the widest of 64, 32, 16, 8 dividing
+    Cin up to bk, 0 where Cin % 8 != 0."""
+    b, t, h, w, cin = x_shape
+    positions = b * t * h * w
+    blocks = lambda bm, bn: -(-positions // bm) * -(-cout // bn)  # noqa: E731
+    chunk = lambda bk: next((k for k in (64, 32, 16, 8)  # noqa: E731
+                             if k <= bk and cin % k == 0), 0)
+    if impl == "tapgemm":
+        bk = 16 if dtype == torch.float32 else 64 if cin % 64 == 0 else 32
+        return (bk, 0 if dtype == torch.float32 else chunk(bk))
+    if dtype == torch.float32:
+        if cout <= 4 and cin % 4 == 0 and cin * 4 <= 6144:
+            return (256, 4, 16, 0, 1)
+        bn = 64 if cout >= 64 and blocks(128, 64) >= 2 * sms else 32 if cout >= 32 else 16
+        return (128, bn, 16, 0, 1)
+    deep = cin % 64 == 0
+    bn = 128 if cout > 64 and deep else 64 if cout > 32 else 32
+    bk = 64 if deep and bn >= 64 else 32
+    bm = 256 if (bn, bk) == (64, 64) and blocks(256, 64) >= 2 * sms else 128
+    tiles = blocks(bm, bn)
+    splits = 9 if cin % 8 == 0 and tiles < sms else 1
+    return (bm, bn, bk, chunk(bk), splits)
+
+
 def phase_conv_baseline(src_dir: Path) -> dict:
-    """Both conv kernels of this tree against an earlier ``conv3d.cu`` (with
-    its ``common.cuh``, in ``src_dir``, with the 12-argument C interface of
-    commit e95bbf9, the CUDA-core kernels) at every ``CONV_SHAPES`` shape,
-    f32 and bf16, on this card: each output checked against this tree's,
-    each timed in turns (earlier, this, this, earlier)."""
+    """Both conv kernels of this tree against commit cdc7807's (``src_dir``
+    holds its ``conv3d.cu``, ``common.cuh`` and ``mma.cuh``, from ``git show
+    cdc7807:crowdmod_tpu_torch/csrc/<file>``; its C interface, with the
+    plans of :func:`baseline_conv_plan`) at every ``CONV_SHAPES`` shape, f32
+    and bf16, on this card: each output checked against this tree's within
+    the conv tolerance, each timed in turns (baseline, this, this,
+    baseline), with the host ms of a call: this tree's operator, and each
+    tree's C call alone."""
     import ctypes
 
     from crowdmod_tpu_torch.ops.kernels import build, conv3d_same_im2col, conv3d_same_tapgemm
+    from crowdmod_tpu_torch.ops.kernels import conv3d as conv_mod
+    from crowdmod_tpu_torch.ops.kernels.build import sm_count
     from crowdmod_tpu_torch.ops.kernels.conv3d import pack_im2col, pack_tapgemm
 
     lib_path = src_dir / "libconv3d_baseline.so"
@@ -1080,48 +1118,170 @@ def phase_conv_baseline(src_dir: Path) -> dict:
                     str(src_dir / "conv3d.cu")], check=True, capture_output=True,
                    timeout=600)
     lib = ctypes.CDLL(str(lib_path))
-    argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    for fn in ("crowdmod_conv3d_im2col", "crowdmod_conv3d_tapgemm"):
-        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.crowdmod_conv3d_im2col.argtypes = [i32] + [ptr] * 5 + [i32] * 11 + [ptr]
+    lib.crowdmod_conv3d_tapgemm.argtypes = [i32] + [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.crowdmod_conv3d_im2col.restype = lib.crowdmod_conv3d_tapgemm.restype = i32
+    sms = sm_count(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for impl in ("im2col", "tapgemm"):
             conv, pack = ((conv3d_same_im2col, pack_im2col) if impl == "im2col"
                           else (conv3d_same_tapgemm, pack_tapgemm))
-            old_fn = getattr(lib, f"crowdmod_conv3d_{impl}")
             for level, cin, cout in CONV_SHAPES:
                 x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
                 wp = pack(kernel)
                 out_old = torch.empty((*x.shape[:-1], cout), dtype=dtype, device="cuda")
                 b, t, h, w, _ = x.shape
+                plan = baseline_conv_plan(impl, tuple(x.shape), cout, dtype, sms)
+                ws = None
+                if impl == "im2col" and plan[-1] > 1:
+                    ws = torch.empty(plan[-1] * b * t * h * w * cout, dtype=torch.float32,
+                                     device="cuda")
+                code = 1 if dtype == torch.bfloat16 else 0
+                head = (code, x.data_ptr(), wp.data_ptr(), bias.data_ptr(), out_old.data_ptr())
+                if impl == "im2col":
+                    head += (None if ws is None else ws.data_ptr(),)
 
                 def old():
-                    err = old_fn(1 if dtype == torch.bfloat16 else 0, x.data_ptr(),
-                                 wp.data_ptr(), bias.data_ptr(), out_old.data_ptr(),
-                                 b, t, h, w, cin, cout,
-                                 torch.cuda.current_stream().cuda_stream)
+                    err = getattr(lib, f"crowdmod_conv3d_{impl}")(
+                        *head, b, t, h, w, cin, cout, *plan,
+                        torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"baseline {impl} launch failed: {err}")
+
+                # This tree's C call alone, its plan and output made once.
+                new_plan = (conv_mod.im2col_plan if impl == "im2col" else
+                            conv_mod.tapgemm_plan)(tuple(x.shape), cout, dtype)
+                out_new = torch.empty_like(out_old)
+                ws_new = (torch.empty(new_plan.workspace_elems(b * t * h * w, cout),
+                                      dtype=torch.float32, device="cuda")
+                          if new_plan.splits > 1 else None)
+                new_args = (code, x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                            out_new.data_ptr(), None if ws_new is None else ws_new.data_ptr(),
+                            b, t, h, w, cin, cout, *new_plan.args())
+                new_lib = build.load("conv3d", conv_mod._SIGNATURES)
+
+                def new_raw():
+                    err = getattr(new_lib, f"crowdmod_conv3d_{impl}")(
+                        *new_args, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{impl} launch failed: {err}")
 
                 old()
                 new = conv(x, wp, bias)
                 torch.cuda.synchronize()
                 key = f"{impl}_L{level}_{cin}_{cout}_{_dn(dtype)}"
                 tol = TOL["conv_f32" if dtype == torch.float32 else "bf16"]
-                _rel_check(f"baseline {key}", out_old, new.float(), tol)
-                o1, n1 = cuda_ms_budget(old)[0], cuda_ms_budget(lambda: conv(x, wp, bias))[0]
-                n2, o2 = cuda_ms_budget(lambda: conv(x, wp, bias))[0], cuda_ms_budget(old)[0]
-                rows[key] = dict(baseline_ms=[o1, o2], ms=[n1, n2],
-                                 speedup=(o1 + o2) / (n1 + n2))
+                ref = new.float()
+                err = _rel_check(f"baseline vs this tree {key}", out_old, ref, tol)
+                o1, oh1 = cuda_ms_budget(old)
+                n1, host1 = cuda_ms_budget(lambda: conv(x, wp, bias))
+                raw_host = cuda_ms_budget(new_raw)[1]
+                n2, host2 = cuda_ms_budget(lambda: conv(x, wp, bias))
+                o2, oh2 = cuda_ms_budget(old)
+                rows[key] = dict(baseline_ms=[o1, o2], ms=[n1, n2], host_ms=[host1, host2],
+                                 c_call_host_ms=raw_host, baseline_c_call_host_ms=[oh1, oh2],
+                                 speedup=(o1 + o2) / (n1 + n2), max_abs_diff=err,
+                                 baseline_plan=list(plan))
                 log(f"conv baseline {key}", **rows[key])
+    per_fwd = {}
+    for impl in ("im2col", "tapgemm"):
+        for side in ("baseline_ms", "ms"):
+            per_fwd[f"{impl}_{side}"] = sum(
+                float(np.mean(rows[f"{impl}_L{lv}_{i}_{o}_"
+                                   f"{'float32' if o == 3 else 'bfloat16'}"][side])) * n
+                for (lv, i, o), n in CONV_SHAPES.items())
+    log("conv baseline per bf16 forward at batch 64 (device ms; final conv f32)", **per_fwd)
+    hosts = {side: statistics.median(
+        v for r in rows.values() for v in np.ravel([r[side]]))
+        for side in ("host_ms", "c_call_host_ms", "baseline_c_call_host_ms")}
+    log("conv baseline host ms a call, medians over the shapes", **hosts)
+    return rows
+
+
+def phase_conv_ab(sources: list) -> dict:
+    """Builds of variants of ``csrc/conv3d.cu`` (each ``sources`` file, with
+    this tree's headers and C interface, into ``_build/ab-<stem>.so``; the
+    stems name the variants) against each other at every bf16
+    ``CONV_SHAPES`` shape, both kernels with this tree's plans, in turns
+    (A B … B A); a plan with two boxes at levels 0-1 is also timed with one.
+    Each output is held to the twin first."""
+    import ctypes
+
+    from crowdmod_tpu_torch.ops.kernels import build, conv3d_same_reference
+    from crowdmod_tpu_torch.ops.kernels import conv3d as conv_mod
+
+    libs, jobs = {}, []
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for src in sources:
+        out = build.BUILD_DIR / f"ab-{src.stem}.so"
+        jobs.append((src.stem, out, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-o", str(out),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for name, out, proc in jobs:
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{text[-3000:]}")
+        lib = ctypes.CDLL(str(out))
+        for fn, (restype, argtypes) in conv_mod._SIGNATURES.items():
+            getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+        libs[name] = lib
+        log("conv ab built", variant=name,
+            serialised_wgmma=sum("C7515" in ln for ln in text.splitlines()))
+    names = list(libs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    dtype = torch.bfloat16
+    rows, forward = {}, dict.fromkeys(names, 0.0)
+
+    def timed(key, impl, plan, x, wp, bias, cout, ref):
+        b, t, h, w, cin = x.shape
+        out = torch.empty((b, t, h, w, cout), dtype=dtype, device="cuda")
+        ws = (torch.empty(plan.workspace_elems(b * t * h * w, cout), dtype=torch.float32,
+                          device="cuda") if plan.splits > 1 else None)
+
+        def run(name):
+            err = getattr(libs[name], f"crowdmod_conv3d_{impl}")(
+                1, x.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), b, t, h, w, cin, cout, *plan.args(),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name} {impl} launch failed: {err}")
+            return out
+
+        ms = {name: [] for name in names}
+        for name in names:
+            _rel_check(f"{name} {key}", run(name).clone(), ref, TOL["bf16"])
+        for name in names + names[::-1]:
+            ms[name].append(cuda_ms_budget(lambda name=name: run(name), budget_ms=20.0)[0])
+        rows[key] = {name: v for name, v in ms.items()}
+        log(f"conv ab {key}", **{name: float(np.mean(v)) for name, v in ms.items()})
+        return ms
+
+    for level, cin, cout in CONV_SHAPES:
+        x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
+        ref = conv3d_same_reference(x.float(), kernel.float(), bias)
+        for impl, planner in (("im2col", conv_mod.im2col_plan),
+                              ("tapgemm", conv_mod.tapgemm_plan)):
+            wp = (conv_mod.pack_im2col if impl == "im2col" else conv_mod.pack_tapgemm)(kernel)
+            plan = planner(tuple(x.shape), cout, dtype)
+            ms = timed(f"{impl}_L{level}_{cin}_{cout}", impl, plan, x, wp, bias, cout, ref)
+            if impl == "im2col":
+                for name in names:
+                    forward[name] += float(np.mean(ms[name])) * CONV_SHAPES[(level, cin, cout)]
+            if plan.nbox == 2 and level < 2:
+                timed(f"{impl}_L{level}_{cin}_{cout}_nbox1", impl,
+                      dataclasses.replace(plan, nbox=1), x, wp, bias, cout, ref)
+    log("conv ab im2col sum of one forward, bf16 (device ms)", **forward)
     return rows
 
 
 def phase_conv_tiles() -> dict:
-    """Every bf16 tile the conv kernels are built with (``IM2COL_TILES`` with
-    1 or 9 splits, ``TAPGEMM_TILES``) at every ``CONV_SHAPES`` shape,
-    each checked against the twin and timed; ``chosen`` marks the wrappers'
+    """Every bf16 halo block the conv kernels are built with (``HALO_TILES``
+    at the plan's channel chunk, with 1, 2, 3 or 9 splits) at every
+    ``CONV_SHAPES`` shape, at batch 64 and at the serving bucket of 1, each
+    checked against the twin and timed; ``chosen`` marks the wrappers'
     plan.  The data behind the plan functions' choices."""
     from crowdmod_tpu_torch.ops.kernels import conv3d_same_reference
     from crowdmod_tpu_torch.ops.kernels import conv3d as conv_mod
@@ -1129,39 +1289,39 @@ def phase_conv_tiles() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     dtype = torch.bfloat16
     rows = {}
-    for level, cin, cout in CONV_SHAPES:
-        x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
-        ref = conv3d_same_reference(x.float(), kernel.float(), bias)
-        positions = x.numel() // cin
-        flops = 2 * positions * 27 * cin * cout
-        w_mat, w_taps = conv_mod.pack_im2col(kernel), conv_mod.pack_tapgemm(kernel)
-        chosen = {"im2col": conv_mod.im2col_plan(tuple(x.shape), cout, dtype),
-                  "tapgemm": conv_mod.tapgemm_plan(tuple(x.shape), cout, dtype)}
-        cases = [("im2col", tile, s) for tile in sorted(conv_mod.IM2COL_TILES)
-                 for s in ((1, 9) if cin % 8 == 0 else (1,))]
-        cases += [("tapgemm", tile, 1) for tile in sorted(conv_mod.TAPGEMM_TILES)]
-        for impl, tile, splits in cases:
-            plan = conv_mod.mma_plan(tile, cin, splits, 0)
-            ws = (torch.empty(plan.workspace_elems(positions, cout), dtype=torch.float32,
-                              device="cuda") if splits > 1 else None)
-            if impl == "im2col":
-                def fn():
-                    return conv_mod._launch(
-                        "crowdmod_conv3d_im2col", x, w_mat, bias, cout,
-                        (plan.bm, plan.bn, plan.bk, plan.kc, plan.splits),
-                        (None if ws is None else ws.data_ptr(),))
-            else:
-                def fn():
-                    return conv_mod._launch("crowdmod_conv3d_tapgemm", x, w_taps, bias,
-                                            cout, (plan.bk, plan.kc))
-            key = f"{impl}_L{level}_{cin}_{cout}_{tile[0]}x{tile[1]}x{tile[2]}_s{splits}"
-            _rel_check(key, fn(), ref, TOL["bf16"])
-            ms = cuda_ms_budget(fn, budget_ms=20.0)[0]
-            c = chosen[impl]
-            rows[key] = dict(ms=ms, tflops=flops / ms / 1e9, chosen=(
-                (c.bm, c.bn, c.bk, c.splits) == (*tile, splits)))
-    log("conv tiles [key, ms, tflops, chosen]",
-        rows=[[k, round(r["ms"], 5), round(r["tflops"], 1), r["chosen"]]
+    for batch in (UNET_BATCH, 1):
+        for level, cin, cout in CONV_SHAPES:
+            x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen, batch)
+            ref = conv3d_same_reference(x.float(), kernel.float(), bias)
+            flops = 2 * (x.numel() // cin) * 27 * cin * cout
+            packed = {"im2col": conv_mod.pack_im2col(kernel),
+                      "tapgemm": conv_mod.pack_tapgemm(kernel)}
+            shape = tuple(x.shape)
+            chosen = {"im2col": conv_mod.im2col_plan(shape, cout, dtype),
+                      "tapgemm": conv_mod.tapgemm_plan(shape, cout, dtype)}
+            for impl, bm, bn, kc in sorted(conv_mod.HALO_TILES):
+                if kc != chosen[impl].kc:
+                    continue
+                for splits in (1, 2, 3, 9):
+                    try:
+                        plan = conv_mod.halo_plan(impl, shape, cout, block=(bm, bn),
+                                                  splits=splits)
+                    except ValueError:  # no tile of this block fits the shape
+                        continue
+                    if plan.splits != splits:  # the packed stages take no split
+                        continue
+
+                    def fn(impl=impl, plan=plan):
+                        return conv_mod._launch(f"crowdmod_conv3d_{impl}", x, packed[impl],
+                                                bias, cout, plan)
+
+                    key = f"{impl}_b{batch}_L{level}_{cin}_{cout}_{bm}x{bn}_s{splits}"
+                    _rel_check(key, fn(), ref, TOL["bf16"])
+                    ms = cuda_ms_budget(fn, budget_ms=20.0)[0]
+                    rows[key] = dict(ms=ms, tflops=flops / ms / 1e9, tile=plan.tile,
+                                     chosen=plan == chosen[impl])
+    log("conv tiles [key, ms, tflops, tile, chosen]",
+        rows=[[k, round(r["ms"], 5), round(r["tflops"], 1), r["tile"], r["chosen"]]
               for k, r in rows.items()])
     return rows
 
@@ -5115,6 +5275,10 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--conv-baseline":
         rows = phase_conv_baseline(Path(sys.argv[2]).resolve())
         log("conv baseline done", seconds=time.perf_counter() - t_start, shapes=len(rows))
+        return 0
+    if sys.argv[1:2] == ["--conv-ab"] and len(sys.argv) > 2:
+        rows = phase_conv_ab([Path(f).resolve() for f in sys.argv[2:]])
+        log("conv ab done", seconds=time.perf_counter() - t_start, shapes=len(rows))
         return 0
     if sys.argv[1:] == ["--conv-tiles"]:
         rows = phase_conv_tiles()
