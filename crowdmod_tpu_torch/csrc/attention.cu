@@ -15,8 +15,34 @@
 // card's ridge point.  What keeps such a kernel from its bound is latency:
 // serial work per row and loads that are too small.
 //
-// Two routes, picked by the wrapper's plan (ops/kernels/attention.py,
+// Three routes, picked by the wrapper's plan (ops/kernels/attention.py,
 // attention_plan) and passed in as ints:
+//
+//   "wgmma" (bf16, Sq >= 16, Dh 32 or 64, 65 to 448 keys: FM-DiT's joint
+//   attention over 216, 336 or 432 tokens).  Past 64 keys the mma route
+//   below recomputed every logit block in a second sweep and copied a
+//   whole problem before its first product; at FM-DiT's 216 tokens it took
+//   3x SDPA's time.  Here a CTA takes one problem, so its K and V cross
+//   device memory once: one warpgroup up to 224 keys, two past that, each
+//   holding half of them.  Thread 0 issues the copies by TMA through 4-D
+//   tensor maps over the caller's strides (the packed projections read in
+//   place): query tile 0, K, V, query tile 1, each under an mbarrier, into
+//   128- (Dh 64) or 64-byte (Dh 32) swizzled boxes; the query tiles cycle
+//   through two slots.  Per 64-row query tile: S = Q K^T by one wgmma
+//   m64nNk16 a k16 step, N the warpgroup's NK keys (at most 224: 112 f32 a
+//   thread), Q as register A fragments (ldmatrix of its box), K as the
+//   K-major B operand as it stands; the logits stay in registers, so the
+//   softmax is one pass and nothing is recomputed.  Two warpgroups
+//   exchange each row's max and sum (rescaled to the common max, added in
+//   warpgroup order: the same bits in both) through shared memory.  The
+//   weights are normalised in f32 and rounded to bf16 as the contract
+//   rounds them, and go as register A fragments into O = W V (wgmma
+//   m64nDHk16, V the MN-major B operand); the next tile's S is issued
+//   under it.  Two warpgroups split the output's columns: each adds the
+//   other's partial of its half and stores it.  Every sum in a fixed
+//   order: the same bits on every call.  (A cluster of two one-warpgroup
+//   CTAs exchanging through distributed shared memory instead took 1.7x
+//   as long at 432 keys: its cluster barriers.)
 //
 //   "mma" (bf16, Sq >= 16): the FlashAttention-2 register layout on the
 //   tensor cores (mma.cuh).  A block takes whole (b, h) problems and copies
@@ -57,13 +83,14 @@
 //   TF32).
 //
 // Limits (checked by the Python wrapper, and again here): Dh in {8, 16, 32,
-// 64}, the mma route Dh in {16, 32, 64} (its k-slices are 16 deep; under
+// 64}, the wgmma route Dh in {32, 64}, the mma route Dh in {16, 32, 64} (its k-slices are 16 deep; under
 // Dh 32 a simt lane past Dh owns no output element: the UNet's attention
 // at a base width of 16, 4 heads of 8); Sk >= 1; the plan's shared memory
 // at most 227 KB.  The last
 // dimension of each tensor must be contiguous; the other three strides are
 // arguments, so the caller's (B, S, H, Dh) projections are read in place.
-// The mma route needs 16-byte aligned rows (base address and strides).
+// The tensor-core routes need 16-byte aligned rows (base address and
+// strides).
 //
 // Interface: plain C, loaded with ctypes; launches on the given stream and
 // returns cudaGetLastError().
@@ -73,6 +100,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -315,6 +343,276 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int nd = 0; nd < Tile::DN; ++nd)
         *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8) =
             __floats2bfloat162_rn(w.o[nd][2 * i], w.o[nd][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, more than 64 keys: warpgroups on wgmma, K and V staged by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWgTile = 64;  // query rows a warpgroup's tile
+constexpr int kKeyBox = 32;  // keys a TMA box of K or V
+
+struct WgArgs {
+  bf16* o;
+  Strides os;
+  int heads, sq, sk;
+  int tiles;        // 64-row query tiles of a problem
+  int s_dim[3];     // q, k, v: the map dimension (1 or 2) of S; H is the other
+  float scale_log2;  // scale * log2(e): logits in base-2 units
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One (b, h) problem a CTA of KS warpgroups (1 or 2), warpgroup w holding
+// the logits of NK keys (w NK .. w NK + NK - 1) of a 64-row query tile in
+// registers; the warpgroups walk the problem's query tiles together and,
+// with two, exchange each row's max and sum, then half of their partial
+// outputs, through shared memory.  Thread 0 issues the copies by TMA: query
+// tile 0, K, V, query tile 1, each under an mbarrier; tile t + 2 into tile
+// t's slot once tile t's fragments are loaded.
+template <int DH, int NK, int KS>
+__global__ void __launch_bounds__(128 * KS, KS == 1 ? 2 : 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const WgArgs a) {
+  using namespace crowdmod::hopper;
+  constexpr int RB = DH * 2;         // bytes of a row of Q, K or V
+  constexpr int QBOX = kWgTile * RB;  // a query tile
+  constexpr int KBOX = kKeyBox * RB;  // a box of keys
+  constexpr int NB = KS * NK / kKeyBox;  // key boxes of K (and V)
+  constexpr int NC = NK / 32;        // 32-key chunks of the logits
+  constexpr int KD = DH / 16;        // k16 steps of Q K^T
+  constexpr int KV = NK / 16;        // k16 steps of W V
+  constexpr int ON = DH / 2;         // f32 output values a thread
+  constexpr int XO = ON / 2;         // of them, the half handed over (KS 2)
+  constexpr uint32_t SBO = 8 * RB;   // eight rows
+  static_assert(DH == 32 || DH == 64, "head dims 32 and 64");
+  static_assert(NK % 32 == 0 && NK <= 224 && (KS == 1 || KS == 2), "keys a warpgroup holds");
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = base;               // NB boxes of K
+  unsigned char* vs = ks + NB * KBOX;     // NB boxes of V
+  unsigned char* qs = vs + NB * KBOX;     // 2 query tiles
+  // KS 2: each warpgroup's half for the other (XO values a thread), then
+  // the row statistics [wg][thread][(max, sum) x 2 rows].
+  float* xo = reinterpret_cast<float*>(qs + 2 * QBOX);
+  float* red = xo + (KS == 2 ? 2 * XO * 128 : 0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + (KS == 2 ? 2 * 128 * 4 : 0));
+  uint64_t* k_full = bars;
+  uint64_t* v_full = bars + 1;
+  uint64_t* q_full = bars + 2;  // 2 slots
+
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid & 31;
+  const int key0 = wg * NK;  // this warpgroup's first key
+  // Coordinates (d, S or H, H or S, B) of row s0 of tensor i's map.
+  const auto load = [&](const CUtensorMap* map, int i, void* dst, uint64_t* bar, int s0) {
+    if (a.s_dim[i] == 1)
+      tma_load_4d(dst, map, bar, 0, s0, h, b);
+    else
+      tma_load_4d(dst, map, bar, 0, h, s0, b);
+  };
+  const auto load_q = [&](int t) {
+    mbar_arrive_expect_tx(&q_full[t & 1], QBOX);
+    load(&qmap, 0, qs + (t & 1) * QBOX, &q_full[t & 1], t * kWgTile);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    load_q(0);
+    mbar_arrive_expect_tx(k_full, NB * KBOX);
+    for (int j = 0; j < NB; ++j) load(&kmap, 1, ks + j * KBOX, k_full, j * kKeyBox);
+    mbar_arrive_expect_tx(v_full, NB * KBOX);
+    for (int j = 0; j < NB; ++j) load(&vmap, 2, vs + j * KBOX, v_full, j * kKeyBox);
+    if (a.tiles > 1) load_q(1);
+  }
+
+  const uint32_t k_addr = smem_u32(ks) + key0 * RB, v_addr = smem_u32(vs) + key0 * RB;
+  float s[NK / 2];  // the logits: 32-key chunk c at s[16 c], m64n32's layout
+  float o[ON];
+  const auto fence_s = [&]() {
+#pragma unroll
+    for (int e = 0; e < NK / 2; ++e) fence_operand(s[e]);
+  };
+  const auto fence_o = [&]() {
+#pragma unroll
+    for (int e = 0; e < ON; ++e) fence_operand(o[e]);
+  };
+
+  // S = Q K^T of tile t: the query tile as register A fragments (ldmatrix
+  // of the swizzled box), K as the K-major B operand, all NK keys an
+  // instruction a k16 step; issued, not waited for.  Then the tile's slot
+  // takes tile t + 2.
+  const auto issue_s = [&](int t) {
+    mbar_wait(&q_full[t & 1], (t >> 1) & 1);
+    uint32_t qf[KD][4];
+    const uint32_t q_addr = smem_u32(qs + (t & 1) * QBOX);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      ldsm_x4(qf[kk], q_addr + swizzle_chunk<RB>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int e = 0; e < NK / 2; ++e) s[e] = 0.f;
+    fence_s();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      wgmma_m64nNk16_rs_kmajor<NK>(s, qf[kk], desc_sw<RB>(k_addr + kk * 32, 16, SBO));
+    wgmma_commit();
+    __syncthreads();  // every warp's fragments of tile t are loaded
+    if (threadIdx.x == 0 && t + 2 < a.tiles) load_q(t + 2);
+  };
+
+  // Each tile: its S has been issued; the softmax; W V issued, then the
+  // next tile's S issued under it; W V's wait, then (KS 2) the exchange,
+  // and the stores, while the next S runs.
+  mbar_wait(k_full, 0);
+  issue_s(0);
+  for (int tile = 0; tile < a.tiles; ++tile) {
+    wgmma_wait<0>();
+    fence_s();
+
+    // The softmax in f32, in registers: logits in base-2 units, -inf past
+    // the keys (only the chunks that reach past them test); each row's max
+    // and sum over four partial chains and its quad of lanes.  Rows 16
+    // warp + lane / 4 and + 8.
+    const int live = a.sk - key0;  // this warpgroup's keys before the end
+    float mp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mp[i][j] = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float* sc = s + 16 * c;
+      if (32 * c + 32 <= live) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) sc[e] *= a.scale_log2;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int key = 32 * c + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+          sc[e] = key < live ? sc[e] * a.scale_log2 : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        mp[(e >> 1) & 1][e >> 2] = fmaxf(mp[(e >> 1) & 1][e >> 2], sc[e]);
+    }
+    float m[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      m[i] = quad_max(fmaxf(fmaxf(mp[i][0], mp[i][1]), fmaxf(mp[i][2], mp[i][3])));
+    float lp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int e = 0; e < NK / 2; ++e) {
+      const float x = ex2(s[e] - m[(e >> 1) & 1]);
+      s[e] = x;
+      lp[(e >> 1) & 1][(e >> 2) & 3] += x;
+    }
+    float l[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = quad_sum((lp[i][0] + lp[i][1]) + (lp[i][2] + lp[i][3]));
+    // Each row's weights e / l in f32: with two warpgroups, the max m over
+    // both, l = l0 2^(m0 - m) + l1 2^(m1 - m) in warpgroup order (the same
+    // bits in both), and this warpgroup's e scaled by 2^(m_w - m) / l.
+    float r[2];
+    if constexpr (KS == 2) {
+      reinterpret_cast<float4*>(red)[wg * 128 + tid] = make_float4(m[0], l[0], m[1], l[1]);
+      __syncthreads();
+      const float4 s0 = reinterpret_cast<const float4*>(red)[tid];
+      const float4 s1 = reinterpret_cast<const float4*>(red)[128 + tid];
+      const float m0[2] = {s0.x, s0.z}, l0[2] = {s0.y, s0.w};
+      const float m1[2] = {s1.x, s1.z}, l1[2] = {s1.y, s1.w};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float mx = fmaxf(m0[i], m1[i]);
+        const float tot = l0[i] * ex2(m0[i] - mx) + l1[i] * ex2(m1[i] - mx);
+        r[i] = ex2(m[i] - mx) * __frcp_rn(tot);
+      }
+    } else {
+      r[0] = __frcp_rn(l[0]);
+      r[1] = __frcp_rn(l[1]);
+    }
+
+    // O = W V: the weights rounded to bf16 as register A fragments (the
+    // accumulator layout of S is the A layout of 16 keys), all packed
+    // before the first product so no instruction between two wgmmas
+    // writes a register one of them reads; V as the MN-major B operand,
+    // 16 keys an instruction.
+    uint32_t wf[KV][4];
+#pragma unroll
+    for (int kk = 0; kk < KV; ++kk) {
+      const float* w = s + 8 * kk;
+      wf[kk][0] = pack_bf16(w[0] * r[0], w[1] * r[0]);
+      wf[kk][1] = pack_bf16(w[2] * r[1], w[3] * r[1]);
+      wf[kk][2] = pack_bf16(w[4] * r[0], w[5] * r[0]);
+      wf[kk][3] = pack_bf16(w[6] * r[1], w[7] * r[1]);
+    }
+    if (tile == 0) mbar_wait(v_full, 0);
+#pragma unroll
+    for (int e = 0; e < ON; ++e) o[e] = 0.f;
+    fence_o();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV; ++kk) {
+      const uint64_t dv = desc_sw<RB>(v_addr + 16 * kk * RB, 8192, SBO);
+      if constexpr (DH == 64)
+        wgmma_m64n64k16_rs(o, wf[kk], dv);
+      else
+        wgmma_m64n32k16_rs<1>(o, wf[kk], dv);
+    }
+    wgmma_commit();
+    if (tile + 1 < a.tiles) {
+      issue_s(tile + 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_o();
+
+    // The stores: with two warpgroups, warpgroup w stores half w of the
+    // columns after adding the other's partial of that half (own + other:
+    // the same bits whichever adds).  o[4 j + e] is column 8 j + 2 (lane %
+    // 4) + (e & 1): half 0 is o[0 .. XO), half 1 o[XO .. ON).
+    // (Selects, not o[wg * XO + e]: an index the compiler cannot fold
+    // would put o in local memory.)
+    int j0 = 0, j1 = DH / 8;
+    if constexpr (KS == 2) {
+#pragma unroll
+      for (int e = 0; e < XO; ++e) xo[(wg * XO + e) * 128 + tid] = wg ? o[e] : o[XO + e];
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < XO; ++e) {
+        const float other = xo[((wg ^ 1) * XO + e) * 128 + tid];
+        if (wg)
+          o[XO + e] += other;
+        else
+          o[e] += other;
+      }
+      j0 = wg * DH / 16;
+      j1 = j0 + DH / 16;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = tile * kWgTile + warp * 16 + (lane >> 2) + 8 * half;
+      if (row >= a.sq) continue;
+      bf16* orow = a.o + b * a.os.b + h * a.os.h + row * a.os.s + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        if (j >= j0 && j < j1)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
     }
   }
 }
@@ -643,6 +941,11 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // holds fewer than Sk keys.
 long long smem_bytes(int route, int dh, int sq, int sk, int per_block, int keys_padded,
                      int query_rows, int key_block) {
+  if (route == 2) {  // wgmma: K and V, 2 query tiles, the two warpgroups' exchange
+    const long long split = keys_padded == 2 * key_block;
+    return 1024 + 2LL * keys_padded * 2 * dh + 2LL * 2 * kWgTile * dh +
+           (split ? 4LL * 2 * (dh / 4) * 128 + 4LL * 2 * 128 * 4 : 0) + 8 * 4;
+  }
   if (route == 1) {
     const long long tiles = (sq + 15) / 16;
     return 2LL * (dh + 8) * per_block * (tiles * 16 + 2LL * keys_padded);
@@ -673,6 +976,55 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int heads, 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), heads, sq, sk, problems, per_block, tiles, skp, scale,
       strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3));
+  return (int)cudaGetLastError();
+}
+
+// A 4-D map of a (B, H, S, Dh) view with element strides st = (b, h, s):
+// dims (Dh, S, H, B) or, where H's stride is the smaller, (Dh, H, S, B), a
+// box of `rows` rows of S; *s_dim says which.
+cudaError_t qkv_map(CUtensorMap* map, const void* p, const long long* st, int batch, int heads,
+                    int len, int dh, int rows, int* s_dim) {
+  const bool s_inner = st[2] <= st[1];
+  *s_dim = s_inner ? 1 : 2;
+  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)(s_inner ? len : heads),
+                            (uint64_t)(s_inner ? heads : len), (uint64_t)batch};
+  const uint64_t strides[3] = {2ull * (s_inner ? st[2] : st[1]),
+                               2ull * (s_inner ? st[1] : st[2]), 2ull * st[0]};
+  const uint32_t box[4] = {(uint32_t)dh, s_inner ? (uint32_t)rows : 1u,
+                           s_inner ? 1u : (uint32_t)rows, 1u};
+  return crowdmod::hopper::bf16_tensor_map(
+      map, p, 4, dims, strides, box,
+      dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <int DH, int NK, int KS>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+                 int sq, int sk, float scale, const long long* st, int smem,
+                 cudaStream_t stream) {
+  WgArgs a{};
+  a.o = static_cast<bf16*>(o);
+  a.os = strides_at(st, 3);
+  a.heads = heads;
+  a.sq = sq;
+  a.sk = sk;
+  a.tiles = (sq + kWgTile - 1) / kWgTile;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  const long long problems = (long long)batch * heads;
+  if (problems > 0x7fffffffLL || sk > KS * NK || sk <= (KS - 1) * NK)
+    return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = qkv_map(&maps[i], ptrs[i], st + 3 * i, batch, heads,
+                                    i == 0 ? sq : sk, DH, i == 0 ? kWgTile : kKeyBox,
+                                    &a.s_dim[i]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const auto kernel = attention_wgmma_kernel<DH, NK, KS>;
+  const cudaError_t attr =
+      crowdmod::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<(unsigned)problems, 128 * KS, smem, stream>>>(maps[0], maps[1], maps[2], a);
   return (int)cudaGetLastError();
 }
 
@@ -719,16 +1071,38 @@ int launch_simt_streamed(const void* q, const void* k, const void* v, void* o, i
   return (int)cudaGetLastError();
 }
 
+// The built wgmma kernels, X(DH, NK, KS): head dim, keys a warpgroup holds,
+// warpgroups splitting a problem's keys; ops/kernels/attention.py's
+// WGMMA_TILES names the same (NK, KS).
+#define CROWDMOD_WGMMA_TILES(X) \
+  X(64, 128, 1)                 \
+  X(64, 160, 1)                 \
+  X(64, 192, 1)                 \
+  X(64, 224, 1)                 \
+  X(64, 128, 2)                 \
+  X(64, 160, 2)                 \
+  X(64, 192, 2)                 \
+  X(64, 224, 2)                 \
+  X(32, 128, 1)                 \
+  X(32, 160, 1)                 \
+  X(32, 192, 1)                 \
+  X(32, 224, 1)                 \
+  X(32, 128, 2)                 \
+  X(32, 160, 2)                 \
+  X(32, 192, 2)                 \
+  X(32, 224, 2)
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (b, h, s)
 // for q, k, v and o in that order.  The plan (ops/kernels/attention.py,
-// attention_plan): route 1 = "mma" (bf16 only), 0 = "simt"; problems a
-// block, warps a block, keys padded (mma: Sk up to a multiple of 16; simt:
-// of 4), the query rows of a problem a block covers (Sq, but for the
-// streamed simt form), the keys a block holds in shared memory at once (the
-// padded keys, or kStreamKeys: the streamed simt form) and the dynamic
-// shared memory, which must be the plan's own.  vec:
+// attention_plan): route 2 = "wgmma" and 1 = "mma" (bf16 only), 0 =
+// "simt"; problems a block, warps a block, keys padded (wgmma: the keys
+// the block's warpgroups hold, KS x NK; mma: Sk up to a multiple of 16;
+// simt: of 4), the query rows of a problem a block covers (Sq, but for the
+// streamed simt form), the keys a block holds in shared memory at once
+// (wgmma: NK, a warpgroup's; the padded keys, or kStreamKeys: the streamed
+// simt form) and the dynamic shared memory, which must be the plan's own.  vec:
 // the simt route may copy K and V in 16-byte loads (rows 16-byte aligned);
 // the mma route needs them so.  Returns a cudaError_t value.
 extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const void* v,
@@ -737,15 +1111,28 @@ extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const
                                   int per_block, int warps, int keys_padded, int query_rows,
                                   int key_block, int smem, int vec, void* stream) {
   const bool streamed = route == 0 && key_block < sk;
-  if (sk < 1 || sq < 0 || batch < 0 || heads < 1 || per_block < 1 ||
-      (route != 0 && route != 1) || (route == 1 && (dtype != 1 || sq < 16 || !vec)) ||
-      (streamed ? key_block != kStreamKeys : (key_block != keys_padded || query_rows != sq)) ||
+  const bool wg = route == 2;
+  if (sk < 1 || sq < 0 || batch < 0 || heads < 1 || per_block < 1 || route < 0 || route > 2 ||
+      (route >= 1 && (dtype != 1 || sq < 16 || !vec)) ||
+      (wg ? (per_block != 1 || query_rows != sq ||
+             (keys_padded != key_block && keys_padded != 2 * key_block) ||
+             warps != 4 * keys_padded / key_block)
+          : streamed ? key_block != kStreamKeys
+                     : (key_block != keys_padded || query_rows != sq)) ||
       smem > kMaxSmem ||
       smem != smem_bytes(route, dh, sq, sk, per_block, keys_padded, query_rows, key_block))
     return (int)cudaErrorInvalidValue;
   const long long problems = (long long)batch * heads;
   if (problems == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wg) {
+#define CROWDMOD_WGMMA(DH, NK, KS)                                                          \
+  if (dh == DH && key_block == NK && keys_padded == KS * NK)                                \
+    return launch_wgmma<DH, NK, KS>(q, k, v, o, batch, heads, sq, sk, scale, strides, smem, s);
+    CROWDMOD_WGMMA_TILES(CROWDMOD_WGMMA)
+#undef CROWDMOD_WGMMA
+    return (int)cudaErrorInvalidValue;
+  }
   if (route == 1) {
     if (dh == 16)
       return launch_mma<16>(q, k, v, o, heads, sq, sk, problems, per_block, warps, keys_padded,

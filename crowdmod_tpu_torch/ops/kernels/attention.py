@@ -2,14 +2,18 @@
 
 Replaces ``crowdmod_tpu/ops/pallas/attention.py`` (``_attention_pallas``,
 kernel ``_attn_kernel``).  The CUDA source, ``csrc/attention.cu``, notes what
-bounds the kernel on the H100 (bytes) and how its two routes answer that:
-``"mma"``, bf16 tiles of 16 query rows on the tensor cores, for bf16 with at
-least 16 queries while a problem's Q, K and V fit in shared memory;
-``"simt"``, a warp a query row in f32, for f32, for the DiT's one-query
-temporal attention and for bf16 problems too large for the mma route, with
-K and V resident in shared memory or, where they do not fit, streamed
-through it in blocks of keys.  Any number of keys.  :func:`attention_plan`
-picks the route and the block shape from the call's shape and dtype.
+bounds the kernel on the H100 (bytes) and how its three routes answer that:
+``"wgmma"``, bf16 past 64 keys at head dims 32 and 64 (FM-DiT's 216–432
+tokens): a CTA a problem, a warpgroup a 64-row query tile on ``wgmma``,
+Q, K and V staged by TMA, a row's logits in registers, past 224 keys two
+warpgroups splitting them; ``"mma"``, bf16 tiles of 16 query
+rows on the tensor cores, for the other bf16 calls with at least 16
+queries while a problem's Q, K and V fit in shared memory; ``"simt"``, a
+warp a query row in f32, for f32, for the DiT's one-query temporal
+attention and for bf16 problems too large for the mma route, with K and V
+resident in shared memory or, where they do not fit, streamed through it
+in blocks of keys.  Any number of keys.  :func:`attention_plan` picks the
+route and the block shape from the call's shape and dtype.
 
 :func:`fused_attention` takes ``(B, H, S, Dh)`` tensors.  On CPU tensors it
 runs :func:`attention_reference`; on CUDA tensors it launches the kernel or
@@ -45,7 +49,15 @@ MMA_MIN_QUERIES = 16  # one 16-row query tile; fewer take the SIMT route
 STREAM_KEYS = 128
 STREAM_ROWS = 4
 WARPS_SIMT = 8
-_ROUTES = {"simt": 0, "mma": 1}
+# The wgmma route (csrc/attention.cu, CROWDMOD_WGMMA_TILES): a CTA a
+# problem, a warpgroup a 64-row query tile; the built (NK, split): the keys
+# a warpgroup's logits hold, and 1 or 2 warpgroups splitting the keys.
+WGMMA_QUERY_TILE = 64
+WGMMA_KEYS = (128, 160, 192, 224)
+WGMMA_TILES = frozenset({(nk, split) for nk in WGMMA_KEYS for split in (1, 2)})
+WGMMA_HEAD_DIMS = (32, 64)
+WGMMA_MIN_KEYS = 65  # up to 64 keys the mma route holds a row's logits in one block
+_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "crowdmod_attention": (
@@ -61,15 +73,19 @@ _SIGNATURES = {
 class AttentionPlan:
     """How one attention call is cut into blocks.
 
-    ``route``: ``"mma"`` (bf16 tensor cores, a warp a 16-row query tile) or
-    ``"simt"`` (a warp a query row, f32 arithmetic); ``problems_per_block``
-    (b, h) problems a block holds; ``warps`` a block; ``keys_padded``: Sk
-    rounded up to the route's multiple (16 or 4); ``query_rows``: the
-    queries of a problem a block covers (Sq, but for the streamed SIMT
-    form); ``key_block``: the keys a block holds in shared memory at once
-    (``keys_padded``, or :data:`STREAM_KEYS` when the SIMT route streams
-    them); ``smem_bytes``: dynamic shared memory a block; ``blocks`` of the
-    grid."""
+    ``route``: ``"wgmma"`` (bf16 past 64 keys: a warpgroup a 64-row
+    query tile on ``wgmma``, K and V staged by TMA), ``"mma"`` (bf16 tensor
+    cores, a warp a 16-row query tile) or ``"simt"`` (a warp a query row,
+    f32 arithmetic); ``problems_per_block`` (b, h) problems a block holds;
+    ``warps`` a block; ``keys_padded``: Sk rounded up to the route's
+    multiple (16 or 4; wgmma: the keys its warpgroups hold, ``key_split``
+    × ``key_block``); ``query_rows``: the queries of a problem a block
+    covers (Sq, but for the streamed SIMT form); ``key_block``: the keys a
+    block holds in shared memory at once (``keys_padded``, or
+    :data:`STREAM_KEYS` when the SIMT route streams them; wgmma: the keys
+    one warpgroup's logits hold); ``smem_bytes``: dynamic shared memory a
+    block; ``blocks`` of the grid; ``query_tile``: the query rows a tile
+    (wgmma 64, mma 16, simt 1)."""
 
     route: str
     problems_per_block: int
@@ -79,20 +95,59 @@ class AttentionPlan:
     key_block: int
     smem_bytes: int
     blocks: int
+    query_tile: int = 1
 
     @property
     def streamed(self) -> bool:
-        return self.key_block < self.keys_padded
+        return self.route == "simt" and self.key_block < self.keys_padded
+
+    @property
+    def key_split(self) -> int:
+        """Warpgroups that split a problem's keys (wgmma), else 1."""
+        return self.keys_padded // self.key_block if self.route == "wgmma" else 1
+
+
+def wgmma_smem_bytes(dh: int, nk: int, split: int) -> int:
+    """Shared memory of a wgmma CTA (csrc/attention.cu ``smem_bytes``,
+    route 2): 1024 bytes of alignment, K and V (split·NK keys each), a ring
+    of two 64-row query tiles, with two warpgroups the halves of the output
+    (f32) they hand each other and their row statistics, and 4 barriers."""
+    exchange = 4 * 2 * (dh // 4) * 128 + 4 * 2 * 128 * 4 if split == 2 else 0
+    return (1024 + 2 * split * nk * 2 * dh + 2 * 2 * WGMMA_QUERY_TILE * dh + exchange
+            + 8 * 4)
+
+
+def _wgmma_plan(b: int, h: int, sq: int, sk: int, dh: int,
+                split: int | None = None) -> AttentionPlan | None:
+    """The wgmma plan, or None where it does not apply: one CTA a problem,
+    one warpgroup a 64-row query tile up to 224 keys, two splitting the keys
+    past that (at most 448; ``split`` forces 1 or 2), each holding the
+    logits of NK keys (the least built NK covering its share) in
+    registers, so a row's softmax is one pass."""
+    if dh not in WGMMA_HEAD_DIMS or sk < WGMMA_MIN_KEYS or sq < MMA_MIN_QUERIES:
+        return None
+    if split is None:
+        split = 1 if sk <= WGMMA_KEYS[-1] else 2
+    nk = next((n for n in WGMMA_KEYS if (n, split) in WGMMA_TILES and split * n >= sk), None)
+    if nk is None or sk <= (split - 1) * nk:
+        return None
+    smem = wgmma_smem_bytes(dh, nk, split)
+    if smem > MAX_SMEM:
+        return None
+    return AttentionPlan("wgmma", 1, 4 * split, split * nk, sq, nk, smem, b * h,
+                         WGMMA_QUERY_TILE)
 
 
 def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> AttentionPlan:
     """The block shape of :func:`fused_attention` for ``b·h`` problems of
     ``sq`` queries against ``sk`` keys of width ``dh``.
 
-    bf16 with ``sq ≥ 16``: the mma route, ⌈sq/16⌉ query tiles a problem and
+    bf16 with ``sq ≥ 16``, Dh 32 or 64 and 65–448 keys (FM-DiT's 216, 336
+    and 432 tokens): the wgmma route (:func:`_wgmma_plan`).
+    Other bf16 with ``sq ≥ 16``: the mma route, ⌈sq/16⌉ query tiles a problem and
     8 // tiles problems a block, a warp a tile up to 16 warps (the DiT's
-    spatial 27 queries: 4 problems on 8 warps; the UNet's 54: 2 on 8;
-    FM-DiT's 216: 1 on 14); Q (in whole tiles), K and V (keys padded to 16)
+    spatial 27 queries: 4 problems on 8 warps; the UNet's 54: 2 on 8); Q
+    (in whole tiles), K and V (keys padded to 16)
     in shared memory as bf16 rows of Dh + 8; fewer problems a block where
     they would overflow it, and where one problem does, the SIMT route.
     Dh 8 has no mma tile: it takes the SIMT route.
@@ -106,13 +161,16 @@ def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> Attentio
     keys16 = -(-sk // 16) * 16
     mma_smem = lambda n: 2 * (dh + 8) * n * (tiles * 16 + 2 * keys16)  # noqa: E731
     problems = b * h
+    wg = _wgmma_plan(b, h, sq, sk, dh) if dtype == torch.bfloat16 else None
+    if wg is not None:
+        return wg
     if (dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES and dh in MMA_HEAD_DIMS
             and mma_smem(1) <= MAX_SMEM):
         per_block = max(1, 8 // tiles)
         while per_block > 1 and mma_smem(per_block) > MAX_SMEM:
             per_block -= 1
         return AttentionPlan("mma", per_block, min(per_block * tiles, 16), keys16, sq,
-                             keys16, mma_smem(per_block), -(-problems // per_block))
+                             keys16, mma_smem(per_block), -(-problems // per_block), 16)
     keys = -(-sk // 4) * 4
     smem = lambda n: 4 * (n * sk * (2 * dh + 4) + WARPS_SIMT * (dh + keys))  # noqa: E731
     if smem(1) <= MAX_SMEM:
@@ -138,10 +196,10 @@ def check_rows(route: str, rows: dict, elsize: int) -> bool:
     """``rows``: name → (data pointer, (b, h, s) strides).  Whether all of
     them are 16-byte aligned; raises where the ``"mma"`` route needs it."""
     bad = [n for n, (ptr, strides) in rows.items() if not rows_aligned(ptr, strides, elsize)]
-    if bad and route == "mma":
+    if bad and route != "simt":
         raise ValueError(
             f"fused_attention: rows of {', '.join(bad)} are not 16-byte aligned "
-            f"({ {n: rows[n] for n in bad} }); the tensor-core route copies "
+            f"({ {n: rows[n] for n in bad} }); the tensor-core routes copy "
             "16-byte pieces"
         )
     return not bad

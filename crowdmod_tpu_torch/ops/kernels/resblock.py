@@ -3,12 +3,13 @@
 Replaces ``crowdmod_tpu/ops/pallas/resblock.py`` (``_fused_pallas``, kernel
 ``_resblock_kernel``).  The CUDA source, ``csrc/resblock.cu``, notes what
 bounds it on the H100 and how its design answers that: in bf16 five
-launches a call (GN1 moments; GN1+SiLU once into ``a1``; conv1 on the tensor
-cores, h1 stored in bf16 with per-tile GN2 partial sums; GN2+SiLU over h1;
-conv2 with the skip folded in), in f32 four on the CUDA cores (GN2's
-moments in two passes over h1).  Every sum runs in a fixed order, so a
-call's output is the same bits every run.  :func:`resblock_plan` sizes the tiles
-and the scratch; the wrapper allocates the scratch.
+launches a call (GN1's moments as chunk partials in one pass; GN1+SiLU
+once into ``a1``; conv1 on the halo-box ``wgmma`` kernel, h1 stored in bf16
+with per-tile GN2 partial sums; GN2+SiLU over h1; conv2 with the skip
+folded in as extra K), in f32 four on the CUDA cores (GN2's moments in two
+passes over h1).  Every sum runs in a fixed order, so a call's output is
+the same bits every run.  :func:`resblock_plan` sizes the tiles and the
+scratch; the wrapper allocates the scratch.
 
 The weight dict is the JAX package's contract (``resblock.py:62-94``), as
 torch tensors: ``gn1_scale``/``gn1_bias (Cin,)``, ``w1 (3,3,3,Cin,Cout)``,
@@ -35,26 +36,43 @@ from dataclasses import dataclass
 import torch
 
 from crowdmod_tpu_torch.ops.kernels import build, library
+from crowdmod_tpu_torch.ops.kernels.build import SMS, sm_count
 from crowdmod_tpu_torch.ops.kernels.conv3d import (
     conv3d_same_reference,
     pack_im2col,
 )
 from crowdmod_tpu_torch.ops.kernels.groupnorm import group_norm_reference
 
-# Limits of the kernel (csrc/resblock.cu): a tile's 128 output positions
-# may span two samples, never more, and GN2's partials hold 32 groups.
+# Limits of the kernel (csrc/resblock.cu): the f32 tiles' 128 output
+# positions may span two samples, never more (a bf16 tile lies in one), and
+# GN2's partials hold 32 groups.
 MIN_VOLUME = 128
 MAX_GROUPS = 32
 SIMT_BM, SIMT_BK = 128, 16  # csrc/common.cuh, kBM and kBK: the f32 loops' tile
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use
+MAX_STAGES = 4  # csrc/resblock.cu kMaxStages
+ATOM_COLS = 32  # output channels of a weight atom (64-byte swizzled rows)
+HALO_REGISTERS = 224  # 65,536 / 288 threads, in steps of 8: a halo block's registers a thread
+MAX_WIDTH = 254  # bf16: a halo box row is W + 2 positions, a TMA box dimension 256 at most
+MAX_CHANNELS = 1024  # bf16: csrc/resblock.cu kMaxChannels, a GN pass's staged channels
+MOMENT_ROWS = 1024  # csrc/resblock.cu kMomentRows: positions a GN1 partial sums (bf16)
+# The bf16 conv blocks csrc/resblock.cu is built with (CROWDMOD_RES_TILES):
+# (mt, na, kc) — 128·mt GEMM rows (two warpgroups of mt 64-row tiles), 32·na
+# output channels, chunks of kc input channels.
+HALO_BLOCKS = frozenset(
+    {(mt, 1, kc) for mt in (1, 2) for kc in (16, 32, 64)} | {(4, 1, 16), (4, 1, 32)}
+    | {(mt, 2, kc) for mt in (1, 2) for kc in (16, 32, 64)})
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The packed tensors, in the operator's order.
 PACKED = ("w1", "w2", "b1", "gamma1", "beta1", "gamma2", "beta2", "bias2")
 _SIGNATURES = {
     "crowdmod_resblock": (
         ctypes.c_int,
-        [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+        + [ctypes.c_float] + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
     ),
+    "crowdmod_resblock_smem_bytes": (ctypes.c_int, [ctypes.c_int] * 8),
 }
 
 
@@ -62,14 +80,23 @@ _SIGNATURES = {
 class ResblockPlan:
     """How one fused-resblock call is cut, and the scratch it needs.
 
-    ``bm`` × ``bn``: a conv block's output positions × channels, K in
-    chunks of ``bk`` (bf16: 32 channels of one tap on the tensor cores;
-    f32: the CUDA-core loop's 16); ``m_tiles`` × ``n_tiles`` blocks a conv;
+    f32: ``bm`` × ``bn`` blocks of the CUDA-core loop, K in chunks of
+    ``bk`` (16); ``m_tiles`` × ``n_tiles`` blocks a conv.  bf16: the
+    halo-box conv block of ``bm`` = 128·MT GEMM rows (two warpgroups of MT
+    64-row tiles) × ``bn`` = 32·NA output channels (``bk`` 0); ``tile``:
+    the (t slices, h rows) of one sample a work item computes, all of W;
+    ``box``: its halo box (tile + 2, W + 2); ``kc``, ``stages``, ``nbox``,
+    ``smem_bytes``: conv1's and conv2's channel chunk, weight stages and
+    boxes in flight, and dynamic shared memory; ``m_tiles`` × ``n_tiles``
+    work items a conv (a persistent block a multiprocessor walks them).
     ``launches`` a call (bf16 5, f32 4).  Scratch: ``a1_elems`` bf16 for
-    GN1+SiLU of x (bf16 only), ``h1_elems`` in x's dtype for conv1's output,
-    ``workspace_floats`` f32: GN1's (mean, rstd), (B, G, 2), then in f32
-    GN2's, the same shape, and in bf16 the GN2 partials, (m_tiles, n_tiles,
-    2 sample slots, G, 2)."""
+    GN1+SiLU of x (bf16 only), ``h1_elems`` in x's dtype for conv1's
+    output, ``workspace_floats`` f32: in f32 GN1's and GN2's (mean, rstd),
+    (B, G, 2) each; in bf16 GN1's partials, (B, chunks of
+    :data:`MOMENT_ROWS` positions, 1, G, 2), then GN2's, (B, tiles a
+    sample, n_tiles, G, 2).  ``registers``: the registers a consumer
+    thread's arrays take (accumulators, two sets of A fragments, row
+    offsets), at most :data:`HALO_REGISTERS`; 0 for f32."""
 
     bm: int
     bn: int
@@ -80,26 +107,140 @@ class ResblockPlan:
     a1_elems: int
     h1_elems: int
     workspace_floats: int
+    tile: tuple = (0, 0)
+    box: tuple = (0, 0, 0)
+    kc: tuple = (0, 0)
+    stages: tuple = (0, 0)
+    nbox: tuple = (0, 0)
+    smem_bytes: tuple = (0, 0)
+    registers: int = 0
+
+    @property
+    def halo(self) -> tuple:
+        """The bf16 plan's 8 ints in the C interface's order: tb, hb, then
+        (kc, stages, nbox) of conv1 and of conv2."""
+        return (*self.tile, self.kc[0], self.stages[0], self.nbox[0],
+                self.kc[1], self.stages[1], self.nbox[1])
+
+
+def halo_smem_bytes(conv1: bool, na: int, kc: int, box_positions: int, stages: int,
+                    nbox: int) -> int:
+    """Dynamic shared memory of a bf16 conv block (csrc/resblock.cu
+    ``res_smem_bytes``): ``nbox`` halo boxes of kc channels (each rounded
+    up to 1024 bytes), ``stages`` weight stages of na 32-column atoms × kc
+    rows × 64 bytes, conv1's column sums (8 warps × 32·na columns × 2
+    moments, f32), 12 barriers and 1024 bytes of alignment."""
+    box = -(-box_positions * kc * 2 // 1024) * 1024
+    main = nbox * box + stages * na * kc * 64 + (8 * na * ATOM_COLS * 2 * 4 if conv1 else 0)
+    return 1024 + main + 8 * (4 + 2 * MAX_STAGES)
+
+
+def halo_registers(mt: int, na: int, kc: int) -> int:
+    """Registers of a consumer thread's arrays: mt × na m64n32 accumulators
+    (16 f32 each), two sets of A fragments (mt × kc/16 × 4), 2·mt row
+    offsets."""
+    return mt * na * 16 + 2 * mt * (kc // 16) * 4 + 2 * mt
+
+
+def _res_kc(mt: int, na: int, *channels: int) -> int:
+    """The chunk: the widest of 64, 32, 16 that divides every conv input's
+    channels (conv2: Cout and the skip's Cin) and is built for the block;
+    16 where none divides (a last chunk partly past the channels, zero)."""
+    return next((kc for kc in (64, 32, 16) if (mt, na, kc) in HALO_BLOCKS
+                 and all(c % kc == 0 for c in channels if c)), 16)
+
+
+def _res_tile(t: int, h: int, w: int, bm: int):
+    """The (t, h) tile of whole rows of one sample that computes the fewest
+    GEMM rows in all (bm a tile, pad columns included), then loads the
+    fewest halo positions; → (tile, box positions, tiles a sample)."""
+    pw = w + 2
+    best = None
+    for tb in range(1, t + 1):
+        for hb in range(1, h + 1):
+            if tb * hb * pw > bm:
+                break
+            tiles = -(-t // tb) * -(-h // hb)
+            npos = (tb + 2) * (hb + 2) * pw
+            key = (tiles * bm, tiles * npos)
+            if best is None or key < best[0]:
+                best = (key, (tb, hb), npos, tiles)
+    return None if best is None else best[1:]
+
+
+def halo_resblock_plan(batch: int, t: int, h: int, w: int, cin: int, cout: int,
+                       sms: int = SMS, mt: int | None = None):
+    """The bf16 blocks of both convs: 32·na output channels (na 1 for
+    Cout ≤ 32, else 2, channel tiles past 64); the largest of 4, 2, 1
+    64-row tiles a warpgroup whose work items still fill 90% of ``sms``
+    (else 1) — ``mt`` forces one; :func:`_res_tile`'s tile; each conv's
+    chunk (:func:`_res_kc`), two boxes where its input takes several chunks
+    and they fit, then as many weight stages as fit (at most 4).
+    → (bm, bn, tile, box, kc, stages, nbox, smem, tiles a sample, n_tiles,
+    registers)."""
+    na = 1 if cout <= ATOM_COLS else 2
+    n_tiles = -(-cout // (ATOM_COLS * na))
+    best = None
+    for m in ((mt,) if mt is not None else (4, 2, 1)):
+        if not any(b[:2] == (m, na) for b in HALO_BLOCKS):
+            continue
+        found = _res_tile(t, h, w, 128 * m)
+        if found is None:
+            continue
+        best = (m, *found)
+        if mt is not None or batch * found[2] * n_tiles >= 0.9 * sms:
+            break
+    if best is None:
+        raise ValueError(f"fused_resblock: no bf16 tile of a {t}×{h}×{w} volume fits a block")
+    m, tile, npos, tiles = best
+    convs = []
+    for conv1, inputs in ((True, (cin,)), (False, (cout, cin if cin != cout else 0))):
+        kc = _res_kc(m, na, *inputs)
+        chunks = sum(-(-c // kc) for c in inputs if c)
+        nbox, stages = next(
+            ((nb, st) for nb in ((2, 1) if chunks > 1 else (1,)) for st in (4, 3, 2)
+             if halo_smem_bytes(conv1, na, kc, npos, st, nb) <= SMEM_LIMIT), (0, 0))
+        if not nbox:
+            raise ValueError(f"fused_resblock: a {tile} tile's box does not fit a block")
+        convs.append((kc, stages, nbox, halo_smem_bytes(conv1, na, kc, npos, stages, nbox)))
+    (k1, s1, n1, m1), (k2, s2, n2, m2) = convs
+    regs = max(halo_registers(m, na, k1), halo_registers(m, na, k2))
+    return (128 * m, ATOM_COLS * na, tile, (tile[0] + 2, tile[1] + 2, w + 2), (k1, k2),
+            (s1, s2), (n1, n2), (m1, m2), tiles, n_tiles, regs)
 
 
 def resblock_plan(batch: int, t: int, h: int, w: int, cin: int, cout: int,
-                  groups: int, dtype) -> ResblockPlan:
+                  groups: int, dtype, sms: int = SMS, mt: int | None = None) -> ResblockPlan:
     """The tiles and scratch of :func:`fused_resblock` at one shape.
 
-    bf16: 128 × 32 tiles of 32-deep K chunks (the mma tile ``ResTile``).  f32: 128-row tiles of the CUDA-core loop,
+    bf16: the halo blocks of :func:`halo_resblock_plan` (``mt`` forces the
+    64-row tiles a warpgroup).  f32: 128-row tiles of the CUDA-core loop,
     64 channels wide where that still makes two waves on 132 SMs, else 32
     or 16."""
     positions = batch * t * h * w
     if dtype == torch.bfloat16:
-        bm, bn, bk, launches, a1 = 128, 32, 32, 5, positions * cin
-    else:
-        wide = -(-positions // SIMT_BM) * -(-cout // 64) >= 2 * 132
-        bn = 64 if cout >= 64 and wide else 32 if cout >= 32 else 16
-        bm, bk, launches, a1 = SIMT_BM, SIMT_BK, 4, 0
-    m_tiles, n_tiles = -(-positions // bm), -(-cout // bn)
-    gn2 = m_tiles * n_tiles * 4 * groups if a1 else 2 * batch * groups
-    return ResblockPlan(bm, bn, bk, m_tiles, n_tiles, launches, a1, positions * cout,
-                        2 * batch * groups + gn2)
+        (bm, bn, tile, box, kc, stages, nbox, smem, tiles, n_tiles,
+         regs) = halo_resblock_plan(batch, t, h, w, cin, cout, sms, mt)
+        m_tiles = batch * tiles
+        gn1 = 2 * batch * groups * -(-(t * h * w) // MOMENT_ROWS)
+        return ResblockPlan(bm, bn, 0, m_tiles, n_tiles, 5, positions * cin, positions * cout,
+                            gn1 + m_tiles * n_tiles * 2 * groups,
+                            tile, box, kc, stages, nbox, smem, regs)
+    wide = -(-positions // SIMT_BM) * -(-cout // 64) >= 2 * sms
+    bn = 64 if cout >= 64 and wide else 32 if cout >= 32 else 16
+    m_tiles, n_tiles = -(-positions // SIMT_BM), -(-cout // bn)
+    return ResblockPlan(SIMT_BM, bn, SIMT_BK, m_tiles, n_tiles, 4, 0, positions * cout,
+                        2 * batch * groups + 2 * batch * groups)
+
+
+def smem_bytes(plan: ResblockPlan, w: int) -> tuple:
+    """Dynamic shared memory of a bf16 plan's two conv blocks for an input
+    of width ``w``, as the built library computes it
+    (``crowdmod_resblock_smem_bytes``)."""
+    lib = build.load("resblock", _SIGNATURES)
+    return tuple(lib.crowdmod_resblock_smem_bytes(
+        int(conv1), w, plan.bn // ATOM_COLS, plan.kc[i], *plan.tile, plan.stages[i],
+        plan.nbox[i]) for i, conv1 in enumerate((True, False)))
 
 
 def resblock_reference(x, temb_proj, w, *, num_groups: int = 8, eps: float = 1e-5):
@@ -178,6 +319,12 @@ def _check(x, temb_proj, p, num_groups) -> None:
         raise ValueError(
             f"fused_resblock: bf16 takes 16-byte channel rows: channels {cin} → "
             f"{cout} must be multiples of 8 and x 16-byte aligned"
+        )
+    if x.dtype == torch.bfloat16 and (w > MAX_WIDTH or max(cin, cout) > MAX_CHANNELS):
+        raise ValueError(
+            f"fused_resblock: bf16 takes widths up to {MAX_WIDTH} (a halo box row "
+            f"of W + 2 positions) and up to {MAX_CHANNELS} channels, got width {w}, "
+            f"channels {cin} → {cout}"
         )
     if tuple(temb_proj.shape) != (b, cout) or temb_proj.device != x.device:
         raise ValueError(
@@ -260,8 +407,11 @@ def _resblock_cuda(x, temb_proj, w1, w2, b1, gamma1, beta1, gamma2, beta2, bias2
     out = torch.empty((b, t, h, wd, cout), dtype=x.dtype, device=x.device)
     if b == 0:
         return out
-    plan = resblock_plan(b, t, h, wd, cin, cout, num_groups, x.dtype)
-    tvec = (temb_proj.float() + p["b1"]).contiguous()
+    plan = resblock_plan(b, t, h, wd, cin, cout, num_groups, x.dtype, sm_count(x.device))
+    bf16 = x.dtype == torch.bfloat16
+    # f32: b1 + temb_proj here; bf16: temb_proj as the twin casts it, b1
+    # added in conv1's epilogue (the same f32 sum).
+    tvec = (temb_proj.to(torch.bfloat16) if bf16 else temb_proj.float() + p["b1"]).contiguous()
     # Scratch, freed on return: the allocator orders its reuse on the stream.
     empty = lambda n, dt: torch.empty(n, dtype=dt, device=x.device)  # noqa: E731
     a1 = empty(plan.a1_elems, torch.bfloat16) if plan.a1_elems else None
@@ -270,11 +420,13 @@ def _resblock_cuda(x, temb_proj, w1, w2, b1, gamma1, beta1, gamma2, beta2, bias2
     lib = build.load("resblock", _SIGNATURES)
     err = lib.crowdmod_resblock(
         _DTYPE_CODES[x.dtype], x.data_ptr(), tvec.data_ptr(),
-        p["w1"].data_ptr(), p["w2"].data_ptr(), p["gamma1"].data_ptr(),
+        p["b1"].data_ptr() if bf16 else None, p["w1"].data_ptr(), p["w2"].data_ptr(),
+        p["gamma1"].data_ptr(),
         p["beta1"].data_ptr(), p["gamma2"].data_ptr(), p["beta2"].data_ptr(),
         p["bias2"].data_ptr(), None if a1 is None else a1.data_ptr(), h1.data_ptr(),
         ws.data_ptr(), out.data_ptr(), b, t, h, wd, cin, cout, num_groups, float(eps),
         int(p["has_skip"]), plan.bm, plan.bn, plan.bk,
+        (ctypes.c_int * 8)(*plan.halo) if bf16 else None,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -1,26 +1,36 @@
-"""The attention kernel's plan and its mma route's arithmetic, without a card.
+"""The attention kernel's plan and its routes' arithmetic, without a card.
 
 ``attention_plan`` (``crowdmod_tpu_torch/ops/kernels/attention.py``) picks the
 route of ``csrc/attention.cu`` and the block shape from the call's shape and
 dtype; the wrapper passes the plan to the kernel, which rejects a plan whose
 shared memory is not its own.  These tests pin the routes at the serving
-shapes and at FM-DiT's (216, 336 and 432 tokens), the shared-memory bound
-at any number of keys, the row-alignment check, and replay the mma route's
-and the streamed SIMT form's key-block sweeps in torch against the twin.
+shapes and at FM-DiT's (216, 336 and 432 tokens) — every other case of
+``chip_smoke.py``'s phase 2 where commit ed2c182's plan sent it — the
+shared-memory and register bounds at any number of keys, the
+row-alignment check, and replay the wgmma route's tiles and sums, the mma
+route's and the streamed SIMT form's key-block sweeps in torch against the
+twin (and the JAX kernel in interpret mode).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from chip_smoke import baseline_attention_plan
+from crowdmod_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 
 from crowdmod_tpu_torch.ops.kernels import attention_reference, fused_attention
 from crowdmod_tpu_torch.ops.kernels.attention import (
     HEAD_DIMS,
     MAX_SMEM,
     STREAM_KEYS,
+    WGMMA_KEYS,
+    WGMMA_QUERY_TILE,
     attention_plan,
     check_rows,
     rows_aligned,
+    wgmma_smem_bytes,
 )
 
 # (B·T_p or B, H, Sq, Sk, Dh) at batch 64: the DiT's spatial and temporal
@@ -40,24 +50,35 @@ SHAPES = {
 
 
 @pytest.mark.parametrize(
-    "name,per_block,warps,keys,blocks",
-    [("dit_spatial", 4, 8, 32, 128), ("unet_level2", 2, 8, 64, 128),
-     ("edge_s216", 1, 14, 224, 64), ("fm_dit_s216", 1, 14, 224, 256),
-     ("fm_dit_s336", 1, 16, 336, 256), ("fm_dit_s432", 1, 16, 432, 256)],
+    "name,route,per_block,warps,keys,blocks",
+    [("dit_spatial", "mma", 4, 8, 32, 128), ("unet_level2", "mma", 2, 8, 64, 128),
+     ("edge_s216", "wgmma", 1, 4, 224, 64), ("fm_dit_s216", "wgmma", 1, 4, 224, 256),
+     ("fm_dit_s336", "wgmma", 1, 8, 384, 256), ("fm_dit_s432", "wgmma", 1, 8, 448, 256)],
 )
-def test_bf16_serving_shapes_take_the_mma_route(name, per_block, warps, keys, blocks):
+def test_bf16_serving_shapes_take_the_mma_route(name, route, per_block, warps, keys,
+                                                blocks):
+    """The tensor-core routes: up to 64 keys the mma route (a warp a
+    16-row query tile); past them, at Dh 32 and 64, the wgmma route (a CTA
+    a problem, a warpgroup a 64-row query tile holding the logits of up to
+    224 keys, two warpgroups splitting the keys past that)."""
     plan = attention_plan(*SHAPES[name], torch.bfloat16)
-    assert plan.route == "mma"
+    assert plan.route == route
     assert (plan.problems_per_block, plan.warps, plan.keys_padded, plan.blocks) == (
         per_block, warps, keys, blocks)
     b, h, sq, sk, dh = SHAPES[name]
-    tiles = -(-sq // 16)
-    # A warp a 16-row query tile, every tile of the block's problems held.
-    assert plan.warps == min(16, plan.problems_per_block * tiles)
     assert plan.blocks * plan.problems_per_block >= b * h
-    assert plan.smem_bytes == 2 * (dh + 8) * per_block * (tiles * 16 + 2 * keys)
     assert plan.smem_bytes <= MAX_SMEM and not plan.streamed
-    assert (plan.query_rows, plan.key_block) == (sq, keys)
+    assert plan.query_rows == sq
+    if route == "mma":
+        tiles = -(-sq // 16)
+        # A warp a 16-row query tile, every tile of the block's problems held.
+        assert plan.warps == min(16, plan.problems_per_block * tiles)
+        assert plan.smem_bytes == 2 * (dh + 8) * per_block * (tiles * 16 + 2 * keys)
+        assert (plan.key_block, plan.query_tile) == (keys, 16)
+    else:
+        assert plan.warps == 4 * plan.key_split and plan.query_tile == WGMMA_QUERY_TILE
+        assert plan.key_split * plan.key_block == keys >= sk > keys - plan.key_block
+        assert plan.smem_bytes == wgmma_smem_bytes(dh, plan.key_block, plan.key_split)
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -95,12 +116,13 @@ def test_one_query_takes_the_simt_route_in_bf16():
     assert attention_plan(4, 4, 16, 15, 64, torch.bfloat16).route == "mma"
 
 
-@pytest.mark.parametrize("dh,route", [(8, "simt"), (16, "mma"), (32, "mma"), (64, "mma")])
+@pytest.mark.parametrize("dh,route", [(8, "simt"), (16, "mma"), (32, "wgmma"), (64, "wgmma")])
 def test_narrow_heads_route_by_the_mma_tile(dh, route):
     """A UNet at a base width of 16 attends with 4 heads of 8 at its
     bottleneck: 8 has no 16-deep mma k-slice, so bf16 takes the SIMT route
-    there and the mma route from 16 up; f32 takes the SIMT route at every
-    head dim the kernel is compiled for."""
+    there, the mma route at 16 and, its 96 keys being past 64, the wgmma
+    route at 32 and 64; f32 takes the SIMT route at every head dim the
+    kernel is compiled for."""
     assert HEAD_DIMS == (8, 16, 32, 64)
     assert attention_plan(8, 4, 96, 96, dh, torch.bfloat16).route == route
     plan = attention_plan(8, 4, 96, 96, dh, torch.float32)
@@ -232,3 +254,115 @@ def test_plan_covers_every_problem_once():
             chunks = -(-sq // plan.query_rows)
             assert plan.blocks == -(-n // plan.problems_per_block) * chunks
             assert (chunks - 1) * plan.query_rows < sq <= chunks * plan.query_rows
+
+
+# chip_smoke.py phase 2's attention cases: (B·H problems as (B, H), Sq, Sk, Dh).
+PHASE2 = {
+    "spatial_b64": (128, 4, 27, 27, 64), "temporal_b64": (1728, 4, 1, 2, 64),
+    "spatial_b256": (512, 4, 27, 27, 64), "temporal_b256": (6912, 4, 1, 2, 64),
+    "edge_s216": (16, 4, 216, 216, 32), "unet_b64": (64, 4, 54, 54, 32),
+    "fm_dit_s216": (64, 4, 216, 216, 64), "fm_dit_s336": (64, 4, 336, 336, 64),
+    "fm_dit_s432": (64, 4, 432, 432, 64), "edge_s432_dh32": (16, 4, 432, 432, 32),
+    "edge_s1000": (4, 4, 1000, 1000, 64), "narrow_dh8": (16, 4, 96, 96, 8),
+    "narrow_dh16": (16, 4, 96, 96, 16), "edge_s2500_dh8": (4, 4, 2500, 2500, 8),
+}
+WGMMA_CASES = {"edge_s216", "fm_dit_s216", "fm_dit_s336", "fm_dit_s432", "edge_s432_dh32"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", PHASE2)
+def test_phase2_cases_keep_their_routes(name, dtype):
+    """bf16 past 64 keys at Dh 32 and 64 takes the wgmma route; every other
+    case keeps commit ed2c182's plan, field for field."""
+    plan = attention_plan(*PHASE2[name], dtype)
+    if dtype == torch.bfloat16 and name in WGMMA_CASES:
+        assert plan.route == "wgmma" and plan.problems_per_block == 1
+        return
+    route, per_block, warps, keys, rows, key_block, smem = baseline_attention_plan(
+        *PHASE2[name], dtype)
+    assert plan.route == ("simt", "mma")[route]
+    assert (plan.problems_per_block, plan.warps, plan.keys_padded, plan.query_rows,
+            plan.key_block, plan.smem_bytes) == (per_block, warps, keys, rows, key_block, smem)
+
+
+def test_wgmma_plans_fit_the_card():
+    """Every wgmma plan from 65 to 448 keys and 16 to 512 queries: shared
+    memory ≤ 227 KB (one warpgroup: at most half of it, two CTAs a
+    multiprocessor), a warpgroup's NK keys cover its share, and the
+    registers a thread's arrays take
+    (the logits NK / 2, the output Dh / 2, the weights' fragments NK / 4,
+    the query fragments Dh / 4) ≤ 255."""
+    seen = set()
+    for dh in (32, 64):
+        for sq in (16, 27, 64, 65, 216, 336, 432, 512):
+            for sk in list(range(65, 449, 7)) + [128, 192, 224, 225, 256, 384, 448]:
+                plan = attention_plan(2, 4, sq, sk, dh, torch.bfloat16)
+                if plan.route != "wgmma":
+                    assert sq * (2 * sk + sq) * 2 * dh > MAX_SMEM, (sq, sk, dh)
+                    continue
+                split, nk = plan.key_split, plan.key_block
+                assert nk in WGMMA_KEYS and split in (1, 2)
+                assert split * nk >= sk > (split - 1) * nk
+                assert plan.smem_bytes <= (MAX_SMEM // 2 if split == 1 else MAX_SMEM)
+                assert nk // 2 + dh // 2 + nk // 4 + dh // 4 <= 255
+                seen.add((split, nk))
+    assert seen == {(s, n) for s in (1, 2) for n in WGMMA_KEYS}
+    # 449 keys and more: not the wgmma route.
+    assert attention_plan(2, 4, 216, 449, 64, torch.bfloat16).route != "wgmma"
+
+
+def _wgmma_replay(q, k, v, scale, plan):
+    """The wgmma route's arithmetic in torch f32: per 64-row query tile,
+    each warpgroup's logits of its NK keys (base-2 units), its row max m_w
+    and sum l_w of exp2(x − m_w); with two, m = max(m_0, m_1) and l = l_0
+    2^(m_0 − m) + l_1 2^(m_1 − m); the weights e · (2^(m_w − m) / l) rounded
+    to V's dtype, each warpgroup's W V in f32, added 0 then 1."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sq, sk = q.shape[2], k.shape[2]
+    c = scale * 1.4426950408889634
+    out = torch.zeros(q.shape[:3] + (v.shape[-1],))
+    keys = [(j * plan.key_block, min((j + 1) * plan.key_block, sk))
+            for j in range(plan.key_split)]
+    for t0 in range(0, sq, plan.query_tile):
+        qt = qf[:, :, t0:t0 + plan.query_tile]
+        x = [qt @ kf[:, :, lo:hi].transpose(-1, -2) * c for lo, hi in keys]
+        mr = [xj.amax(-1, keepdim=True) for xj in x]
+        e = [torch.exp2(xj - mj) for xj, mj in zip(x, mr)]
+        lr = [ej.sum(-1, keepdim=True) for ej in e]
+        m = mr[0]
+        for mj in mr[1:]:
+            m = torch.maximum(m, mj)
+        l = lr[0] * torch.exp2(mr[0] - m)
+        for lj, mj in zip(lr[1:], mr[1:]):
+            l = l + lj * torch.exp2(mj - m)
+        o = None
+        for ej, mj, (lo, hi) in zip(e, mr, keys):
+            oj = (ej * (torch.exp2(mj - m) / l)).to(v.dtype).float() @ vf[:, :, lo:hi]
+            o = oj if o is None else o + oj
+        out[:, :, t0:t0 + plan.query_tile] = o
+    return out
+
+
+@pytest.mark.parametrize("sk,dh", [(216, 64), (432, 32)], ids=["s216", "s432_dh32"])
+def test_wgmma_replay_matches_the_twin_and_jax(sk, dh):
+    """8 problems: 216 keys (one warpgroup a tile) and 432 (two splitting
+    the keys).  The replay equals the twin and the JAX Pallas kernel
+    (interpret mode), bf16 in and out, within a few bf16 ulps of the
+    output."""
+    rng = np.random.default_rng(sk + dh)
+    q, k, v = (rng.normal(size=(2, 4, sk, dh)).astype(np.float32) for _ in range(3))
+    qb, kb, vb = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    scale = dh ** -0.5
+    plan = attention_plan(2, 4, sk, sk, dh, torch.bfloat16)
+    assert plan.route == "wgmma" and plan.key_split == (1 if sk <= 224 else 2)
+    got = _wgmma_replay(qb, kb, vb, scale, plan)
+    twin = attention_reference(qb, kb, vb, scale).float()
+    jax_out = jax_fused_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                  scale=scale, mode="interpret")
+    jax_out = torch.from_numpy(np.array(jax_out.astype(jnp.float32)))
+    tol = 2 * 2.0 ** -8 * float(twin.abs().max())
+    np.testing.assert_allclose(got.numpy(), twin.numpy(), rtol=0, atol=tol)
+    np.testing.assert_allclose(got.numpy(), jax_out.numpy(), rtol=0, atol=tol)
+    # The output rounded as the kernel rounds it is the twin's within an ulp.
+    np.testing.assert_allclose(got.bfloat16().float().numpy(), twin.numpy(), rtol=0,
+                               atol=tol)
