@@ -36,6 +36,9 @@
     python3 chip_smoke.py --multihost           # phase 1, then the multi-process
                                    # rehearsal (2 and 4 processes over NCCL,
                                    # a card each) and the scaling quickstart
+    python3 chip_smoke.py --geometries          # phase 1, phase 19, then the
+                                   # DDIM sweep tool at HERMES-CR-120's grid
+                                   # and the protocol variance tool
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
@@ -96,14 +99,14 @@ non-zero without a result line:
      card held bitwise to a second run and to the CPU's within the CPU
      tests' tolerances; each model's ``generate_metrics`` profiled (device
      busy share) and one f32 forward at batch 1280, kernels vs twins; then
-     flow matching: FM-DiT through ``train``, ``generate-metrics`` (100
+     flow matching: FM-DiT through ``train``, ``generate-metrics`` (50
      Euler steps, cut from the configured 1000, 1280 samples) and
      ``reflow`` (one round),
      its ``RF1`` checkpoint served at Euler 4, and FM-UNet's
      ``Trainer.generate_metrics`` in this process at 50 Euler steps;
  11. flow matching, each of FM-DiT (DiT2D, 216 tokens) and FM-UNet at the
      serving config's width with seeded random weights: serving through
-     ``load_predictor``/``BatchingQueue`` at Euler 250 (buckets 1 and 64,
+     ``load_predictor``/``BatchingQueue`` at Euler 50 (buckets 1 and 64,
      the p50 of batch 64, a profiled batch-64 request; the configured 1000
      steps cut for time) and one Heun-50 request (the configured 500 steps
      cut for time); one f32
@@ -234,6 +237,20 @@ non-zero without a result line:
      launches held to its sampling calls; the drill's processes start
      beside phase 17 and run on beside the soak (for time: the card is
      shared meanwhile).
+ 19. every bundled dataset's geometry: ETHUCY, HERMES-BO, HERMES-BN,
+     HERMES-CR-90, HERMES-CR-120 and ATC_medium (the "-OBST" configs
+     checked to share CR-90's and CR-120's grid and widths), each config
+     with ``configs/serving/ATC.yml``'s sampler settings at its own full
+     width, seeded random weights, batch 64: every distinct kernel shape
+     of its DDPM-UNet, DDPM-DiT, FM-DiT and FM-UNet (``unet_shape_tables``
+     and the DiTs' attention shapes) against the twin, f32 and bf16, a
+     second call bitwise, each kernel's largest shape a model timed beside
+     its bound and the library call; the ancestral step at its
+     (64, F, H, W, 3); each model's f32 forward, kernels against twins;
+     one bf16 request each (DDIM-eta 25 + Sparsity, Euler at phase 11's
+     steps), launches held exactly; generate-samples' device half for
+     DDPM-UNet on a walker-pickle workspace at its grid (overlays card vs
+     CPU).
 
 Phase 2 also holds attention at head dims 8 and 16 (a UNet at a base width
 of 16, as the quickstarts build it; Dh 8 also streamed at 2500 keys), at
@@ -252,7 +269,8 @@ training run on the ETL's windows (phase 15), and each parallel path
 (phase 16: the commands' counts from their log lines; the tensor-parallel
 shard check as one path; the data-parallel sampling from each rank's
 counts), each model's generate-samples sampling, the sweep and each doctor
-run (phase 17, the processes' counts from their log lines); the counts
+run (phase 17, the processes' counts from their log lines), each
+geometry's requests and its generate-samples sampling (phase 19); the counts
 are held to the launches each forward, training or distillation step makes
 (a CFG forward counts once).  The last two lines are a
 JSON object with every kernel's numbers and ``{"ok": true, "device": ...}``.
@@ -271,6 +289,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -318,41 +337,47 @@ SOURCES = {
     "conv3d_same_tapgemm": "crowdmod_tpu_torch/csrc/conv3d.cu",
     "fused_resblock": "crowdmod_tpu_torch/csrc/resblock.cu",
 }
-# Kernel launches of one training step at ATC width: every standalone
-# forward kernel call of the UNet, with the level-0 blocks unfused (training
-# mode is not deterministic: 2 GroupNorms and 2 convs each); the DiT trains
-# with dropout 0.1, so its attention takes the plain path.  The backward is
-# PyTorch ops (the kernels' VJPs) and launches none of them.
+# Kernel launches of one training step: every standalone forward kernel
+# call of the UNet (``unet_shape_tables``), with the fused blocks unfused
+# (training mode is not deterministic: 2 GroupNorms and 2 convs each); the
+# DiT trains with dropout 0.1, so its attention takes the plain path.  The
+# backward is PyTorch ops (the kernels' VJPs) and launches none of them.
+def unet_launches(cfg, arch: str, training: bool = False) -> dict:
+    """Launches of one UNet forward of ``arch`` (``training``: a training
+    step's) by kernel, from :func:`unet_shape_tables`."""
+    tables = unet_shape_tables(cfg, arch)
+    fused = len(tables["resblock"])
+    counts = {"conv3d_same_im2col": sum(tables["conv"].values()),
+              "fused_group_norm": sum(tables["gn"].values()),
+              "fused_attention": sum(tables["attention"].values())}
+    if training:
+        counts["conv3d_same_im2col"] += 2 * fused
+        counts["fused_group_norm"] += 2 * fused
+    else:
+        counts["fused_resblock"] = fused
+    return counts
+
+
 TRAIN_PER_STEP = {
     "DDPM-DiT": lambda cfg: {},
-    "DDPM-UNet": lambda cfg: {
-        "conv3d_same_im2col": sum(CONV_SHAPES.values()) + 2 * len(RESBLOCK_SHAPES),
-        "fused_group_norm": sum(GN_SHAPES.values()) + 2 * len(RESBLOCK_SHAPES),
-        "fused_attention": 4,
-    },
+    "DDPM-UNet": lambda cfg: unet_launches(cfg, "DDPM-UNet", training=True),
+    # FM-DiT (DiT2D) trains with dropout 0.1 too.  ConvRNN's convolutions
+    # are library calls: no kernel of the port.
+    "FM-DiT": lambda cfg: {},
+    "FM-UNet": lambda cfg: unet_launches(cfg, "FM-UNet", training=True),
+    "ConvRNN": lambda cfg: {},
 }
-# FM-DiT (DiT2D) trains with dropout 0.1 too; FM-UNet has the DDPM UNet's
-# widths.  ConvRNN's convolutions are library calls: no kernel of the port.
-TRAIN_PER_STEP["FM-DiT"] = TRAIN_PER_STEP["DDPM-DiT"]
-TRAIN_PER_STEP["FM-UNet"] = TRAIN_PER_STEP["DDPM-UNet"]
-TRAIN_PER_STEP["ConvRNN"] = lambda cfg: {}
-# Kernel launches of one denoiser forward at the serving config's width:
-# the DiT's two attentions a block; the UNet's fused level-0 blocks, its
-# standalone convs and GroupNorms (the shape tables below) and 4 attentions
-# (level 2 and the bottleneck).
+# Kernel launches of one denoiser forward: the DiT's two attentions a
+# block; the UNet's fused blocks, its standalone convs and GroupNorms and
+# its attentions (``unet_shape_tables``).
 PER_FORWARD = {
     "DDPM-DiT": lambda cfg: {"fused_attention": 2 * cfg.MODEL.DDPM.DIT.DEPTH},
-    "DDPM-UNet": lambda cfg: {
-        "fused_resblock": len(RESBLOCK_SHAPES),
-        "conv3d_same_im2col": sum(CONV_SHAPES.values()),
-        "fused_group_norm": sum(GN_SHAPES.values()),
-        "fused_attention": 4,
-    },
+    "DDPM-UNet": lambda cfg: unet_launches(cfg, "DDPM-UNet"),
     # DiT2D: one joint attention over all T·N tokens a block.
     "FM-DiT": lambda cfg: {"fused_attention": cfg.MODEL.FM.DIT.DEPTH},
+    "FM-UNet": lambda cfg: unet_launches(cfg, "FM-UNet"),
+    "ConvRNN": lambda cfg: {},
 }
-PER_FORWARD["FM-UNet"] = PER_FORWARD["DDPM-UNet"]
-PER_FORWARD["ConvRNN"] = lambda cfg: {}
 
 
 def log(phase: str, **numbers) -> None:
@@ -447,9 +472,9 @@ def _randn(shape, gen, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False):
+def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False, timing=True):
     """Kernel vs twin at one shape, and a second call bitwise equal to the
-    first; times kernel, twin and SDPA."""
+    first; times kernel, twin and SDPA where ``timing``."""
     import torch.nn.functional as F
 
     from crowdmod_tpu_torch.ops.kernels import attention_reference, fused_attention
@@ -477,17 +502,19 @@ def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False):
     elsize = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * elsize
     b_ms, b_by = bound(nbytes, 4 * b * h * sq * sk * dh, dtype)
-    ms, host_ms = cuda_ms(lambda: fused_attention(q, k, v, scale=scale))
     res = dict(
         shape=[b, h, sq, sk, dh], dtype=str(dtype).split(".")[1],
         max_abs_err=err, tolerance=tol, bitwise_repeat=True,
-        plan=dataclasses.asdict(plan), ms=ms, host_ms=host_ms,
-        plain_ms=cuda_ms(lambda: attention_reference(q, k, v, scale))[0],
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
-        )[0],
-    )
+        plan=dataclasses.asdict(plan), bound_ms=b_ms, bound_by=b_by)
+    if timing:
+        ms, host_ms = cuda_ms(lambda: fused_attention(q, k, v, scale=scale))
+        res.update(
+            ms=ms, host_ms=host_ms,
+            plain_ms=cuda_ms(lambda: attention_reference(q, k, v, scale))[0],
+            library_ms=cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+            )[0],
+        )
     log(f"kernel attention {label}", **res)
     return res
 
@@ -500,7 +527,8 @@ def launch_floor_ms() -> float:
     return cuda_ms(lambda: one.add_(1.0))[0]
 
 
-def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_ms=None):
+def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_ms=None,
+               timing=True):
     """Kernel vs twin at one shape (x, ε̂ and z views ``offsets`` floats into
     their buffers), a second call bitwise equal to the first; times kernel
     and twin beside the launch floor."""
@@ -535,14 +563,16 @@ def check_step(label, shape, sparsity, gen, *, offsets=(0, 0, 0), rho=0, floor_m
     if not torch.equal(out, again):
         raise AssertionError(f"ancestral step {label}: a second call gave other bits ({plan})")
     b_ms, b_by = bound(16 * n, (7 if sparsity else 5) * n, torch.float32)
-    ms, host_ms = cuda_ms(lambda: fused_ancestral_update(x, eps, z, coeffs, **kw))
     res = dict(
         shape=list(shape), dtype="float32", sparsity=sparsity, offsets=list(offsets),
         plan=dataclasses.asdict(plan), max_abs_err=err, tolerance=TOL["step"],
-        bitwise_repeat=True, ms=ms, host_ms=host_ms,
-        plain_ms=cuda_ms(lambda: ancestral_update_reference(x, eps, z, **twin))[0],
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, floor_ms=floor_ms,
+        bitwise_repeat=True, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        floor_ms=floor_ms,
     )
+    if timing:
+        ms, host_ms = cuda_ms(lambda: fused_ancestral_update(x, eps, z, coeffs, **kw))
+        res.update(ms=ms, host_ms=host_ms, plain_ms=cuda_ms(
+            lambda: ancestral_update_reference(x, eps, z, **twin))[0])
     log(f"kernel ancestral_update {label}", **res)
     return res
 
@@ -660,22 +690,108 @@ def check_step_strided(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 UNET_BATCH = 64
-LEVELS = {0: (8, 12, 36), 1: (4, 6, 18), 2: (2, 3, 9)}
-# (level, Cin, Cout) of the standalone convs of one UNet forward → how many
-# run at that shape: first, up_1 and final_conv at level 0; up_2 and the
-# level-1 blocks' convs; the level-2 and bottleneck blocks' convs.
-CONV_SHAPES = {(0, 3, 32): 1, (0, 64, 64): 1, (0, 32, 3): 1, (1, 32, 64): 1,
-               (1, 64, 64): 3, (1, 192, 64): 1, (1, 96, 64): 1,
-               (1, 128, 128): 1, (2, 64, 128): 1, (2, 128, 128): 7,
-               (2, 256, 128): 1, (2, 192, 128): 1}
-# (level, C, silu) of the standalone GroupNorms → count: the unfused blocks'
-# GN1 and GN2, the 4 attention pre-norms (no SiLU), the final norm.
-GN_SHAPES = {(0, 32, True): 1, (1, 32, True): 1, (1, 64, True): 3,
-             (1, 192, True): 1, (1, 96, True): 1, (2, 64, True): 1,
-             (2, 128, True): 7, (2, 128, False): 4, (2, 256, True): 1,
-             (2, 192, True): 1}
-# (Cin, Cout) of the fused level-0 blocks: enc_0_0, dec_0_0, dec_0_1.
-RESBLOCK_SHAPES = [(32, 32), (96, 32), (64, 32)]
+
+
+def unet_shape_tables(cfg, arch: str = "DDPM-UNet") -> dict:
+    """The kernel shapes of one inference forward of ``arch``'s UNet built
+    from ``cfg``, walked as ``models/backbones/unet3d.py`` builds the model
+    and ``fused_apply.eligible`` routes its blocks:
+
+      ``levels``: level → (T, H, W), level 0 the past and future frames on
+        the config's grid, each next level the stride-2 downsample's ceil;
+      ``conv``: (level, Cin, Cout) → the standalone conv calls a forward
+        (the first conv, every unfused block's two, each upsample's, the
+        f32 final conv Cout 3);
+      ``gn``: (level, C, silu) → the standalone GroupNorm calls (every
+        unfused block's two with SiLU, each attention's pre-norm without,
+        the final norm);
+      ``resblock``: (Cin, Cout) of each fused block, in forward order;
+      ``attention``: (tokens, heads, Dh) → attention calls (4 heads over
+        every position of the level).
+
+    Each table keeps level order, then the order of first call."""
+    from crowdmod_tpu_torch.models.backbones.fused_apply import eligible
+
+    node = (cfg.MODEL.FM if arch.startswith("FM") else cfg.MODEL.DDPM).UNET
+    grid = (cfg.DATASET.PAST_LEN + cfg.DATASET.FUTURE_LEN if node.CONDITION == "Past"
+            else cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS)
+    depth = len(node.BASE_CH_MULT)
+    levels = {0: grid}
+    for level in range(1, depth):
+        levels[level] = tuple(-(-n // 2) for n in levels[level - 1])
+    conv, gn, attention, fused = {}, {}, {}, []
+
+    def add(table, key):
+        table[key] = table.get(key, 0) + 1
+
+    def block(level, cin, cout, attn):
+        t, h, w = levels[level]
+        probe = types.SimpleNamespace(attention=object() if attn else None,
+                                      out_channels=cout)
+        if eligible(probe, torch.empty((1, t, h, w, cin), device="meta"), False):
+            fused.append((cin, cout))
+            return
+        add(gn, (level, cin, True))
+        add(conv, (level, cin, cout))
+        add(gn, (level, cout, True))
+        add(conv, (level, cout, cout))
+        if attn:
+            add(gn, (level, cout, False))
+            add(attention, (t * h * w, 4, cout // 4))
+
+    base = node.BASE_CH
+    add(conv, (0, 3, base))
+    ch, skips = base, [base]
+    for level in range(depth):
+        out = base * node.BASE_CH_MULT[level]
+        for _ in range(node.NUM_RES_BLOCKS):
+            block(level, ch, out, node.APPLY_ATTENTION[level])
+            ch = out
+            skips.append(ch)
+        if level != depth - 1:
+            skips.append(ch)  # the stride-2 downsample: a library call
+    block(depth - 1, ch, ch, True)  # the bottleneck
+    block(depth - 1, ch, ch, False)
+    for level in reversed(range(depth)):
+        out = base * node.BASE_CH_MULT[level]
+        for _ in range(node.NUM_RES_BLOCKS + 1):
+            block(level, ch + skips.pop(), out, node.APPLY_ATTENTION[level])
+            ch = out
+        if level != 0:
+            add(conv, (level - 1, ch, ch))  # the upsample's conv
+    add(gn, (0, ch, True))
+    add(conv, (0, ch, 3))
+    order = lambda table: dict(sorted(table.items(), key=lambda kv: kv[0][0]))  # noqa: E731
+    return {"levels": levels, "conv": order(conv), "gn": order(gn), "resblock": fused,
+            "attention": attention}
+
+
+class _ServingTables:
+    """:func:`unet_shape_tables` of ``configs/serving/ATC.yml``'s DDPM-UNet,
+    derived at first use (the port is imported then, not with this
+    script): ``SERVING.levels``, ``.conv``, ``.gn``, ``.resblock``,
+    ``.attention``.  Phases 2-18 hold their kernel cases and launches to
+    these; the module names ``LEVELS``, ``CONV_SHAPES``, ``GN_SHAPES`` and
+    ``RESBLOCK_SHAPES`` read them too."""
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        from crowdmod_tpu_torch.config import load_config
+
+        self.__dict__.update(unet_shape_tables(load_config("serving/ATC.yml"), "DDPM-UNet"))
+        return self.__dict__[name]
+
+
+SERVING = _ServingTables()
+_SERVING_NAMES = {"LEVELS": "levels", "CONV_SHAPES": "conv", "GN_SHAPES": "gn",
+                  "RESBLOCK_SHAPES": "resblock"}
+
+
+def __getattr__(name: str):
+    if name in _SERVING_NAMES:
+        return getattr(SERVING, _SERVING_NAMES[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _dn(dtype) -> str:
@@ -699,17 +815,19 @@ def _timings(res, kernel, plain, library, nbytes, flops, dtype):
                library_ms=None if library is None else cuda_ms_budget(library)[0])
 
 
-def check_group_norm(level, c, act, dtype, gen, timing, *, batch=UNET_BATCH, volume=None):
+def check_group_norm(level, c, act, dtype, gen, timing, *, batch=UNET_BATCH, volume=None,
+                     levels=None):
     """Kernel vs twin at one shape (``volume`` positions, by default the
-    level's), a second call bitwise equal to the first, the plan; times
-    kernel, twin and ``F.group_norm``."""
+    level's in ``levels``, by default the serving grid's), a second call
+    bitwise equal to the first, the plan; times kernel, twin and
+    ``F.group_norm``."""
     import torch.nn.functional as F
 
     from crowdmod_tpu_torch.ops.kernels import fused_group_norm, group_norm_reference
     from crowdmod_tpu_torch.ops.kernels.build import sm_count
     from crowdmod_tpu_torch.ops.kernels.groupnorm import group_norm_plan
 
-    positions = volume or int(np.prod(LEVELS[level]))
+    positions = volume or int(np.prod((levels or SERVING.levels)[level]))
     x = _randn((batch, positions, c), gen, dtype)
     gamma = 1.0 + 0.1 * _randn((c,), gen)
     beta = 0.1 * _randn((c,), gen)
@@ -766,16 +884,17 @@ def check_group_norm_extras(gen, timing) -> dict:
     return res
 
 
-def _conv_inputs(level, cin, cout, dtype, gen, batch=UNET_BATCH):
+def _conv_inputs(level, cin, cout, dtype, gen, batch=UNET_BATCH, levels=None):
     """x, the (3, 3, 3, Cin, Cout) kernel (both in ``dtype``) and an f32
-    bias for a conv at ``level``."""
-    t, h, w = LEVELS[level]
+    bias for a conv at ``level`` of ``levels`` (by default the serving
+    grid's)."""
+    t, h, w = (levels or SERVING.levels)[level]
     x = _randn((batch, t, h, w, cin), gen, dtype)
     kernel = (_randn((3, 3, 3, cin, cout), gen) / (27 * cin) ** 0.5).to(dtype)
     return x, kernel, 0.1 * _randn((cout,), gen)
 
 
-def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH):
+def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH, levels=None):
     import torch.nn.functional as F
 
     from crowdmod_tpu_torch.ops.kernels import (
@@ -791,8 +910,8 @@ def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH):
         tapgemm_plan,
     )
 
-    t, h, w = LEVELS[level]
-    x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen, batch)
+    t, h, w = (levels or SERVING.levels)[level]
+    x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen, batch, levels)
     conv, pack, planner = ((conv3d_same_im2col, pack_im2col, im2col_plan)
                            if impl == "im2col"
                            else (conv3d_same_tapgemm, pack_tapgemm, tapgemm_plan))
@@ -801,7 +920,8 @@ def check_conv(level, cin, cout, impl, dtype, gen, timing, batch=UNET_BATCH):
     out = conv(x, wp, bias)
     torch.cuda.synchronize()
     label = (f"conv3d {impl} L{level} {cin}->{cout} {_dn(dtype)}"
-             + ("" if batch == UNET_BATCH else f" b{batch}"))
+             + ("" if batch == UNET_BATCH else f" b{batch}")
+             + ("" if levels is None else f" {t}x{h}x{w}"))
     ref = conv3d_same_reference(x.float(), kernel.float(), bias)
     tol = TOL["conv_f32" if dtype == torch.float32 else "bf16"]
     err = _rel_check(label, out, ref, tol)
@@ -846,15 +966,15 @@ def check_bucket_plans(gen, timing) -> dict:
 
     def key(batch, level, cin, cout):
         dtype = torch.float32 if cout == 3 else torch.bfloat16
-        shape = (batch, *LEVELS[level])
+        shape = (batch, *SERVING.levels[level])
         p = im2col_plan((*shape, cin), cout, dtype)
         ragged = any(n % k for n, k in zip(shape, p.tile) if k)  # a tile partly live
         return dtype, p.route, p.bm, p.bn, p.kc, p.tile, p.splits, ragged
 
-    seen = {key(UNET_BATCH, *shape) for shape in CONV_SHAPES}
+    seen = {key(UNET_BATCH, *shape) for shape in SERVING.conv}
     res = {}
     for batch in BATCH_BUCKETS:
-        for level, cin, cout in CONV_SHAPES:
+        for level, cin, cout in SERVING.conv:
             k = key(batch, level, cin, cout)
             if k in seen:
                 continue
@@ -937,15 +1057,16 @@ def resblock_composition(x, temb, w):
     return run
 
 
-def resblock_inputs(cin, cout, dtype, gen, batch=UNET_BATCH):
-    """x, temb_proj and a weight dict of one level-0 block."""
-    t, h, wd = LEVELS[0]
+def resblock_inputs(cin, cout, dtype, gen, batch=UNET_BATCH, grid=None):
+    """x, temb_proj and a weight dict of one level-0 block (on ``grid``,
+    by default the serving grid's level 0)."""
+    t, h, wd = grid or SERVING.levels[0]
     x = _randn((batch, t, h, wd, cin), gen, dtype)
     temb = _randn((batch, cout), gen, dtype)
     return x, temb, _resblock_weights(cin, cout, gen, dtype)
 
 
-def check_resblock(cin, cout, dtype, gen, timing, batch=UNET_BATCH):
+def check_resblock(cin, cout, dtype, gen, timing, batch=UNET_BATCH, grid=None):
     from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
     from crowdmod_tpu_torch.ops.kernels.build import sm_count
     from crowdmod_tpu_torch.ops.kernels.resblock import (
@@ -954,13 +1075,14 @@ def check_resblock(cin, cout, dtype, gen, timing, batch=UNET_BATCH):
         smem_bytes,
     )
 
-    t, h, wd = LEVELS[0]
-    x, temb, w = resblock_inputs(cin, cout, dtype, gen, batch)
+    t, h, wd = grid or SERVING.levels[0]
+    x, temb, w = resblock_inputs(cin, cout, dtype, gen, batch, grid)
     packed = pack_resblock(w, dtype)
     out = fused_resblock(x, temb, w, packed=packed)
     torch.cuda.synchronize()
     label = (f"resblock {cin}->{cout} {_dn(dtype)}"
-             + ("" if batch == UNET_BATCH else f" b{batch}"))
+             + ("" if batch == UNET_BATCH else f" b{batch}")
+             + ("" if grid is None else f" {t}x{h}x{wd}"))
     ref = resblock_reference(x.float(), temb.float(), w)
     tol = TOL["resblock_f32" if dtype == torch.float32 else "bf16"]
     err = _rel_check(label, out, ref, tol)
@@ -1016,7 +1138,7 @@ def check_resblock_gradients(gen) -> dict:
     from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
     from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock
 
-    t, h, wd = LEVELS[0]
+    t, h, wd = SERVING.levels[0]
     res = {}
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -1077,23 +1199,23 @@ def phase_unet_kernels(timing: bool = True) -> dict:
     res = {"gn": {}, "gn_extra": {}, "conv": {}, "resblock": {}}
     for dtype in (torch.float32, torch.bfloat16):
         dn = _dn(dtype)
-        for level, c, act in GN_SHAPES:
+        for level, c, act in SERVING.gn:
             res["gn"][f"L{level}_C{c}_{act}_{dn}"] = check_group_norm(
                 level, c, act, dtype, gen, timing)
         if dtype == torch.bfloat16:
             res["gn_extra"] = check_group_norm_extras(gen, timing)
         for impl in ("im2col", "tapgemm"):
-            for level, cin, cout in CONV_SHAPES:
+            for level, cin, cout in SERVING.conv:
                 res["conv"][f"{impl}_L{level}_{cin}_{cout}_{dn}"] = check_conv(
                     level, cin, cout, impl, dtype, gen, timing)
-        for cin, cout in RESBLOCK_SHAPES:
+        for cin, cout in SERVING.resblock:
             res["resblock"][f"{cin}_{cout}_{dn}"] = check_resblock(
                 cin, cout, dtype, gen, timing)
     # The fused blocks at the serving buckets of 1 and 8 (bf16, as served);
     # their own generator, so the cases after them keep their inputs.
     buckets = torch.Generator(device="cuda").manual_seed(SEED + 18)
     for batch in (1, 8):
-        for cin, cout in RESBLOCK_SHAPES:
+        for cin, cout in SERVING.resblock:
             res["resblock"][f"{cin}_{cout}_bfloat16_b{batch}"] = check_resblock(
                 cin, cout, torch.bfloat16, buckets, timing, batch=batch)
     res["conv"].update(check_bucket_plans(gen, timing))
@@ -1102,20 +1224,20 @@ def phase_unet_kernels(timing: bool = True) -> dict:
         # served dtype; the final conv counted in f32, as it runs).
         per_fwd = {
             "group_norm": sum(res["gn"][f"L{l}_C{c}_{a}_bfloat16"]["ms"] * n
-                              for (l, c, a), n in GN_SHAPES.items()),
+                              for (l, c, a), n in SERVING.gn.items()),
             **{f"conv3d_{impl}": sum(
                 res["conv"][f"{impl}_L{l}_{i}_{o}_{'float32' if o == 3 else 'bfloat16'}"]["ms"]
-                * n for (l, i, o), n in CONV_SHAPES.items()) for impl in ("im2col", "tapgemm")},
+                * n for (l, i, o), n in SERVING.conv.items()) for impl in ("im2col", "tapgemm")},
             "resblock": sum(res["resblock"][f"{i}_{o}_bfloat16"]["ms"]
-                            for i, o in RESBLOCK_SHAPES),
+                            for i, o in SERVING.resblock),
         }
         log("UNet kernels per bf16 forward at batch 64 (device ms)", **per_fwd,
             group_norm_bound=sum(res["gn"][f"L{l}_C{c}_{a}_bfloat16"]["bound_ms"] * n
-                                 for (l, c, a), n in GN_SHAPES.items()))
+                                 for (l, c, a), n in SERVING.gn.items()))
         gn_rows = [[f"L{l} C{c}{' silu' if a else ''}", n]
                    + [round(g[f], 6) for f in ("ms", "bound_ms", "library_ms")]
                    + [g["plan"]["route"], g["plan"]["cluster"], g["plan"]["threads"]]
-                   for (l, c, a), n in GN_SHAPES.items()
+                   for (l, c, a), n in SERVING.gn.items()
                    for g in [res["gn"][f"L{l}_C{c}_{a}_bfloat16"]]]
         log("group norm table, bf16 b64 [shape, calls a forward, ms, bound_ms, "
             "F.group_norm ms, route, k, threads]", rows=gn_rows)
@@ -1167,7 +1289,7 @@ def phase_conv_baseline(src_dir: Path) -> dict:
     """Both conv kernels of this tree against commit cdc7807's (``src_dir``
     holds its ``conv3d.cu``, ``common.cuh`` and ``mma.cuh``, from ``git show
     cdc7807:crowdmod_tpu_torch/csrc/<file>``; its C interface, with the
-    plans of :func:`baseline_conv_plan`) at every ``CONV_SHAPES`` shape, f32
+    plans of :func:`baseline_conv_plan`) at every ``SERVING.conv`` shape, f32
     and bf16, on this card: each output checked against this tree's within
     the conv tolerance, each timed in turns (baseline, this, this,
     baseline), with the host ms of a call: this tree's operator, and each
@@ -1195,7 +1317,7 @@ def phase_conv_baseline(src_dir: Path) -> dict:
         for impl in ("im2col", "tapgemm"):
             conv, pack = ((conv3d_same_im2col, pack_im2col) if impl == "im2col"
                           else (conv3d_same_tapgemm, pack_tapgemm))
-            for level, cin, cout in CONV_SHAPES:
+            for level, cin, cout in SERVING.conv:
                 x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
                 wp = pack(kernel)
                 out_old = torch.empty((*x.shape[:-1], cout), dtype=dtype, device="cuda")
@@ -1258,7 +1380,7 @@ def phase_conv_baseline(src_dir: Path) -> dict:
             per_fwd[f"{impl}_{side}"] = sum(
                 float(np.mean(rows[f"{impl}_L{lv}_{i}_{o}_"
                                    f"{'float32' if o == 3 else 'bfloat16'}"][side])) * n
-                for (lv, i, o), n in CONV_SHAPES.items())
+                for (lv, i, o), n in SERVING.conv.items())
     log("conv baseline per bf16 forward at batch 64 (device ms; final conv f32)", **per_fwd)
     hosts = {side: statistics.median(
         v for r in rows.values() for v in np.ravel([r[side]]))
@@ -1388,11 +1510,11 @@ def kernel_baseline_resblock(lib, gen, failed: list) -> dict:
     from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
     from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock, resblock_plan
 
-    t, h, wd = LEVELS[0]
+    t, h, wd = SERVING.levels[0]
     rows = {}
     cases = [(batch, torch.bfloat16) for batch in (64, 8, 1)] + [(64, torch.float32)]
     for batch, dtype in cases:
-        for cin, cout in RESBLOCK_SHAPES:
+        for cin, cout in SERVING.resblock:
             key = f"{cin}_{cout}_{_dn(dtype)}_b{batch}"
             x, temb, w = resblock_inputs(cin, cout, dtype, gen, batch)
             p = pack_resblock(w, dtype)
@@ -1500,8 +1622,8 @@ def kernel_alternatives(gen) -> dict:
                              smem_bytes=plan.smem_bytes)
             log(f"kernel alternative {key}", **rows[key])
     lib = build.load("resblock", res_mod._SIGNATURES)
-    t, h, wd = LEVELS[0]
-    for cin, cout in RESBLOCK_SHAPES:
+    t, h, wd = SERVING.levels[0]
+    for cin, cout in SERVING.resblock:
         x, temb, w = resblock_inputs(cin, cout, torch.bfloat16, gen)
         p = res_mod.pack_resblock(w, torch.bfloat16)
         ref = resblock_reference(x.float(), temb.float(), w)
@@ -1594,10 +1716,10 @@ def phase_kernel_baseline(src_dir: Path) -> dict:
         raise AssertionError(f"{len(failed)} kernel baseline cases failed: {failed}")
     for batch in (64, 8, 1):
         sums = {side: sum(float(np.mean(res[f"{i}_{o}_bfloat16_b{batch}"][side]))
-                          for i, o in RESBLOCK_SHAPES)
+                          for i, o in SERVING.resblock)
                 for side in ("baseline_ms", "ms")}
         sums.update({side: sum(res[f"{i}_{o}_bfloat16_b{batch}"][side]
-                               for i, o in RESBLOCK_SHAPES)
+                               for i, o in SERVING.resblock)
                      for side in ("sequence_ms", "composition_ms")})
         log(f"kernel baseline resblocks per bf16 UNet forward at batch {batch} (device ms)",
             **sums)
@@ -1618,7 +1740,7 @@ def phase_conv_ab(sources: list) -> dict:
     """Builds of variants of ``csrc/conv3d.cu`` (each ``sources`` file, with
     this tree's headers and C interface, into ``_build/ab-<stem>.so``; the
     stems name the variants) against each other at every bf16
-    ``CONV_SHAPES`` shape, both kernels with this tree's plans, in turns
+    ``SERVING.conv`` shape, both kernels with this tree's plans, in turns
     (A B … B A); a plan with two boxes at levels 0-1 is also timed with one.
     Each output is held to the twin first."""
     import ctypes
@@ -1672,7 +1794,7 @@ def phase_conv_ab(sources: list) -> dict:
         log(f"conv ab {key}", **{name: float(np.mean(v)) for name, v in ms.items()})
         return ms
 
-    for level, cin, cout in CONV_SHAPES:
+    for level, cin, cout in SERVING.conv:
         x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen)
         ref = conv3d_same_reference(x.float(), kernel.float(), bias)
         for impl, planner in (("im2col", conv_mod.im2col_plan),
@@ -1682,7 +1804,7 @@ def phase_conv_ab(sources: list) -> dict:
             ms = timed(f"{impl}_L{level}_{cin}_{cout}", impl, plan, x, wp, bias, cout, ref)
             if impl == "im2col":
                 for name in names:
-                    forward[name] += float(np.mean(ms[name])) * CONV_SHAPES[(level, cin, cout)]
+                    forward[name] += float(np.mean(ms[name])) * SERVING.conv[(level, cin, cout)]
             if plan.nbox == 2 and level < 2:
                 timed(f"{impl}_L{level}_{cin}_{cout}_nbox1", impl,
                       dataclasses.replace(plan, nbox=1), x, wp, bias, cout, ref)
@@ -1693,7 +1815,7 @@ def phase_conv_ab(sources: list) -> dict:
 def phase_conv_tiles() -> dict:
     """Every bf16 halo block the conv kernels are built with (``HALO_TILES``
     at the plan's channel chunk, with 1, 2, 3 or 9 splits) at every
-    ``CONV_SHAPES`` shape, at batch 64 and at the serving bucket of 1, each
+    ``SERVING.conv`` shape, at batch 64 and at the serving bucket of 1, each
     checked against the twin and timed; ``chosen`` marks the wrappers'
     plan.  The data behind the plan functions' choices."""
     from crowdmod_tpu_torch.ops.kernels import conv3d_same_reference
@@ -1703,7 +1825,7 @@ def phase_conv_tiles() -> dict:
     dtype = torch.bfloat16
     rows = {}
     for batch in (UNET_BATCH, 1):
-        for level, cin, cout in CONV_SHAPES:
+        for level, cin, cout in SERVING.conv:
             x, kernel, bias = _conv_inputs(level, cin, cout, dtype, gen, batch)
             ref = conv3d_same_reference(x.float(), kernel.float(), bias)
             flops = 2 * (x.numel() // cin) * 27 * cin * cout
@@ -1740,7 +1862,7 @@ def phase_conv_tiles() -> dict:
 
 
 def phase_gn_plans() -> dict:
-    """Every GroupNorm plan the kernel takes at every ``GN_SHAPES`` shape
+    """Every GroupNorm plan the kernel takes at every ``SERVING.gn`` shape
     and serving bucket in bf16 (float32 has the stream route only): the
     stream route and the cluster route at each cluster size with the plan's
     thread count and twice it, each checked against the twin and timed;
@@ -1760,8 +1882,8 @@ def phase_gn_plans() -> dict:
     rows = []
     dtype = torch.bfloat16
     for batch in BATCH_BUCKETS:
-        for level, c, act in GN_SHAPES:
-            s = int(np.prod(LEVELS[level]))
+        for level, c, act in SERVING.gn:
+            s = int(np.prod(SERVING.levels[level]))
             x = _randn((batch, s, c), gen, dtype)
             gamma, beta = 1.0 + 0.1 * _randn((c,), gen), 0.1 * _randn((c,), gen)
             ref = group_norm_reference(x.float(), gamma, beta, 8, 1e-5, act)
@@ -1799,15 +1921,15 @@ def write_config(cfg, path: Path) -> Path:
     return path
 
 
-def write_checkpoint(cfg, arch: str, workdir: Path) -> tuple[Path, str]:
-    """The serving config with SAVE_DIR in ``workdir``, and a checkpoint of
-    ``arch`` with seeded random weights, every parameter perturbed by
-    N(0, 0.02²) (the zero-init AdaLN and final layer would otherwise make
-    the DiT output 0)."""
+def write_checkpoint(cfg, arch: str, workdir: Path, name: str = "ATC.yml") -> tuple[Path, str]:
+    """The serving config with SAVE_DIR in ``workdir`` (written there as
+    ``name``), and a checkpoint of ``arch`` with seeded random weights,
+    every parameter perturbed by N(0, 0.02²) (the zero-init AdaLN and final
+    layer would otherwise make the DiT output 0)."""
     from crowdmod_tpu_torch.train.trainer import Trainer
 
     cfg = cfg.updated({"DATA_FS": {"SAVE_DIR": str(workdir / "ckpts")}})
-    cfg_path = write_config(cfg, workdir / "ATC.yml")
+    cfg_path = write_config(cfg, workdir / name)
     trainer = Trainer(cfg, arch, device=DEVICE, seed=SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
     for sd in (trainer.params, trainer.ema_params):
@@ -2429,12 +2551,14 @@ CLI_SEQS = 640
 TWIN_CHUNK = 160  # rows a twin forward takes at once at batch 1280
 
 
-def write_pickle_workspace(workdir: Path):
+def write_pickle_workspace(workdir: Path, cfg=None, seqs: int = CLI_SEQS):
     """Three reference-layout ``(N, C, H, W, L)`` macroprop pickles of
-    synthetic walker sequences at the serving grid (+ N(0, 0.05²) noise,
-    its magnitude on ρ and σ²_v), one each for the train, val and test splits, their
-    DATA_LIST, and a copy of ``configs/serving/ATC.yml`` pointing at them →
-    (config path, list path, the loaded config)."""
+    ``seqs`` synthetic walker sequences each at ``cfg``'s grid (by default
+    ``configs/serving/ATC.yml``; + N(0, 0.05²) noise, its magnitude on ρ
+    and σ²_v), one each for the train, val and test splits, their
+    DATA_LIST, and a copy of the config pointing at them, as ``ATC.yml``
+    and ``ATC_datafiles.yml`` → (config path, list path, the loaded
+    config)."""
     import pickle
 
     import yaml
@@ -2442,11 +2566,11 @@ def write_pickle_workspace(workdir: Path):
     from crowdmod_tpu_torch.config import load_config
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
 
-    cfg = load_config("serving/ATC.yml")
+    cfg = cfg or load_config("serving/ATC.yml")
     h, w, seq_len = cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, cfg.DATASET.RAW_SEQ_LEN
     pkl = workdir / "pickle"
     pkl.mkdir(parents=True)
-    rng, n_seqs, entries = np.random.default_rng(SEED + 9), CLI_SEQS, []
+    rng, n_seqs, entries = np.random.default_rng(SEED + 9), seqs, []
     for k in range(3):
         native = np.concatenate([synthetic_walkers(n_seqs, h, w, seq_len),
                                  np.zeros((n_seqs, seq_len, h, w, 1), np.float32)], -1)
@@ -2792,8 +2916,10 @@ FM_F32_STEPS = 25      # the f32 Euler chain held against the twins
 RF_COUPLING_STEPS = 4  # the teacher's Euler steps in phase 10's reflow
 RF_EULER_STEPS = 4     # the RF1 checkpoint's sampler
 FM_UNET_METRIC_STEPS = 50  # FM-UNet's protocol: Euler cut from 1000
-FM_DIT_METRIC_STEPS = 100  # FM-DiT's generate-metrics: Euler cut from 1000 for time
-FM_SERVE_STEPS = 250  # phase 11's Euler serving: cut from the configured 1000 for time
+FM_DIT_METRIC_STEPS = 50  # FM-DiT's generate-metrics: Euler cut from 1000 (then 100) for time
+# Phase 11's Euler serving and phase 19's FM requests: cut from the
+# configured 1000 (then 250) for time.
+FM_SERVE_STEPS = 50
 
 
 def fm_forwards(cfg, requests: int) -> int:
@@ -5255,7 +5381,7 @@ def check_doctor(out: str, run: int) -> dict:
     return json.loads(logged(out, "launches "))
 
 
-def commands_sampling(workdir: Path, cfg, arch: str) -> dict:
+def commands_sampling(workdir: Path, cfg, arch: str, label: str = "17") -> dict:
     """``generate-samples``' device half for ``arch`` in this process (the
     command's ``sample_sequences``: checkpoint, test set, ids, sampler,
     overlays on the card): launches held per forward × the sampler's
@@ -5290,10 +5416,10 @@ def commands_sampling(workdir: Path, cfg, arch: str) -> dict:
     cpu_seqs = seqs.cpu()
     cpu = overlay_metrics(cpu_seqs[0::2], cpu_seqs[1::2], cfg.METRICS, cfg.MACROPROPS.EPS)
     worst = hold_overlays(f"generate-samples {arch} overlays", out["overlays"], cpu)
-    log(f"commands generate-samples {arch}: sample_sequences b{n}", wall_s=wall,
+    log(f"commands generate-samples {arch}: sample_sequences b{n} {f_shape}", wall_s=wall,
         l1=out["l1"], l1_float64=l1_f64, overlays_card_vs_cpu=worst,
         overlay_tolerance=OVERLAY_TOL, launches=launches)
-    return {f"17 generate-samples {arch}": launches}
+    return {f"{label} generate-samples {arch}": launches}
 
 
 def commands_timing(workdir: Path, cfg) -> dict:
@@ -5644,6 +5770,286 @@ def phase_multihost(tmp: Path) -> dict:
     return reports
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: every bundled dataset's geometry
+# ---------------------------------------------------------------------------
+
+# The dataset configs of tools/sample_all_datasets_torch.sh other than ATC,
+# and ATC_medium (8 past + 8 future frames, a UNet of base 64).  Each
+# "-OBST" config shares its base config's grid and widths (checked, then
+# not run twice).
+GEOMETRIES = ("ETHUCY", "HERMES-BO", "HERMES-BN", "HERMES-CR-90", "HERMES-CR-120",
+              "ATC_medium")
+SHARED_GEOMETRY = {"HERMES-CR-90-OBST": "HERMES-CR-90",
+                   "HERMES-CR-120-OBST": "HERMES-CR-120"}
+GEOMETRY_ARCHS = ("DDPM-UNet", "DDPM-DiT", "FM-DiT", "FM-UNet")
+# configs/serving/ATC.yml's settings over configs/ATC.yml (DDIM-eta 25 +
+# Sparsity, v-prediction, EMA 0.999), laid over each dataset's config; FM
+# at phase 11's Euler steps.
+SERVING_OVERLAY = {"MODEL": {
+    "DDPM": {"SAMPLER": "DDIM-eta", "ETA": 1.0, "ETA_STEPS": 25, "GUIDANCE": "Sparsity",
+             "LAMBDA_GUIDANCE": 0.6, "PRED_TYPE": "v",
+             "UNET": {"TRAIN": {"EMA_DECAY": 0.999}}, "DIT": {"TRAIN": {"EMA_DECAY": 0.999}}},
+    "FM": {"INTEGRATOR_STEPS": {"EULER": FM_SERVE_STEPS}}}}
+GEOMETRY_SEQS = 32  # walker sequences a pickle of a geometry's workspace
+GEOMETRY_TOOL = "HERMES-CR-120"  # the grid --geometries runs the sweep tool at
+GEOMETRY_DIVIDERS = ("50", "100")  # its DDIM dividers: 20 and 10 steps of T = 1000
+
+
+def geometry_config(name: str):
+    """``configs/<name>.yml`` with :data:`SERVING_OVERLAY`."""
+    from crowdmod_tpu_torch.config import load_config
+
+    return load_config(f"{name}.yml").updated(SERVING_OVERLAY)
+
+
+def geometry_key(cfg) -> tuple:
+    """What the port's kernels see of a config: its grid, its frames and
+    the four denoisers' nodes."""
+    nodes = (cfg.MODEL.DDPM.UNET, cfg.MODEL.DDPM.DIT, cfg.MODEL.FM.UNET, cfg.MODEL.FM.DIT)
+    return (cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, cfg.DATASET.PAST_LEN,
+            cfg.DATASET.FUTURE_LEN, cfg.TPU.COMPUTE_DTYPE,
+            json.dumps([n.to_dict() for n in nodes], sort_keys=True))
+
+
+def check_shared_geometries() -> dict:
+    """Each "-OBST" config against its base: the same :func:`geometry_key`,
+    or raise."""
+    from crowdmod_tpu_torch.config import load_config
+
+    res = {}
+    for obst, base in SHARED_GEOMETRY.items():
+        if geometry_key(load_config(f"{obst}.yml")) != geometry_key(load_config(f"{base}.yml")):
+            raise AssertionError(f"{obst}: its grid or widths differ from {base}'s")
+        res[obst] = base
+    log("geometries shared (not run twice)", **res)
+    return res
+
+
+def dit_attention_shapes(cfg, arch: str, batch: int = UNET_BATCH) -> dict:
+    """(problems, heads, queries, keys, Dh) → attention calls of one
+    forward of ``arch``'s DiT on ``cfg``'s grid: DiT4D (DDPM-DiT) a spatial
+    self-attention over each temporal slot's patches and a temporal
+    attention of the future slots over all slots a block; DiT2D (FM-DiT)
+    one joint attention over every frame's patches a block."""
+    frames = cfg.DATASET.PAST_LEN + cfg.DATASET.FUTURE_LEN
+    node = cfg.MODEL.DDPM.DIT if arch == "DDPM-DiT" else cfg.MODEL.FM.DIT
+    patches = (cfg.MACROPROPS.ROWS // node.PATCH_SIZE) * (cfg.MACROPROPS.COLS // node.PATCH_SIZE)
+    heads, dh = node.NUM_HEADS, node.HIDDEN_SIZE // node.NUM_HEADS
+    if arch == "FM-DiT":
+        return {(batch, heads, frames * patches, frames * patches, dh): node.DEPTH}
+    slots = frames // node.T_PATCH_SIZE
+    future = slots - cfg.DATASET.PAST_LEN // node.T_PATCH_SIZE
+    return {(batch * slots, heads, patches, patches, dh): node.DEPTH,
+            (batch * patches, heads, future, slots, dh): node.DEPTH}
+
+
+def geometry_cases(cfg) -> dict:
+    """The distinct kernel shapes of the config's four models at batch 64,
+    each with the models that run it, and the shape timed for each
+    (kernel, model): its largest."""
+    cases = {"gn": {}, "conv": {}, "resblock": {}, "attention": {}}
+    timed = set()
+    levels = None
+    for arch in GEOMETRY_ARCHS:
+        if arch.endswith("DiT"):
+            attn = dit_attention_shapes(cfg, arch, UNET_BATCH)
+        else:
+            tables = unet_shape_tables(cfg, arch)
+            levels = tables["levels"]
+            vol = lambda level: int(np.prod(levels[level]))  # noqa: E731
+            attn = {(UNET_BATCH, h, s, s, dh): n for (s, h, dh), n in tables["attention"].items()}
+            for kind, size in (("gn", lambda k: vol(k[0]) * k[1]),
+                               ("conv", lambda k: vol(k[0]) * k[1] * k[2] * (k[2] != 3)),
+                               ("resblock", lambda k: k[0] * k[1] + k[1] * k[1])):
+                keys = list(tables[kind])
+                for k in keys:
+                    cases[kind].setdefault(k, []).append(arch)
+                if keys:
+                    timed.add((kind, max(keys, key=size)))
+        for k in attn:
+            cases["attention"].setdefault(k, []).append(arch)
+        timed.add(("attention", max(attn, key=lambda k: k[0] * k[2] * k[3] * k[4])))
+    return {"cases": cases, "timed": timed, "levels": levels}
+
+
+def geometry_kernels(name: str, cfg, gen) -> dict:
+    """Every distinct kernel shape of the config's four models at batch 64
+    against its twin, f32 and bf16, a second call bitwise (phase 2's
+    checks and tolerances; each prints its plan); each kernel's largest
+    shape a model timed in bf16 beside its bound and the library call; the
+    ancestral step at the config's (64, F, H, W, 3) → {case: result}."""
+    plan = geometry_cases(cfg)
+    cases, timed, levels = plan["cases"], plan["timed"], plan["levels"]
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = _dn(dtype)
+        for key in cases["gn"]:
+            level, c, act = key
+            res[f"gn L{level} C{c} {act} {dn}"] = check_group_norm(
+                level, c, act, dtype, gen, dtype == torch.bfloat16 and ("gn", key) in timed,
+                levels=levels)
+        for key in cases["conv"]:
+            res[f"conv L{key[0]} {key[1]}->{key[2]} {dn}"] = check_conv(
+                *key, "im2col", dtype, gen, dtype == torch.bfloat16 and ("conv", key) in timed,
+                levels=levels)
+        for key in cases["resblock"]:
+            res[f"resblock {key[0]}->{key[1]} {dn}"] = check_resblock(
+                *key, dtype, gen, dtype == torch.bfloat16 and ("resblock", key) in timed,
+                grid=levels[0])
+        for key, archs in cases["attention"].items():
+            b, h, sq, sk, dh = key
+            res[f"attention {b}x{h} {sq}x{sk} Dh{dh} {dn}"] = check_attention(
+                f"{name} {'/'.join(archs)} {key} {dn}", b, h, sq, sk, dh, dtype, gen,
+                packed=sq == sk, timing=dtype == torch.bfloat16 and ("attention", key) in timed)
+    shape = (UNET_BATCH, cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
+    for sp in (False, True):
+        res[f"step {'sparsity' if sp else 'none'}"] = check_step(
+            f"{name} {shape} {'sparsity' if sp else 'none'}", shape, sp, gen, timing=sp)
+    rows = [[k, r["shape"], r["ms"], r["bound_ms"], r["bound_by"], r["library_ms"],
+             r.get("sequence_ms")] for k, r in res.items() if "ms" in r]
+    log(f"geometry {name} kernel table, NVIDIA card as in phase 1 [case, shape, ms, bound_ms, "
+        "bound_by, library_ms, resblock cuDNN sequence ms]", rows=rows,
+        cases=len(res), nvidia_smi=nvidia_smi())
+    return res
+
+
+def geometry_forward(cfg, arch: str, ckpt_path: str) -> dict:
+    """One f32 batch-64 forward of ``arch`` with the kernels against the
+    same under :func:`twins_on_the_card` (TF32 off), within
+    ``forward_f32``; the kernels' launches held to one forward."""
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p, f, h, w = (cfg.DATASET.PAST_LEN, cfg.DATASET.FUTURE_LEN,
+                  cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    past = torch.from_numpy(synthetic_walkers(UNET_BATCH, h, w, p + f)[:, :p]).to(DEVICE)
+    x = torch.randn((UNET_BATCH, f, h, w, 3), generator=gen, device=DEVICE)
+    if arch.startswith("FM"):
+        t = torch.floor(torch.rand((UNET_BATCH,), generator=gen, device=DEVICE)
+                        * cfg.MODEL.FM.TIME_MAX_POS)
+    else:
+        t = torch.randint(0, cfg.MODEL.DDPM.TIMESTEPS, (UNET_BATCH,), generator=gen,
+                          device=DEVICE)
+
+    tr = Trainer(cfg, arch, device=DEVICE, compute_dtype=torch.float32)
+    tr.load(ckpt_path)
+
+    def run():
+        with torch.no_grad():
+            out = tr.model(x, t, past)
+        torch.cuda.synchronize()
+        return out
+
+    with twins_on_the_card():
+        ref = run()
+    before = launch_counts()
+    out = run()
+    launches = check_launches(f"{arch} f32 forward", before, PER_FORWARD[arch](cfg), 1)
+    err = (out - ref).abs().max().item()
+    if not out.abs().max().item() > 1e-3:
+        raise AssertionError(f"{arch}: the denoiser output is all but zero")
+    if not (err <= TOL["forward_f32"] and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{arch} f32 forward kernels vs twins: {err}")
+    return dict(forward_max_abs_diff=err, forward_abs_max=out.abs().max().item(),
+                launches={k: n for k, n in launches.items() if n})
+
+
+def geometry_request(cfg, arch: str, ckpt_path: str) -> dict:
+    """One bf16 batch-64 request through a ``Predictor``: DDIM-eta 25 +
+    Sparsity (DDPM) or Euler at ``FM_SERVE_STEPS`` (FM); its launches held
+    to :data:`PER_FORWARD` × the forwards, its future finite and of the
+    config's shape."""
+    from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
+    from crowdmod_tpu_torch.serving import Predictor
+
+    pred = Predictor(cfg, arch, ckpt_path, device=DEVICE, batch_buckets=(UNET_BATCH,))
+    p, f, h, w, _ = pred.input_spec
+    past = synthetic_walkers(UNET_BATCH, h, w, p + f)[:, :p]
+    forwards = (fm_forwards(cfg, 1) if arch.startswith("FM")
+                else cfg.MODEL.DDPM.ETA_STEPS)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pred.predict(past)
+    latency = time.perf_counter() - t0
+    launches = check_launches(f"{arch} request", before, PER_FORWARD[arch](cfg), forwards)
+    if out.shape != (UNET_BATCH, f, h, w, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"{arch}: bad output {out.shape}")
+    return dict(forwards=forwards, latency_s=latency, out_abs_mean=float(np.abs(out).mean()),
+                launches={k: n for k, n in launches.items() if n})
+
+
+def phase_geometry(name: str, work: Path) -> dict:
+    """Phase 19 at one config: its kernels, each model's f32 forward and
+    bf16 request, and generate-samples' device half for DDPM-UNet on a
+    walker-pickle workspace at its grid → its paths' launch counts."""
+    from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
+
+    t0 = time.perf_counter()
+    cfg = geometry_config(name)
+    _, _, ws_cfg = write_pickle_workspace(work, cfg, seqs=GEOMETRY_SEQS)
+    ckpts = {arch: write_checkpoint(ws_cfg, arch, work, name=f"{arch}.yml")[1]
+             for arch in GEOMETRY_ARCHS}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    kernels = geometry_kernels(name, cfg, gen)
+    forwards = {arch: geometry_forward(ws_cfg, arch, ckpts[arch]) for arch in GEOMETRY_ARCHS}
+    reset_launch_counts()  # this config's requests
+    requests = {arch: geometry_request(ws_cfg, arch, ckpts[arch]) for arch in GEOMETRY_ARCHS}
+    paths = {f"19 {name} requests": launch_counts()}
+    paths.update(commands_sampling(work, ws_cfg, "DDPM-UNet", label=f"19 {name}"))
+    log(f"geometry {name}", grid=[cfg.DATASET.PAST_LEN + cfg.DATASET.FUTURE_LEN,
+                                  cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS],
+        kernel_cases=len(kernels), forwards=forwards, requests=requests,
+        seconds=time.perf_counter() - t0)
+    return paths
+
+
+def phase_geometries(tmp: Path) -> dict:
+    """Phase 19: :data:`GEOMETRIES` one by one (the "-OBST" configs checked
+    to share their base's) → every path's launch counts."""
+    check_shared_geometries()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = {}
+    for name in GEOMETRIES:
+        paths.update(phase_geometry(name, tmp / "geometries" / name))
+    return paths
+
+
+def geometry_tools(tmp: Path) -> dict:
+    """The card-side tools as processes, each exit status its checks:
+    ``tools/ddim_sweep_torch.py --skip-samples`` on a walker-pickle
+    workspace at :data:`GEOMETRY_TOOL`'s grid (DDPM-UNet, seeded random
+    weights) and ``tools/protocol_variance_torch.py --runs 2``."""
+    work = tmp / "geometry_tool"
+    cfg_path, list_path, ws_cfg = write_pickle_workspace(work, geometry_config(GEOMETRY_TOOL))
+    write_checkpoint(ws_cfg, "DDPM-UNet", work, name="DDPM-UNet.yml")
+    root = work / "ddim_sweep"
+    wall = run_tool("ddim_sweep", "tools/ddim_sweep_torch.py", "--config-yml-file",
+                    str(cfg_path), "--configList-yml-file", str(list_path), "--arch",
+                    "DDPM-UNet", "--dividers", *GEOMETRY_DIVIDERS, "--skip-samples",
+                    "--output-root", str(root), "--device", DEVICE)
+    for d in GEOMETRY_DIVIDERS:
+        manifest = json.loads((root / f"DDIM_{d}" / "metrics_files.json").read_text())
+        missing = [f for k, f in manifest.items() if k != "title" and not Path(f).exists()]
+        if len(manifest) != 21 or missing:
+            raise AssertionError(f"ddim_sweep divider {d}: {len(manifest)} manifest "
+                                 f"entries, missing {missing}")
+    log(f"geometry tool ddim_sweep at {GEOMETRY_TOOL}", wall_s_process=wall,
+        dividers=GEOMETRY_DIVIDERS)
+    out = tmp / "protocol_variance"
+    wall_pv = run_tool("protocol_variance", "tools/protocol_variance_torch.py", "--runs", "2",
+                       "--out", str(out), "--device", DEVICE, timeout=1200)
+    summary = json.loads((out / "summary.json").read_text())
+    log("geometry tool protocol_variance --runs 2", wall_s_process=wall_pv,
+        stats=summary["stats"], suggested_floors=summary["suggested_floors"])
+    return {"ddim_sweep_s": wall, "protocol_variance_s": wall_pv}
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -5744,6 +6150,15 @@ def main() -> int:
             phase_multihost(Path(tmp))
         log("multihost done", seconds=time.perf_counter() - t_start)
         return 0
+    if sys.argv[1:] == ["--geometries"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            t0 = time.perf_counter()
+            paths = phase_geometries(Path(tmp))
+            t1 = time.perf_counter()
+            geometry_tools(Path(tmp))
+        log("geometries done", seconds=time.perf_counter() - t_start, phase_19_s=t1 - t0,
+            tools_s=time.perf_counter() - t1, paths=sorted(paths))
+        return 0
     if sys.argv[1:] == ["--parallel"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_cli(Path(tmp) / "cli")
@@ -5792,6 +6207,7 @@ def main() -> int:
         drill = start_drill(Path(tmp))
         paths.update(timed("17 commands", phase_commands, Path(tmp) / "cli"))
         paths.update(timed("18 drills", phase_drills, Path(tmp), drill))
+        paths.update(timed("19 geometries", phase_geometries, Path(tmp)))
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["DDPM-DiT"]}
     launches["conv3d_same_tapgemm"] += e2e["tapgemm_path_launches"]
     log("launches on the paths", **launches)

@@ -1,13 +1,15 @@
 """The port's boundary: it imports nothing of JAX, of the JAX package or of
 pandas (the card's machine has none), and its entry points run on the card
-unless asked for the CPU.  The port's drills and quickstarts
-(``tools/*_torch.py``, ``examples/*_torch.py``) are held to both rules.
+unless asked for the CPU.  The port's drills, tools and quickstarts
+(``tools/*_torch.py``, ``tools/*_torch.sh``, ``examples/*_torch.py``) are
+held to both rules.
 
 Module names are matched exactly (``crowdmod_tpu`` or ``crowdmod_tpu.*``),
 never by prefix: ``crowdmod_tpu_torch`` starts with ``crowdmod_tpu``.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,6 +33,18 @@ TOOLS = {
     "tools.etl_drill_torch": ["--out", "{tmp}"],
     "tools.eval_protocol_full_torch": ["--out", "{tmp}"],
     "tools.soak_stream_torch": ["--dir", "{tmp}", "--gb", "0"],
+    "tools.generate_synthetic_data_torch": ["--out-dir", "{tmp}"],
+    "tools.visualize_forward_torch": ["--synthetic", "--out", "{tmp}"],
+    "tools.ddim_sweep_torch": ["--config-yml-file", "configs/4test/ATC.yml",
+                               "--output-root", "{tmp}"],
+    "tools.lambda_sweep_torch": ["--config-yml-file", "configs/4test/ATC.yml",
+                                 "--output-root", "{tmp}"],
+    "tools.protocol_variance_torch": ["--out", "{tmp}"],
+    "tools.plot_fixed_crowd_torch": ["--agg-csv", "nothing.csv", "--t-init",
+                                     "2020-01-01 10:00:00", "--out-dir", "{tmp}"],
+    "tools.native_sanitize_torch": [],
+    "tools.gen_configs_torch": [],
+    "tools.gen_api_docs_torch": [],
     "examples.quickstart_torch": ["--out", "{tmp}"],
     "examples.serving_quickstart_torch": ["--out", "{tmp}"],
     "examples.scaling_quickstart_torch": ["--out", "{tmp}"],
@@ -166,6 +180,28 @@ def test_tool_entry_points_default_to_the_card(module, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         importlib.import_module(module).main(argv)
     assert not (tmp_path / "out").exists()
+
+
+SHELL_TOOLS = sorted((REPO / "tools").glob("*_torch.sh"))
+
+
+@pytest.mark.parametrize("path", SHELL_TOOLS, ids=[p.name for p in SHELL_TOOLS])
+def test_shell_tools_call_only_the_port_and_default_to_the_card(path):
+    """Each ``tools/*_torch.sh`` runs ``python -m crowdmod_tpu_torch...``
+    only (never a JAX package module or JAX tool), and its dry run passes
+    ``--device cuda`` to every command that takes a device."""
+    text = "\n".join(ln for ln in path.read_text().splitlines()
+                     if not ln.lstrip().startswith("#"))
+    modules = re.findall(r"python -m ([\w.]+)", text)
+    assert modules and all(m.split(".")[0] in ("crowdmod_tpu_torch", "pytest")
+                           for m in modules), modules
+    assert not re.search(r"tools/(?!\S*_torch)\w+\.(py|sh)", text)
+    out = subprocess.run(["bash", str(path), "--dry-run"], cwd=REPO, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    cmds = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("+ python -m crowdmod_tpu_torch")]
+    assert cmds and all(ln.split("--device ")[1].split()[0] == "cuda" for ln in cmds)
 
 
 def test_unported_archs_name_their_roadmap_item():
