@@ -39,6 +39,9 @@
     python3 chip_smoke.py --geometries          # phase 1, phase 19, then the
                                    # DDIM sweep tool at HERMES-CR-120's grid
                                    # and the protocol variance tool
+    python3 chip_smoke.py --bench-tools         # phase 1, then every bench tool
+                                   # twin (bench_torch.py, tools/bench_*_torch.py,
+                                   # tools/profile_sampler_torch.py) as a process
 
 Phases, one line of numbers each; any failure raises and the script exits
 non-zero without a result line:
@@ -58,7 +61,12 @@ non-zero without a result line:
      through ``load_predictor``/``warmup``/``BatchingQueue``, with p50
      latency per bucket and a ``torch.profiler`` trace of one batch-64
      request (device busy time, kernel launches, the top kernels);
-  4. DiT ancestral: the same model with ``SAMPLER: DDPM`` (T = 1000);
+  4. DiT ancestral: the same model with ``SAMPLER: DDPM`` (T = 1000),
+     its request also timed as ``bench_torch.py`` times a chain
+     (``utils/profiling.py::time_calls``: the held request is the warm-up,
+     then one profiled and one timed chain): sample-steps/s and the busy
+     share beside the card's name and power limit, the launches of all
+     three chains held exactly;
   5. DiT end to end against the twins: one f32 denoiser forward and one
      25-step DDIM-eta chain, with the kernels and with the twins, on the card;
   6. UNet serving: phase 3 with DDPM-UNet (base 32, mults 1-2-4, attention
@@ -1001,62 +1009,6 @@ def _resblock_weights(cin, cout, gen, dtype):
     return w
 
 
-def resblock_sequence(x, temb, w):
-    """The unfused PyTorch sequence of one ResnetBlock3D on ``x``'s memory
-    (``F.group_norm``, ``F.silu``, cuDNN ``F.conv3d`` on the NDHWC view
-    twice, the skip ``F.linear``), in x's dtype: a yardstick of time for the
-    fused kernel, which no single library call computes.  Never on the
-    path."""
-    import torch.nn.functional as F
-
-    dt = x.dtype
-    cast = lambda k: w[k].to(dt)  # noqa: E731
-    conv_w = lambda k: w[k].permute(4, 3, 0, 1, 2).contiguous(  # noqa: E731
-        memory_format=torch.channels_last_3d).to(dt)
-    w1, w2 = conv_w("w1"), conv_w("w2")
-    tb = temb.to(dt)[:, :, None, None, None]
-    xc = x.permute(0, 4, 1, 2, 3)
-    skip_w = (w["w_skip"].reshape(w["w_skip"].shape[-2:]).t().to(dt)
-              if "w_skip" in w else None)
-
-    def run():
-        h = F.silu(F.group_norm(xc, 8, cast("gn1_scale"), cast("gn1_bias")))
-        h = F.conv3d(h, w1, cast("b1"), padding=1) + tb
-        h = F.silu(F.group_norm(h, 8, cast("gn2_scale"), cast("gn2_bias")))
-        h = F.conv3d(h, w2, cast("b2"), padding=1)
-        if skip_w is None:
-            return h + xc
-        return h + F.linear(x, skip_w, cast("b_skip")).permute(0, 4, 1, 2, 3)
-
-    return run
-
-
-def resblock_composition(x, temb, w):
-    """The port's own unfused ResnetBlock3D on ``x``: its GroupNorm kernel
-    (+ SiLU) and its im2col conv kernel twice, temb_proj added between,
-    the skip a ``torch.matmul`` (or x), each in x's dtype; the fused
-    kernel's yardstick among the port's kernels.  Never on the path."""
-    from crowdmod_tpu_torch.ops.kernels import conv3d_same_im2col, fused_group_norm
-    from crowdmod_tpu_torch.ops.kernels.conv3d import pack_im2col
-
-    dt = x.dtype
-    w1, w2 = pack_im2col(w["w1"].to(dt)), pack_im2col(w["w2"].to(dt))
-    b1, b2 = w["b1"].float().contiguous(), w["b2"].float().contiguous()
-    tb = temb.to(dt)[:, None, None, None, :]
-    skip = None
-    if "w_skip" in w:
-        skip = w["w_skip"].reshape(w["w_skip"].shape[-2:]).to(dt), w["b_skip"].to(dt)
-
-    def run():
-        h = fused_group_norm(x, w["gn1_scale"], w["gn1_bias"], silu=True)
-        h = conv3d_same_im2col(h, w1, b1) + tb
-        h = fused_group_norm(h, w["gn2_scale"], w["gn2_bias"], silu=True)
-        h = conv3d_same_im2col(h, w2, b2)
-        return h + (x if skip is None else torch.matmul(x, skip[0]) + skip[1])
-
-    return run
-
-
 def resblock_inputs(cin, cout, dtype, gen, batch=UNET_BATCH, grid=None):
     """x, temb_proj and a weight dict of one level-0 block (on ``grid``,
     by default the serving grid's level 0)."""
@@ -1068,6 +1020,9 @@ def resblock_inputs(cin, cout, dtype, gen, batch=UNET_BATCH, grid=None):
 
 def check_resblock(cin, cout, dtype, gen, timing, batch=UNET_BATCH, grid=None):
     from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
+    # The fused block's yardsticks, never on the path: the unfused PyTorch
+    # sequence (cuDNN) and the port's unfused composition of its kernels.
+    from tools.bench_resblock_torch import resblock_composition, resblock_sequence
     from crowdmod_tpu_torch.ops.kernels.build import sm_count
     from crowdmod_tpu_torch.ops.kernels.resblock import (
         pack_resblock,
@@ -1509,6 +1464,7 @@ def kernel_baseline_resblock(lib, gen, failed: list) -> dict:
     check goes to ``failed`` and is not timed."""
     from crowdmod_tpu_torch.ops.kernels import fused_resblock, resblock_reference
     from crowdmod_tpu_torch.ops.kernels.resblock import pack_resblock, resblock_plan
+    from tools.bench_resblock_torch import resblock_composition, resblock_sequence
 
     t, h, wd = SERVING.levels[0]
     rows = {}
@@ -2069,7 +2025,12 @@ def phase_serving(cfg_path: Path, arch: str, f_shape, per_forward) -> dict:
 
 
 def phase_ancestral(cfg, arch: str, ckpt_path: str, f_shape, per_forward,
-                    batch: int = 64) -> dict:
+                    batch: int = 64, bench: bool = False) -> dict:
+    """One ancestral request; with ``bench``, the request is also timed as
+    ``bench_torch.py`` times a chain (``utils/profiling.py::time_calls``:
+    the held request is the warm-up, then one profiled and one timed
+    chain, all three held): sample-steps/s and the busy share beside the
+    card's name and power limit."""
     from crowdmod_tpu_torch.data.synthetic import synthetic_walkers
     from crowdmod_tpu_torch.serving import Predictor
 
@@ -2078,18 +2039,34 @@ def phase_ancestral(cfg, arch: str, ckpt_path: str, f_shape, per_forward,
     pred = Predictor(cfg, arch, ckpt_path, device=DEVICE, batch_buckets=(batch,))
     p, f, h, w, c = pred.input_spec
     past = synthetic_walkers(batch, h, w, p + f)[:, :p]
+    last = {}
+
+    def request():
+        last["out"] = pred.predict(past)
+
     before = launch_counts()
-    t0 = time.perf_counter()
-    out = pred.predict(past)
-    latency = time.perf_counter() - t0
-    T = node.TIMESTEPS
-    launches = check_launches(f"{arch} ancestral", before, per_forward, T,
-                              {"fused_ancestral_update": T})
+    if bench:
+        from crowdmod_tpu_torch.utils.profiling import time_calls
+
+        t = time_calls(request, reps=1, device=DEVICE)
+        latency = t["first_s"]
+    else:
+        t0 = time.perf_counter()
+        request()
+        latency = time.perf_counter() - t0
+    T, chains = node.TIMESTEPS, 3 if bench else 1
+    launches = check_launches(f"{arch} ancestral", before, per_forward, chains * T,
+                              {"fused_ancestral_update": chains * T})
+    out = last["out"]
     if out.shape != (batch,) + f_shape or not np.isfinite(out).all():
         raise AssertionError(f"bad ancestral output {out.shape}")
     res = dict(arch=arch, batch=batch, timesteps=T, guidance=node.GUIDANCE,
                lambda_guidance=node.LAMBDA_GUIDANCE, latency_s=latency,
                launches=launches)
+    if bench:
+        rates = {"steps_per_sec": batch * T / t["seconds"], "busy_share": t["busy_share"]}
+        hold_rates(f"{arch} ancestral bench", rates)
+        res.update(rates, chain_s=t["seconds"], nvidia_smi=nvidia_smi())
     log(f"ancestral {arch} DDPM-{T} b{batch}", **res)
     return res
 
@@ -5694,6 +5671,11 @@ def phase_drills(tmp: Path, drill: tuple | None = None) -> dict:
 def run_tool(label: str, *argv, timeout: float = 900) -> float:
     """``python *argv`` from this checkout → wall seconds; raises on a
     non-zero exit with the end of its output."""
+    return tool_output(label, *argv, timeout=timeout)[0]
+
+
+def tool_output(label: str, *argv, timeout: float = 900) -> tuple[float, str]:
+    """:func:`run_tool` → (wall seconds, its standard output)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
                        cwd=Path(__file__).resolve().parent, timeout=timeout)
@@ -5702,7 +5684,7 @@ def run_tool(label: str, *argv, timeout: float = 900) -> float:
     if r.returncode:
         raise RuntimeError(f"{label} exited {r.returncode}:\n{r.stdout[-4000:]}\n"
                            f"{r.stderr[-4000:]}")
-    return wall
+    return wall, r.stdout
 
 
 def phase_drills_full(tmp: Path) -> dict:
@@ -6050,6 +6032,148 @@ def geometry_tools(tmp: Path) -> dict:
     return {"ddim_sweep_s": wall, "protocol_variance_s": wall_pv}
 
 
+# ---------------------------------------------------------------------------
+# The bench tools (--bench-tools)
+# ---------------------------------------------------------------------------
+
+def json_lines(stdout: str) -> list:
+    """The JSON objects a tool printed, one a line."""
+    return [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+
+
+def hold_keys(label: str, got, want) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} != {sorted(want)}")
+
+
+# A busy share is a warm call's kernel seconds over another call's time
+# with the same work: a device-bound call reads about 1, and run-to-run
+# spread on the card (a few per cent) is all that may lift it past 1.
+BUSY_SLACK = 0.05
+
+
+def hold_rates(label: str, rates: dict) -> None:
+    """Every rate positive, every busy share in (0, 1 + ``BUSY_SLACK``]."""
+    bad = {k: v for k, v in rates.items()
+           if not (isinstance(v, (int, float)) and v > 0
+                   and ("busy" not in k or v <= 1 + BUSY_SLACK))}
+    if bad:
+        raise AssertionError(f"{label}: rates out of range {bad}")
+
+
+# The twins as --bench-tools runs them: (label, argv); cuts of steps and
+# repetitions for time (PERF.md §4), no check cut.
+BENCH_TOOLS = (
+    ("bench", ["bench_torch.py"]),
+    ("suite", ["tools/bench_suite_torch.py", "--quick"]),
+    ("serving", ["tools/bench_serving_torch.py", "--reps", "2"]),
+    ("batch_scaling", ["tools/bench_batch_scaling_torch.py", "--quick"]),
+    ("geometries", ["tools/bench_geometries_torch.py", "--quick"]),
+    ("conv_kernel", ["tools/bench_conv_kernel_torch.py"]),
+    ("resblock", ["tools/bench_resblock_torch.py"]),
+    ("unet_sampler", ["tools/bench_unet_sampler_torch.py", "--timesteps", "100"]),
+    ("profile_sampler", ["tools/profile_sampler_torch.py", "--timesteps", "100"]),
+    ("multichip", ["tools/bench_multichip_torch.py", "--timesteps", "100"]),
+)
+
+
+def phase_bench_tools(tmp: Path) -> dict:
+    """``--bench-tools``: each twin of the JAX repo's bench tools as a
+    process on the card, its exit status its own checks; its report held to
+    its keys (the JAX tool's, plus the twin's declared additions), every
+    rate positive and every busy share in range, every record's ``device``
+    this card's ``nvidia-smi`` name and power limit; the conv and resblock
+    tables' kernel errors within the phase-2 tolerances at every shape (the
+    resblock's one case under the kernel's least volume left to the unfused
+    paths), the GEMM calibration under the card's peak → each report."""
+    import importlib
+
+    reports, walls, card = {}, {}, nvidia_smi()
+    for label, argv in BENCH_TOOLS:
+        argv = list(argv)
+        if label == "serving":
+            argv += ["--workdir", str(tmp / "serving"), "--out", str(tmp / "serving.json")]
+        walls[label], out = tool_output(label, *argv, "--device", DEVICE, timeout=900)
+        module = importlib.import_module(argv[0][:-3].replace("/", "."))
+        lines = json_lines(out) if label != "serving" else [
+            json.loads((tmp / "serving.json").read_text())]
+        keys = set(module.REPORT_KEYS) | set(getattr(module, "ADDED_KEYS", ()))
+        held = lines if label in ("bench", "suite", "batch_scaling", "geometries",
+                                  "serving") else lines[-1:]
+        if any(rec.get("device") != card for rec in held):
+            raise AssertionError(f"{label}: devices {[rec.get('device') for rec in held]}")
+        rates = {}
+        if label in ("bench", "suite", "batch_scaling", "geometries"):
+            for i, rec in enumerate(lines):
+                hold_keys(f"{label} line {i}", rec, keys)
+                for k in ("value", "unet_steps_per_sec", "busy_share", "unet_busy_share"):
+                    if k in rec:
+                        rates[f"{i} {rec.get('metric')} {k}"] = rec[k]
+            if label == "suite" and [rec["metric"] for rec in lines] != list(module.METRICS):
+                raise AssertionError(f"suite: metrics {[rec['metric'] for rec in lines]}")
+        elif label == "serving":
+            (rec,) = lines
+            hold_keys("serving", rec, keys)
+            for spec, sr in rec["samplers"].items():
+                hold_keys(f"serving {spec}", sr, module.SAMPLER_KEYS)
+                for b, br in sr["buckets"].items():
+                    hold_keys(f"serving {spec} b{b}", br,
+                              module.BUCKET_KEYS + module.ADDED_BUCKET_KEYS)
+                    rates.update({f"{spec} b{b} {k}": br[k] for k in
+                                  ("p50_ms", "samples_per_sec", "busy_share")})
+        else:
+            rec = lines[-1]
+            hold_keys(label, rec, keys)
+            for i, r in enumerate(rec["rows"] if label in ("conv_kernel", "resblock") else ()):
+                hold_keys(f"{label} row {i}", r, module.ROW_KEYS)
+            if label == "conv_kernel":
+                if [(r["cin"], r["cout"]) for r in rec["rows"]] != module.SHAPES:
+                    raise AssertionError(f"conv table: rows {rec['rows']}")
+                for r in rec["rows"]:
+                    if not (r["err"]["kernel32"] <= TOL["conv_f32"]
+                            and r["err"]["kernel16"] <= TOL["bf16"]):
+                        raise AssertionError(f"conv {r['cin']}->{r['cout']}: errors {r['err']}")
+                    rates.update({f"{r['cin']}->{r['cout']} {k}": v for k, v in r["us"].items()})
+            elif label == "resblock":
+                from crowdmod_tpu_torch.ops.kernels.resblock import MIN_VOLUME
+
+                if [r["label"] for r in rec["rows"]] != [c[0] for c in module.CASES]:
+                    raise AssertionError(f"resblock table: rows {rec['rows']}")
+                for r, (_, _, _, t, h, wd) in zip(rec["rows"], module.CASES):
+                    if (r["fused_us"] is None) != (t * h * wd < MIN_VOLUME):
+                        raise AssertionError(f"{r['label']}: fused {r['fused_us']}")
+                    if r["fused_us"] is not None and not r["parity_rel"] <= TOL["bf16"]:
+                        raise AssertionError(f"{r['label']}: parity {r['parity_rel']}")
+                    rates.update({f"{r['label']} {k}": r[k] for k in
+                                  ("sequence_us", "composition_us", "fused_us")
+                                  if r[k] is not None})
+            elif label == "unet_sampler":
+                cal = rec["calibration"]
+                if not 0 < cal["tflops"] < cal["peak_tflops"]:
+                    raise AssertionError(f"calibration: {cal}")
+                for r in rec["samplers"]:
+                    rates[f"{r['dtype']} {r['conv']} steps"] = r["steps_per_sec"]
+                    rates[f"{r['dtype']} {r['conv']} busy"] = r["busy_share"]
+            elif label == "profile_sampler":
+                for r in rec["rows"]:
+                    rates[f"{r['conv']} steps"] = r["steps_per_sec"]
+                    rates[f"{r['conv']} busy"] = r["busy_share"]
+            elif label == "multichip":
+                if [r["mesh"] for r in rec["rows"]] != module._mesh_sizes(torch.cuda.device_count()):
+                    raise AssertionError(f"multichip: rows {rec['rows']}")
+                for r in rec["rows"]:
+                    hold_keys(f"multichip mesh {r['mesh']}", r,
+                              module.ROW_KEYS + module.ADDED_ROW_KEYS)
+                    rates.update({f"mesh {r['mesh']} {k}": r[k] for k in (
+                        "sampler_steps_per_sec", "train_samples_per_sec",
+                        "train_ddp_samples_per_sec", "busy_share")})
+        hold_rates(label, rates)
+        reports[label] = rec if label != "suite" else lines
+        log(f"bench tool {label}", wall_s_process=walls[label], report=reports[label])
+    log("bench tools", walls=walls, nvidia_smi=nvidia_smi())
+    return reports
+
+
 def kernel_entry(name, route, measured, launches) -> dict:
     return dict(name=name, route=route, source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches,
@@ -6059,10 +6183,11 @@ def kernel_entry(name, route, measured, launches) -> dict:
                 **{k: measured[k] for k in ("floor_ms", "plan") if k in measured})
 
 
-def serving_paths(tmp: Path, cfg, end_to_end: bool) -> dict:
-    """Phases 3-4 and 6-7 (and 5, 8 with ``end_to_end``) for both models;
-    → each model's main-path launch counts (and ``"e2e"``, the UNet's
-    phase 8)."""
+def serving_paths(tmp: Path, cfg, end_to_end: bool, bench: bool = False) -> dict:
+    """Phases 3-4 and 6-7 (and 5, 8 with ``end_to_end``) for both models,
+    the DiT's ancestral chain timed as ``bench_torch.py`` times it with
+    ``bench``; → each model's main-path launch counts (and ``"e2e"``, the
+    UNet's phase 8)."""
     from crowdmod_tpu_torch.ops.kernels import reset_launch_counts
 
     f_shape = (cfg.DATASET.FUTURE_LEN, cfg.MACROPROPS.ROWS, cfg.MACROPROPS.COLS, 3)
@@ -6072,7 +6197,8 @@ def serving_paths(tmp: Path, cfg, end_to_end: bool) -> dict:
         per_forward = PER_FORWARD[arch](cfg)
         reset_launch_counts()  # this arch's main path: serving + ancestral
         phase_serving(cfg_path, arch, f_shape, per_forward)
-        phase_ancestral(cfg, arch, ckpt_path, f_shape, per_forward)
+        phase_ancestral(cfg, arch, ckpt_path, f_shape, per_forward,
+                        bench=bench and arch == "DDPM-DiT")
         paths[arch] = launch_counts()
         log("main path launches", arch=arch, **paths[arch])
         if end_to_end:
@@ -6159,6 +6285,13 @@ def main() -> int:
         log("geometries done", seconds=time.perf_counter() - t_start, phase_19_s=t1 - t0,
             tools_s=time.perf_counter() - t1, paths=sorted(paths))
         return 0
+    if sys.argv[1:] == ["--bench-tools"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            t0 = time.perf_counter()
+            phase_bench_tools(Path(tmp))
+        log("bench tools done", seconds=time.perf_counter() - t_start,
+            tools_s=time.perf_counter() - t0)
+        return 0
     if sys.argv[1:] == ["--parallel"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_cli(Path(tmp) / "cli")
@@ -6190,7 +6323,7 @@ def main() -> int:
     unet = timed("2 unet kernels", phase_unet_kernels)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        paths = timed("3-8 serving", serving_paths, Path(tmp), cfg, True)
+        paths = timed("3-8 serving", serving_paths, Path(tmp), cfg, True, True)
         e2e = paths.pop("e2e")
         for arch in ("DDPM-DiT", "DDPM-UNet"):
             paths[f"train {arch}"] = timed(f"9 {arch}", phase_training, arch,

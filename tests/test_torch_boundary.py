@@ -1,8 +1,8 @@
 """The port's boundary: it imports nothing of JAX, of the JAX package or of
 pandas (the card's machine has none), and its entry points run on the card
-unless asked for the CPU.  The port's drills, tools and quickstarts
-(``tools/*_torch.py``, ``tools/*_torch.sh``, ``examples/*_torch.py``) are
-held to both rules.
+unless asked for the CPU.  The port's drills, tools, bench tools and
+quickstarts (``tools/*_torch.py``, ``tools/*_torch.sh``, ``bench_torch.py``,
+``examples/*_torch.py``) are held to both rules.
 
 Module names are matched exactly (``crowdmod_tpu`` or ``crowdmod_tpu.*``),
 never by prefix: ``crowdmod_tpu_torch`` starts with ``crowdmod_tpu``.
@@ -21,7 +21,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crowdmod_tpu", "pandas")
 PORT_FILES = sorted((REPO / "crowdmod_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
+    REPO / "chip_smoke.py", REPO / "bench_torch.py"
 ] + sorted((REPO / "tools").glob("*_torch.py")) + sorted((REPO / "examples").glob("*_torch.py"))
 # The drills and quickstarts of the port, with the arguments that keep a
 # call from writing anywhere but the test's directory.
@@ -45,6 +45,16 @@ TOOLS = {
     "tools.native_sanitize_torch": [],
     "tools.gen_configs_torch": [],
     "tools.gen_api_docs_torch": [],
+    "bench_torch": [],
+    "tools.bench_suite_torch": [],
+    "tools.bench_serving_torch": ["--workdir", "{tmp}"],
+    "tools.bench_batch_scaling_torch": [],
+    "tools.bench_geometries_torch": [],
+    "tools.bench_conv_kernel_torch": [],
+    "tools.bench_resblock_torch": [],
+    "tools.bench_unet_sampler_torch": [],
+    "tools.profile_sampler_torch": [],
+    "tools.bench_multichip_torch": [],
     "examples.quickstart_torch": ["--out", "{tmp}"],
     "examples.serving_quickstart_torch": ["--out", "{tmp}"],
     "examples.scaling_quickstart_torch": ["--out", "{tmp}"],
@@ -166,13 +176,15 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 def test_every_tool_of_the_port_is_checked():
     names = {f"{p.parent.name}.{p.stem}" for p in PORT_FILES
              if p.parent.name in ("tools", "examples")}
+    names |= {p.stem for p in PORT_FILES if p.parent == REPO and p.stem != "chip_smoke"}
     assert names == set(TOOLS)
 
 
 @pytest.mark.parametrize("module", sorted(TOOLS))
 def test_tool_entry_points_default_to_the_card(module, monkeypatch, tmp_path):
-    """Each drill and quickstart asks for CUDA without ``--device`` and
-    raises where there is none, before it writes or spawns anything."""
+    """Each drill, tool, bench tool and quickstart asks for CUDA without
+    ``--device`` and raises where there is none, before it writes or spawns
+    anything."""
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
