@@ -10,6 +10,10 @@
                                    # DIR/attention.cu, resblock.cu (+ headers)
                                    # of commit ed2c182, at every path shape at
                                    # batch 64, 8 and 1, in turns
+    python3 chip_smoke.py --short-attention     # phase 1, then attention's short
+                                   # routes at every short shape of the paths
+                                   # and geometries, the row route against the
+                                   # simt route, the twin's own error, phase 2
     python3 chip_smoke.py --conv-ab SRC...      # phase 1, then builds of variants
                                    # of csrc/conv3d.cu against each other
     python3 chip_smoke.py --conv-tiles          # phase 1, then every bf16 halo
@@ -49,7 +53,8 @@ non-zero without a result line:
   1. device: the card's name and power limit (nvidia-smi), kernel build time;
   2. kernels: each CUDA kernel against its plain twin on the card, at the
      serving paths' shapes, in f32 and bf16, with its plan (route, tiles,
-     cluster size), a second call held bitwise equal to the first, device
+     cluster size), a second call held bitwise equal to the first (and
+     attention's row route to its simt route's bits), device
      times (CUDA events), the host's time to issue a call, bounds and the
      library yardstick (for the resblock, which no single library call
      computes, the unfused PyTorch sequence and the port's own unfused
@@ -527,6 +532,92 @@ def check_attention(label, b, h, sq, sk, dh, dtype, gen, *, packed=False, timing
     return res
 
 
+# The row route's shapes on the paths and in phase 2: the DiT's temporal
+# attention at batch 64 and 256, ETHUCY's spatial 6 tokens, ATC_medium's
+# temporal 2 x 4, the row route at Dh 32 and 16: (B, H, Sq, Sk, Dh).
+ROW_SHAPES = {"temporal_b64": (1728, 4, 1, 2, 64), "temporal_b256": (6912, 4, 1, 2, 64),
+              "ethucy_spatial": (128, 4, 6, 6, 64), "atc_medium_temporal": (1728, 4, 2, 4, 64),
+              "row_dh32": (64, 4, 8, 8, 32), "row_dh16": (64, 4, 3, 5, 16)}
+
+
+def check_row_is_simt() -> dict:
+    """The row route gives the simt route's bits (csrc/attention.cu: the
+    same operations in the same order) at every ``ROW_SHAPES`` shape: the
+    wrapper's call against the simt route forced through the C call with
+    commit ed2c182's plan, bf16, on inputs of their own generator."""
+    from crowdmod_tpu_torch.ops.kernels import build, fused_attention
+    from crowdmod_tpu_torch.ops.kernels import attention as attn_mod
+
+    lib = build.load("attention", attn_mod._SIGNATURES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    res = {}
+    for name, (b, h, sq, sk, dh) in ROW_SHAPES.items():
+        q = _randn((b, h, sq, dh), gen, torch.bfloat16)
+        k, v = (_randn((b, h, sk, dh), gen, torch.bfloat16) for _ in range(2))
+        plan = attn_mod.attention_plan(b, h, sq, sk, dh, torch.bfloat16)
+        route, per_block, warps, keys, rows, key_block, smem = baseline_attention_plan(
+            b, h, sq, sk, dh, torch.bfloat16)
+        simt = attn_mod.AttentionPlan("simt", per_block, warps, keys, rows, key_block, smem,
+                                      -(-b * h // per_block))
+        if plan.route != "row" or route != 0:
+            raise AssertionError(f"attention {name}: routes {plan.route}, {route} ({plan})")
+        out = fused_attention(q, k, v, scale=dh ** -0.5)
+        ref = attn_mod._empty_out(q)
+        _attention_c_call(lib, q, k, v, ref, simt, dh ** -0.5)()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            diff = (out.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"attention {name}: the row route is not the simt route's "
+                                 f"bits (max diff {diff}; {plan}, {simt})")
+        res[name] = dict(shape=[b, h, sq, sk, dh], bitwise_simt=True)
+    log("kernel attention row route = simt route, bitwise", **res)
+    return res
+
+
+# Attention's short shapes beyond phase 2's (B, H, Sq, Sk, Dh, packed):
+# the bundled geometries' (phase 19), batch 1, one head, shapes past a work
+# item's 64 query rows and at one query against 27 keys, and the DiT's
+# spatial attention at batch 512 and 640, where tile CTAs walk 15-20 items.
+SHORT_ATTENTION = {
+    "ethucy_spatial": (128, 4, 6, 6, 64, True), "cr90_spatial": (128, 4, 15, 15, 64, True),
+    "bo_unet_level2": (64, 4, 36, 36, 32, True), "bn_unet_level2": (64, 4, 56, 56, 32, True),
+    "atc_medium_temporal": (1728, 4, 2, 4, 64, False), "spatial_b1": (2, 4, 27, 27, 64, True),
+    "one_head": (32, 1, 27, 27, 64, True), "sq100_sk30": (8, 4, 100, 30, 64, False),
+    "spatial_b512": (1024, 4, 27, 27, 64, True), "spatial_b640": (1280, 4, 27, 27, 64, True),
+    "sq1_sk27_dh32": (64, 4, 1, 27, 32, False),
+}
+
+
+def phase_short_attention() -> dict:
+    """``--short-attention``: each ``SHORT_ATTENTION`` shape in bf16
+    against the twin (bitwise on a second call, timed beside its bound and
+    SDPA), the row route against the simt route (:func:`check_row_is_simt`),
+    then six draws of the DiT's temporal shape at batch 256 held beside the
+    twin's own error (its bf16 weights and output against the f32
+    reference: the 2e-2 tolerance's margin at that shape), then phase 2."""
+    from crowdmod_tpu_torch.ops.kernels import attention_reference, fused_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rows = {name: check_attention(name, b, h, sq, sk, dh, torch.bfloat16, gen, packed=packed)
+            for name, (b, h, sq, sk, dh, packed) in SHORT_ATTENTION.items()}
+    rows["row_is_simt"] = check_row_is_simt()
+    draws = []
+    for _ in range(6):
+        q = _randn((6912, 4, 1, 64), gen, torch.bfloat16)
+        k, v = (_randn((6912, 4, 2, 64), gen, torch.bfloat16) for _ in range(2))
+        ref = attention_reference(q.float(), k.float(), v.float(), 0.125)
+        twin = attention_reference(q, k, v, 0.125).float()
+        out = fused_attention(q, k, v, scale=0.125).float()
+        draws.append(dict(twin_err=(twin - ref).abs().max().item(),
+                          kernel_err=(out - ref).abs().max().item(),
+                          kernel_vs_twin=(out - twin).abs().max().item()))
+    log("kernel attention temporal b256 draws: the twin's own error against f32",
+        draws=draws)
+    rows["temporal_b256_draws"] = draws
+    rows["phase2"] = phase_kernels()
+    return rows
+
+
 def launch_floor_ms() -> float:
     """Device time of a one-element PyTorch elementwise op timed as the
     kernels are (back to back behind the spin kernel): the launch floor a
@@ -632,9 +723,33 @@ def phase_kernels() -> dict:
                 f"narrow heads Dh{dh} S96 {dn}", 16, 4, 96, 96, dh, dtype, narrow, packed=True)
         attn[f"edge_s2500_dh8_{dn}"] = check_attention(
             f"edge S2500 Dh8 {dn}", 4, 4, 2500, 2500, 8, dtype, narrow)
-    # bf16 past 64 keys at Dh 32 and 64 takes the wgmma route; the other
-    # bf16 tensor-core cases keep the mma route.
-    routes = {"spatial_b64_bfloat16": "mma", "unet_b64_bfloat16": "mma",
+    # The short routes' other head dims, which no serving path reaches: the
+    # tile route at Dh 16 (40 tokens), the row route at Dh 32 and 16; then
+    # the DiT's and the UNet's generate-metrics batch (1,280 samples: up to
+    # 39 work items a tile CTA).
+    short = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        attn[f"short_dh16_{dn}"] = check_attention(
+            f"short Dh16 S40 {dn}", 16, 4, 40, 40, 16, dtype, short, packed=True)
+        attn[f"short_row_dh32_{dn}"] = check_attention(
+            f"short Dh32 S8 {dn}", 64, 4, 8, 8, 32, dtype, short)
+        attn[f"short_row_dh16_{dn}"] = check_attention(
+            f"short Dh16 Sq3 Sk5 {dn}", 64, 4, 3, 5, 16, dtype, short)
+    attn["spatial_b1280_bfloat16"] = check_attention(
+        "spatial b1280 bfloat16", 2560, 4, 27, 27, 64, torch.bfloat16, short, packed=True)
+    attn["unet_b1280_bfloat16"] = check_attention(
+        "unet level-2 b1280 bfloat16", 1280, 4, 54, 54, 32, torch.bfloat16, short, packed=True)
+    # bf16 up to 64 keys takes the row route (the DiT's temporal attention)
+    # or the tile route (its spatial attention, the UNet's level 2); past
+    # 64 keys at Dh 32 and 64 the wgmma route; Dh 16 past 64 keys keeps the
+    # mma route.
+    routes = {"spatial_b64_bfloat16": "tile", "spatial_b256_bfloat16": "tile",
+              "spatial_b64_packed_bfloat16": "tile", "unet_b64_bfloat16": "tile",
+              "temporal_b64_bfloat16": "row", "temporal_b256_bfloat16": "row",
+              "short_dh16_bfloat16": "tile", "short_row_dh32_bfloat16": "row",
+              "short_row_dh16_bfloat16": "row", "spatial_b1280_bfloat16": "tile",
+              "unet_b1280_bfloat16": "tile",
               "narrow_dh16_bfloat16": "mma", "edge_s216_bfloat16": "wgmma",
               "edge_s432_dh32_bfloat16": "wgmma",
               **{f"fm_dit_s{s_}_bfloat16": "wgmma" for s_ in FM_DIT_TOKENS}}
@@ -643,6 +758,7 @@ def phase_kernels() -> dict:
     for key, route in routes.items():
         if attn[key]["plan"]["route"] != route:
             raise AssertionError(f"attention {key}: route {attn[key]['plan']['route']}")
+    row_is_simt = check_row_is_simt()
     for key in ("fm_dit_s432_float32", "edge_s1000_float32", "edge_s1000_bfloat16",
                 "edge_s2500_dh8_float32", "edge_s2500_dh8_bfloat16"):
         if not attn[key]["plan"]["key_block"] < attn[key]["plan"]["keys_padded"]:
@@ -664,7 +780,7 @@ def phase_kernels() -> dict:
     if step["ragged_offset"]["plan"]["vec"] != 4 or step["mixed_offsets"]["plan"]["vec"] != 1:
         raise AssertionError("ancestral step: the offset views did not take their paths")
     step["strided_eps"] = check_step_strided(gen)
-    return {"attention": attn, "step": step}
+    return {"attention": attn, "step": step, "row_is_simt": row_is_simt}
 
 
 def check_step_strided(gen) -> dict:
@@ -1387,8 +1503,16 @@ def kernel_baseline_attention(lib, gen, failed: list) -> dict:
         cases[f"dit_spatial_b{batch}"] = (2 * batch, 4, 27, 27, 64, bf, True)
         cases[f"dit_temporal_b{batch}"] = (27 * batch, 4, 1, 2, 64, bf, False)
         cases[f"unet_level2_b{batch}"] = (batch, 4, 54, 54, 32, bf, True)
+        # The bundled geometries' short shapes (phase 19): the DiT's spatial
+        # attention at ETHUCY (6 tokens) and HERMES-CR-90 (15), the UNet's
+        # level 2 at HERMES-BO (36) and -BN (56).
+        cases[f"ethucy_spatial_b{batch}"] = (2 * batch, 4, 6, 6, 64, bf, True)
+        cases[f"cr90_spatial_b{batch}"] = (2 * batch, 4, 15, 15, 64, bf, True)
+        cases[f"bo_unet_level2_b{batch}"] = (batch, 4, 36, 36, 32, bf, True)
+        cases[f"bn_unet_level2_b{batch}"] = (batch, 4, 56, 56, 32, bf, True)
         for s_ in FM_DIT_TOKENS:
             cases[f"fm_dit_s{s_}_b{batch}"] = (batch, 4, s_, s_, 64, bf, True)
+    cases["atc_medium_temporal_b64"] = (27 * 64, 4, 2, 4, 64, bf, False)
     for dtype in (torch.float32, bf):
         dn = _dn(dtype)
         cases[f"edge_s216_{dn}"] = (16, 4, 216, 216, 32, dtype, False)
@@ -1438,13 +1562,16 @@ def kernel_baseline_attention(lib, gen, failed: list) -> dict:
                           f"{torch.equal(out, again)}, bitwise ed2c182 {bitwise_old} ({plan})")
             log("kernel baseline FAILED", case=failed[-1])
             continue
-        o1 = cuda_ms_budget(old)[0]
-        n1 = cuda_ms_budget(new)[0]
-        n2 = cuda_ms_budget(new)[0]
-        o2 = cuda_ms_budget(old)[0]
+        o1, oh1 = cuda_ms_budget(old)
+        n1, nh1 = cuda_ms_budget(new)
+        n2, nh2 = cuda_ms_budget(new)
+        o2, oh2 = cuda_ms_budget(old)
+        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                           4 * b * h * sq * sk * dh, dtype)
         rows[key] = dict(
             shape=[b, h, sq, sk, dh], dtype=_dn(dtype), route=plan.route,
             baseline_route=("simt", "mma")[old_plan[0]], baseline_ms=[o1, o2], ms=[n1, n2],
+            host_ms=[nh1, nh2], baseline_host_ms=[oh1, oh2], bound_ms=b_ms, bound_by=b_by,
             speedup=(o1 + o2) / (n1 + n2), max_abs_err=err,
             max_abs_diff_baseline=(out.float() - out_old.float()).abs().max().item(),
             bitwise_baseline=bitwise_old,
@@ -1529,13 +1656,73 @@ def kernel_baseline_resblock(lib, gen, failed: list) -> dict:
     return rows
 
 
+def _attention_c_call(lib, q, k, v, out, plan, scale: float):
+    """A call of ``crowdmod_attention`` with ``plan`` (any route the plan
+    functions give, forced past ``attention_plan``'s choice) on bf16
+    ``(B, H, S, Dh)`` views; raises on a launch error."""
+    import ctypes
+
+    from crowdmod_tpu_torch.ops.kernels.attention import _ROUTES
+
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *out.stride()[:3])
+
+    def call():
+        err = lib.crowdmod_attention(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, sk, dh, scale,
+            strides, _ROUTES[plan.route], plan.problems_per_block, plan.warps, plan.keys_padded,
+            plan.query_rows, plan.key_block, plan.smem_bytes, 1, plan.stages, plan.blocks,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"attention {plan} launch failed: CUDA error {err}")
+
+    return call
+
+
+# Short attention shapes at batch 64 (and two at batch 1; bf16) whose plans
+# the alternatives weigh: (B, H, Sq, Sk, Dh, packed).
+SHORT_ALTERNATIVES = {
+    "dit_spatial": (128, 4, 27, 27, 64, True), "unet_level2": (64, 4, 54, 54, 32, True),
+    "bn_unet_level2": (64, 4, 56, 56, 32, True), "cr90_spatial": (128, 4, 15, 15, 64, True),
+    "ethucy_spatial": (128, 4, 6, 6, 64, True), "dit_temporal": (1728, 4, 1, 2, 64, False),
+    "atc_medium_temporal": (1728, 4, 2, 4, 64, False),
+    "ethucy_spatial_b1": (2, 4, 6, 6, 64, True), "dit_temporal_b1": (27, 4, 1, 2, 64, False),
+}
+
+
+def short_alternative_plans(b, h, sq, sk, dh) -> dict:
+    """The tile plan with each of its choices moved (one CTA a
+    multiprocessor, half or twice the teams, two stages a team, 32-row work
+    items) and, up to ``ROW_KEYS`` keys, the row plan at 2, 4 and 8 warps a
+    block: name → plan."""
+    from crowdmod_tpu_torch.ops.kernels import attention as attn_mod
+
+    base = attn_mod._tile_plan(b, h, sq, sk, dh)
+    plans = {"tile": base, "tile_ctas1": attn_mod._tile_plan(b, h, sq, sk, dh, ctas=1),
+             "tile_stages2": attn_mod._tile_plan(b, h, sq, sk, dh,
+                                                 stages=2 * base.problems_per_block)}
+    tiles = base.query_rows // 16
+    for teams in (base.problems_per_block // 2, base.problems_per_block * 2):
+        if 1 <= teams and teams * tiles <= attn_mod.TILE_CONSUMERS:
+            plans[f"tile_teams{teams}"] = attn_mod._tile_plan(b, h, sq, sk, dh, teams=teams)
+    if sq > 32:
+        plans["tile_rows32"] = attn_mod._tile_plan(b, h, sq, sk, dh, rows=32)
+    if sk <= attn_mod.ROW_KEYS:
+        for warps in (2, 4, 8):
+            plans[f"row_warps{warps}"] = attn_mod._row_plan(b, h, sq, sk, dh, warps=warps)
+    return plans
+
+
 def kernel_alternatives(gen) -> dict:
-    """The data behind the two plans' choices, at batch 64 (bf16): each
-    built key split of the attention's wgmma route at the FM-DiT shapes,
-    and each built row block (64-row tiles a warpgroup) of the fused
-    resblock at the three level-0 shapes, each held to its twin and timed
-    through the C call; then the device time of the default resblock's
-    launches by kernel (torch.profiler, 20 calls)."""
+    """The data behind the plans' choices, at batch 64 (bf16): each built
+    key split of the attention's wgmma route at the FM-DiT shapes, the
+    short routes' alternatives (:func:`short_alternative_plans`) at the
+    ``SHORT_ALTERNATIVES`` shapes, and each built row block (64-row tiles a
+    warpgroup) of the fused resblock at the three level-0 shapes, each held
+    to its twin and timed through the C call; then the device time of the
+    default resblock's launches by kernel (torch.profiler, 20 calls)."""
     import ctypes
 
     from crowdmod_tpu_torch.ops.kernels import (
@@ -1559,17 +1746,7 @@ def kernel_alternatives(gen) -> dict:
             if plan is None:
                 continue
             out = attn_mod._empty_out(q)
-            strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                               *v.stride()[:3], *out.stride()[:3])
-
-            def call():
-                err = lib.crowdmod_attention(
-                    1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s_, s_,
-                    dh, dh ** -0.5, strides, 2, 1, plan.warps, plan.keys_padded, s_,
-                    plan.key_block, plan.smem_bytes, 1, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"attention split {split} launch failed: {err}")
-
+            call = _attention_c_call(lib, q, k, v, out, plan, dh ** -0.5)
             call()
             torch.cuda.synchronize()
             err = (out.float() - ref).abs().max().item()
@@ -1577,6 +1754,30 @@ def kernel_alternatives(gen) -> dict:
             rows[key] = dict(ms=cuda_ms_budget(call)[0], max_abs_err=err,
                              smem_bytes=plan.smem_bytes)
             log(f"kernel alternative {key}", **rows[key])
+    for name, (b, h, sq, sk, dh, packed) in SHORT_ALTERNATIVES.items():
+        if packed:
+            qkv = _randn((b, sq, 3, h, dh), gen, torch.bfloat16)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q = _randn((b, h, sq, dh), gen, torch.bfloat16)
+            k, v = (_randn((b, h, sk, dh), gen, torch.bfloat16) for _ in range(2))
+        ref = attention_reference(q.float(), k.float(), v.float(), dh ** -0.5)
+        chosen = attn_mod.attention_plan(b, h, sq, sk, dh, torch.bfloat16)
+        times = {}
+        for alt, plan in short_alternative_plans(b, h, sq, sk, dh).items():
+            out = attn_mod._empty_out(q)
+            call = _attention_c_call(lib, q, k, v, out, plan, dh ** -0.5)
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            if not err <= TOL["attention_bf16"]:
+                raise AssertionError(f"attention alternative {name} {alt}: err {err} ({plan})")
+            times[alt] = cuda_ms_budget(call)[0]
+            rows[f"attention_{name}_{alt}"] = dict(ms=times[alt], max_abs_err=err,
+                                                    plan=dataclasses.asdict(plan),
+                                                    chosen=plan == chosen)
+            log(f"kernel alternative attention {name} {alt}", **rows[f"attention_{name}_{alt}"])
+        log(f"kernel alternatives attention {name} (device ms)", chosen=chosen.route, **times)
     lib = build.load("resblock", res_mod._SIGNATURES)
     t, h, wd = SERVING.levels[0]
     for cin, cout in SERVING.resblock:
@@ -1680,10 +1881,13 @@ def phase_kernel_baseline(src_dir: Path) -> dict:
         log(f"kernel baseline resblocks per bf16 UNet forward at batch {batch} (device ms)",
             **sums)
     table = [[k, r["route"], r["baseline_route"], round(float(np.mean(r["ms"])), 5),
-              round(float(np.mean(r["baseline_ms"])), 5), round(r["sdpa_ms"], 5),
-              r["bitwise_baseline"]] for k, r in attn.items()]
+              round(float(np.mean(r["baseline_ms"])), 5), round(r["bound_ms"], 5),
+              round(r["sdpa_ms"], 5), round(float(np.mean(r["host_ms"])), 4),
+              round(float(np.mean(r["baseline_host_ms"])), 4), r["bitwise_baseline"]]
+             for k, r in attn.items()]
     log("kernel baseline attention table [case, route, ed2c182 route, ms, ed2c182 ms, "
-        "SDPA ms, bitwise ed2c182]", rows=table)
+        "bound ms, SDPA ms, host ms, ed2c182 host ms (a call through ctypes alone), "
+        "bitwise ed2c182]", rows=table, nvidia_smi=nvidia_smi())
     table = [[k, round(float(np.mean(r["ms"])), 5), round(float(np.mean(r["baseline_ms"])), 5),
               round(r["sequence_ms"], 5), round(r["composition_ms"], 5)]
              for k, r in res.items()]
@@ -6225,6 +6429,10 @@ def main() -> int:
         rows = phase_kernel_baseline(Path(sys.argv[2]).resolve())
         log("kernel baseline done", seconds=time.perf_counter() - t_start,
             cases=sum(len(r) for r in rows.values()))
+        return 0
+    if sys.argv[1:] == ["--short-attention"]:
+        rows = phase_short_attention()
+        log("short attention done", seconds=time.perf_counter() - t_start, cases=len(rows))
         return 0
     if sys.argv[1:2] == ["--conv-ab"] and len(sys.argv) > 2:
         rows = phase_conv_ab([Path(f).resolve() for f in sys.argv[2:]])

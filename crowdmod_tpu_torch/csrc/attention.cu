@@ -6,68 +6,111 @@
 // softmax in f32, the weights normalised and then cast to V's type before
 // the product with V, that product accumulated in f32, the output written
 // in the input type.  Q K^T, the softmax and the product with V happen in
-// this one kernel; the logits never reach device memory.
+// this one kernel; the logits never reach device memory.  Every sum runs
+// in a fixed order, so a second call gives the same bits.
 //
-// What bounds it on the H100: bytes.  At the serving shapes one call is
-// hundreds to thousands of tiny problems (batch 64: the DiT's spatial 512
-// problems of 27x64x27 and temporal 6912 of 1x64x2, the UNet's level-2 256
-// of 54x32x54), a few flops per byte of Q, K, V and O, far below the
-// card's ridge point.  What keeps such a kernel from its bound is latency:
-// serial work per row and loads that are too small.
+// What bounds it on the H100: bytes, and up to 64 keys the latency of a
+// call.  At the serving shapes one call is hundreds to thousands of tiny
+// problems (batch 64: the DiT's spatial 512 problems of 27x64x27 and
+// temporal 6912 of 1x64x2, the UNet's level-2 256 of 54x32x54), a few
+// flops per byte of Q, K, V and O, far below the card's ridge point, and
+// 3.5 to 7 MB a call: 1-2 us at 3.35 TB/s.  The routes that took these
+// shapes before (a block copying all its problems by cp.async, then
+// computing with expf and IEEE divisions, then storing) ran 7-10 us at
+// batch 64 and as long at batch 1: one block's serial chain, not bytes.
 //
-// Three routes, picked by the wrapper's plan (ops/kernels/attention.py,
+// Five routes, picked by the wrapper's plan (ops/kernels/attention.py,
 // attention_plan) and passed in as ints:
+//
+//   "row" (bf16, at most kRowKeys = 8 keys and 8 queries: the DiT's
+//   temporal attention, one query against two keys; ETHUCY's 6 tokens).  A
+//   16-row tensor-core tile would be 15/16 waste at one query, and a lane a
+//   key (the simt route) leaves 30 of 32 lanes idle at two keys and stages
+//   K and V through shared memory as f32.  Here a group of Dh / 8 lanes
+//   takes a query row: each lane loads its 16 bytes of the query row and of
+//   every key and value row straight into registers, all of them issued
+//   before the first product, so a lane has up to 17 loads in flight and
+//   nothing waits on shared memory.  The arithmetic is the simt route's,
+//   operation for operation, so the output is its bits: a logit sums the
+//   products in the order of Dh (each lane adds its eight onto the running
+//   sum it takes from the lane before by a shuffle: Dh / 8 steps a key, the
+//   keys' chains side by side), then the softmax in f32 (expf, the simt
+//   route's order of the sum, IEEE division), the weights rounded to bf16,
+//   the output accumulated in f32 and stored as one 16-byte write a lane.
+//   At these shapes the contract's two roundings to bf16 (the weights, the
+//   output), not the kernel, set the error against an f32 reference: up to
+//   about 0.026 where |out| reaches 4, over the checks' 2e-2, so a weight
+//   rounded the other way than the simt route rounds it can tip a case
+//   over; keeping the simt route's bits keeps every case where it stood.  Several
+//   rows a warp (8 at Dh 32, 4 at Dh 64), 4 warps a block: the grid covers
+//   the card several times over.
+//
+//   "tile" (bf16, up to 64 keys at Dh 16, 32 and 64: the DiT's spatial
+//   attention, the UNet's level 2, the geometries' 15 to 56 tokens).  A
+//   persistent grid, two CTAs a multiprocessor, each walking its share of
+//   the work items (a problem's query rows, up to 64, against all its
+//   keys).  Lane 0 of a producer warp keeps a stage a team full by TMA
+//   (each team owns its stages, see the kernel): Q, K and V of an item through 4-D tensor maps over the
+//   caller's strides (the packed projections read in place) into 128-,
+//   64- or 32-byte swizzled boxes, under the stage's mbarrier; TMA's zero
+//   fill pads the keys to a multiple of 16 and the queries to whole tiles,
+//   so no thread copies or clears anything, and the padded keys get a -inf
+//   logit.  8 // tiles teams of tiles consumer warps (a warp a 16-row query
+//   tile) take the items in turn, so the other teams' loads fly while one
+//   team computes.  The products are mma.sync m16n8k16 (mma.cuh)
+//   fed by ldmatrix of the swizzled boxes: S = Q K^T with K in [key][d]
+//   rows as the col-major B operand, the row max and sum over each quad of
+//   lanes, exp2 of base-2 logits, the weights e * (1 / l) rounded to bf16
+//   in the accumulator layout, which is the A layout of W V, V through
+//   ldmatrix.trans.  mma.sync and not wgmma: a 16-row tile wastes at most
+//   15 rows where wgmma's 64-row tile would compute 37 of 64 rows for
+//   nothing at 27 queries and 58 at 6, each warp runs its tile alone with
+//   no warpgroup barrier, and at about 95 MFLOP a call the tensor cores'
+//   rate is not the limit.  A warp releases its stage once its last
+//   ldmatrix has read it, writes its output tile into its own swizzled
+//   staging box and stores it by TMA (rows past Sq clipped by the map),
+//   then goes on to its next item while the store drains.
 //
 //   "wgmma" (bf16, Sq >= 16, Dh 32 or 64, 65 to 448 keys: FM-DiT's joint
 //   attention over 216, 336 or 432 tokens).  Past 64 keys the mma route
-//   below recomputed every logit block in a second sweep and copied a
+//   below recomputes every logit block in a second sweep and copies a
 //   whole problem before its first product; at FM-DiT's 216 tokens it took
 //   3x SDPA's time.  Here a CTA takes one problem, so its K and V cross
 //   device memory once: one warpgroup up to 224 keys, two past that, each
 //   holding half of them.  Thread 0 issues the copies by TMA through 4-D
-//   tensor maps over the caller's strides (the packed projections read in
-//   place): query tile 0, K, V, query tile 1, each under an mbarrier, into
-//   128- (Dh 64) or 64-byte (Dh 32) swizzled boxes; the query tiles cycle
-//   through two slots.  Per 64-row query tile: S = Q K^T by one wgmma
-//   m64nNk16 a k16 step, N the warpgroup's NK keys (at most 224: 112 f32 a
-//   thread), Q as register A fragments (ldmatrix of its box), K as the
-//   K-major B operand as it stands; the logits stay in registers, so the
-//   softmax is one pass and nothing is recomputed.  Two warpgroups
-//   exchange each row's max and sum (rescaled to the common max, added in
-//   warpgroup order: the same bits in both) through shared memory.  The
-//   weights are normalised in f32 and rounded to bf16 as the contract
+//   tensor maps (as the tile route's): query tile 0, K, V, query tile 1,
+//   each under an mbarrier, into 128- (Dh 64) or 64-byte (Dh 32) swizzled
+//   boxes; the query tiles cycle through two slots.  Per 64-row query tile:
+//   S = Q K^T by one wgmma m64nNk16 a k16 step, N the warpgroup's NK keys
+//   (at most 224: 112 f32 a thread), Q as register A fragments (ldmatrix of
+//   its box), K as the K-major B operand as it stands; the logits stay in
+//   registers, so the softmax is one pass and nothing is recomputed.  Two
+//   warpgroups exchange each row's max and sum (rescaled to the common max,
+//   added in warpgroup order: the same bits in both) through shared memory.
+//   The weights are normalised in f32 and rounded to bf16 as the contract
 //   rounds them, and go as register A fragments into O = W V (wgmma
-//   m64nDHk16, V the MN-major B operand); the next tile's S is issued
-//   under it.  Two warpgroups split the output's columns: each adds the
-//   other's partial of its half and stores it.  Every sum in a fixed
-//   order: the same bits on every call.  (A cluster of two one-warpgroup
-//   CTAs exchanging through distributed shared memory instead took 1.7x
-//   as long at 432 keys: its cluster barriers.)
+//   m64nDHk16, V the MN-major B operand); the next tile's S is issued under
+//   it.  Two warpgroups split the output's columns: each adds the other's
+//   partial of its half and stores it.  (A cluster of two one-warpgroup
+//   CTAs exchanging through distributed shared memory instead took 1.7x as
+//   long at 432 keys: its cluster barriers.)
 //
-//   "mma" (bf16, Sq >= 16): the FlashAttention-2 register layout on the
-//   tensor cores (mma.cuh).  A block takes whole (b, h) problems and copies
-//   their Q, K and V rows into shared memory as bf16, in 16-byte cp.async
-//   pieces read through the caller's strides; rows are padded by 8 elements
+//   "mma" (bf16, Sq >= 16, past 64 keys where the wgmma route does not
+//   apply: Dh 16, or Dh 32 past 448 keys while a problem fits shared
+//   memory): the FlashAttention-2 register layout on the tensor cores
+//   (mma.cuh).  A block takes whole (b, h) problems and copies their Q, K
+//   and V rows into shared memory as bf16, in 16-byte cp.async pieces read
+//   through the caller's strides; rows are padded by 8 elements
 //   (conflict-free ldmatrix) and keys past Sk are zero-filled up to a
-//   multiple of 16.  Each warp owns a 16-row query tile of one problem
-//   (DiT: 2 tiles a problem, 4 problems a block; UNet: 4 tiles, 2
-//   problems).  S = Q K^T is mma.sync m16n8k16 with f32 accumulators, K in
-//   [key][d] layout being the col-major B operand as it stands; the scale,
-//   a -inf mask on padded keys, and the row max and sum (shuffles inside
-//   each quad of lanes) stay in registers.  The weights w = e / l are
-//   normalised in f32 and then rounded to bf16, as the contract rounds them
-//   (FlashAttention's deferred normalisation would round another number),
-//   and repacked from the accumulator layout into A fragments in
-//   registers; O = W V takes V through ldmatrix.trans and accumulates in
-//   f32.  Up to 64 keys the logits of a row stay in registers and nothing
-//   is recomputed; beyond, the keys go in blocks of 64 in two sweeps: the
-//   row max and sum, rescaled online, then each block's logits again, its
-//   normalised weights and their product with V.  The plan takes this route
-//   only while a problem's Q, K and V fit in shared memory (FM-DiT's 432
-//   tokens at Dh 64: 186,624 bytes); past that, bf16 takes "simt".
+//   multiple of 16.  Each warp owns a 16-row query tile of one problem.
+//   The keys go in blocks of 64 in two sweeps: the row max and sum,
+//   rescaled online, then each block's logits again, its normalised
+//   weights (rounded to bf16, in registers as A fragments) and their
+//   product with V (ldmatrix.trans).  The plan takes this route only while
+//   a problem's Q, K and V fit in shared memory; past that, bf16 takes
+//   "simt".
 //
-//   "simt" (f32, and bf16 with Sq < 16: the DiT's temporal attention, one
-//   query against two keys, where a 16-row tile would be 15/16 waste): the
+//   "simt" (f32, Dh 8, and the bf16 problems no route above takes): the
 //   first design, in two forms.  Resident, while the block's K and V fit in
 //   shared memory: a block of 8 warps takes max(1, 8 / Sq) problems, copies
 //   K and V to shared memory as f32 in 16-byte loads where the rows allow
@@ -83,14 +126,14 @@
 //   TF32).
 //
 // Limits (checked by the Python wrapper, and again here): Dh in {8, 16, 32,
-// 64}, the wgmma route Dh in {32, 64}, the mma route Dh in {16, 32, 64} (its k-slices are 16 deep; under
+// 64}, the wgmma route Dh in {32, 64}, the row, tile and mma routes Dh in
+// {16, 32, 64} (their k-slices are 16 deep and their loads 16 bytes; under
 // Dh 32 a simt lane past Dh owns no output element: the UNet's attention
 // at a base width of 16, 4 heads of 8); Sk >= 1; the plan's shared memory
-// at most 227 KB.  The last
-// dimension of each tensor must be contiguous; the other three strides are
-// arguments, so the caller's (B, S, H, Dh) projections are read in place.
-// The tensor-core routes need 16-byte aligned rows (base address and
-// strides).
+// at most 227 KB.  The last dimension of each tensor must be contiguous;
+// the other three strides are arguments, so the caller's (B, S, H, Dh)
+// projections are read in place.  Every route but simt needs 16-byte
+// aligned rows (base address and strides).
 //
 // Interface: plain C, loaded with ctypes; launches on the given stream and
 // returns cudaGetLastError().
@@ -226,7 +269,7 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float scale, Strides qs, Strides ks, Strides vs, Strides os) {
   using Tile = WarpTile<kDh>;
   constexpr int LD = Tile::LD, PIECES = kDh / 8, NT = Tile::NT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int qrows = tiles * 16;
   bf16* q_sh = reinterpret_cast<bf16*>(smem_raw);  // [per_block][qrows][LD]
   bf16* k_sh = q_sh + per_block * qrows * LD;      // [per_block][skp][LD]
@@ -263,7 +306,6 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nkb = (sk + kKeyBlock - 1) / kKeyBlock;
   for (int tile = threadIdx.x >> 5; tile < per_block * tiles; tile += nthreads >> 5) {
     const int pi = tile / tiles, qt = tile % tiles;
     const long long bh = first + pi;
@@ -280,57 +322,32 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) w.o[nd][e] = 0.f;
 
-    float s[NT][4], m[2], l[2];
+    // Sweep 1: the row max and sum over the key blocks, rescaled online.
+    float s[NT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     const auto ksteps = [&](int kb) { return (min(kKeyBlock, sk - kb) + 15) / 16; };
-    if (nkb == 1) {
-      // One key block: e = exp(s - m) stays in registers.
-      w.logits(kp, 0, ksteps(0), sk, scale, s);
-      Tile::row_max(s, m);
+    for (int kb = 0; kb < sk; kb += kKeyBlock) {
+      w.logits(kp, kb, ksteps(kb), sk, scale, s);
+      float bm[2];
+      Tile::row_max(s, bm);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
+        const float mn = fmaxf(m[i], bm[i]);
         float x = 0.f;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            s[nt][2 * i + c] = expf(s[nt][2 * i + c] - m[i]);
-            x += s[nt][2 * i + c];
-          }
-        l[i] = quad_sum(x);
+          x += expf(s[nt][2 * i] - mn) + expf(s[nt][2 * i + 1] - mn);
+        l[i] = l[i] * expf(m[i] - mn) + quad_sum(x);
+        m[i] = mn;
       }
+    }
+    // Sweep 2: each block's logits again, its normalised weights, W V.
+    for (int kb = 0; kb < sk; kb += kKeyBlock) {
+      w.logits(kp, kb, ksteps(kb), sk, scale, s);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] / l[e >> 1];
-      w.multiply_v(vp, 0, ksteps(0), s);
-    } else {
-      // Sweep 1: the row max and sum over the key blocks, rescaled online.
-      m[0] = m[1] = -INFINITY;
-      l[0] = l[1] = 0.f;
-      for (int kb = 0; kb < sk; kb += kKeyBlock) {
-        w.logits(kp, kb, ksteps(kb), sk, scale, s);
-        float bm[2];
-        Tile::row_max(s, bm);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float mn = fmaxf(m[i], bm[i]);
-          float x = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            x += expf(s[nt][2 * i] - mn) + expf(s[nt][2 * i + 1] - mn);
-          l[i] = l[i] * expf(m[i] - mn) + quad_sum(x);
-          m[i] = mn;
-        }
-      }
-      // Sweep 2: each block's logits again, its normalised weights, W V.
-      for (int kb = 0; kb < sk; kb += kKeyBlock) {
-        w.logits(kp, kb, ksteps(kb), sk, scale, s);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
-        w.multiply_v(vp, kb, ksteps(kb), s);
-      }
+        for (int e = 0; e < 4; ++e) s[nt][e] = expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
+      w.multiply_v(vp, kb, ksteps(kb), s);
     }
 
     const long long b = bh / heads, h = bh % heads;
@@ -614,6 +631,318 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, up to 64 keys: persistent CTAs, a TMA ring, mma.sync tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kTileConsumers = 8;                       // consumer warps a CTA, at most
+constexpr int kTileThreads = 32 * (1 + kTileConsumers);  // and the producer warp
+constexpr int kTileKeys = 64;                           // keys a work item, at most
+constexpr int kTileRows = 64;                           // query rows a work item, at most
+
+struct TileArgs {
+  int heads, sq, sk;
+  int items, chunks;  // work items: problems x chunks of `rows` query rows
+  int rows;           // query rows of an item's Q box: tiles x 16
+  int keys;           // rows of its K and V boxes: Sk up to a multiple of 16
+  int tiles, teams, stages;
+  int s_dim[4];       // q, k, v, o: the map dimension (1 or 2) of S
+  float scale_log2;   // scale * log2(e)
+};
+
+// CTA c walks the work items c, c + grid, c + 2 grid, ...: its k-th in
+// stage k % stages of a ring in shared memory, computed by team k % teams
+// (`tiles` consumer warps, one a 16-row query tile).  Lane 0 of warp 0
+// keeps the ring full: Q, K and V of an item by TMA under the stage's
+// `full` barrier, once the team that used the stage last has arrived on
+// its `empty` one.  Each consumer warp writes its output tile into its own
+// swizzled staging box and stores it by TMA (rows past Sq clipped by the
+// map), then goes on to its next item while the store drains.  `stages` is
+// a multiple of `teams`, so stage s serves team s % teams alone, which
+// waits for each of its phases in turn: a wait on a phase's parity is then
+// unambiguous.  Were a stage shared by teams, a team could wait on it while
+// the load of the item before its own (another team's) was still in flight
+// (TMA loads land in any order), see that phase's parity as its own and
+// read the other item's rows, or wait on a phase that never comes.
+template <int DH>
+__global__ void __launch_bounds__(kTileThreads, 2)
+attention_tile_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap, const TileArgs a) {
+  using namespace crowdmod::hopper;
+  constexpr int RB = 2 * DH;     // bytes of a row of Q, K, V or O
+  constexpr int KS = DH / 16;    // k16 slices of Dh
+  constexpr int DN = DH / 8;     // 8-wide n tiles of the output
+  constexpr int NT = kTileKeys / 8;
+  static_assert(DH == 16 || DH == 32 || DH == 64, "head dims 16, 32 and 64");
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int stage_bytes = (a.rows + 2 * a.keys) * RB;
+  const int consumers = a.teams * a.tiles;
+  unsigned char* staging = ring + a.stages * stage_bytes;  // 16 rows a consumer warp
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + consumers * 16 * RB);
+  uint64_t* empty = full + a.stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grid = gridDim.x;
+  // Coordinates (d, S or H, H or S, B) of row s0 of tensor i's map.
+  const auto coords = [&](int i, int s0, int h, int b, int (&c)[4]) {
+    c[0] = 0;
+    c[1] = a.s_dim[i] == 1 ? s0 : h;
+    c[2] = a.s_dim[i] == 1 ? h : s0;
+    c[3] = b;
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], a.tiles);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    if (lane == 0) {
+      prefetch_tensor_map(&qmap);
+      prefetch_tensor_map(&kmap);
+      prefetch_tensor_map(&vmap);
+      prefetch_tensor_map(&omap);
+      int k = 0;
+      for (int item = blockIdx.x; item < a.items; item += grid, ++k) {
+        const int s = k % a.stages;
+        if (k >= a.stages) mbar_wait(&empty[s], (k / a.stages - 1) & 1);
+        const int p = item / a.chunks, ch = item % a.chunks;
+        const int b = p / a.heads, h = p % a.heads;
+        unsigned char* st = ring + s * stage_bytes;
+        int c[4];
+        mbar_arrive_expect_tx(&full[s], stage_bytes);
+        coords(0, ch * a.rows, h, b, c);
+        tma_load_4d(st, &qmap, &full[s], c[0], c[1], c[2], c[3]);
+        coords(1, 0, h, b, c);
+        tma_load_4d(st + a.rows * RB, &kmap, &full[s], c[0], c[1], c[2], c[3]);
+        coords(2, 0, h, b, c);
+        tma_load_4d(st + (a.rows + a.keys) * RB, &vmap, &full[s], c[0], c[1], c[2], c[3]);
+      }
+    }
+    return;
+  }
+
+  const int cw = warp - 1;
+  if (cw >= consumers) return;
+  const int team = cw / a.tiles, qt = cw % a.tiles;
+  const int g = lane >> 2, t = lane & 3;
+  const int ksteps = a.keys / 16;
+  unsigned char* stg = staging + cw * 16 * RB;
+  int k = team;
+  for (int item = blockIdx.x + team * grid; item < a.items; item += a.teams * grid, k += a.teams) {
+    const int s = k % a.stages;
+    mbar_wait(&full[s], (k / a.stages) & 1);
+    const uint32_t qa = smem_u32(ring + s * stage_bytes);
+    const uint32_t ka = qa + a.rows * RB, va = ka + a.keys * RB;
+
+    // S = Q K^T: the query tile as A fragments, K in [key][d] rows as the
+    // col-major B operand as it stands (ldmatrix of the swizzled boxes).
+    uint32_t qf[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      ldsm_x4(qf[kk], qa + swizzle_chunk<RB>(qt * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      if (np >= ksteps) break;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t r[4];
+        ldsm_x4(r, ka + swizzle_chunk<RB>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                          2 * kk + ((lane >> 3) & 1)));
+        crowdmod::mma_bf16_16816(sc[2 * np], qf[kk], r[0], r[1]);
+        crowdmod::mma_bf16_16816(sc[2 * np + 1], qf[kk], r[2], r[3]);
+      }
+    }
+
+    // The softmax in f32, in registers: logits in base-2 units, -inf on the
+    // keys TMA padded with zeros; rows g and g + 8, each over its quad.
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= 2 * ksteps) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nt * 8 + 2 * t + (e & 1);
+        const float x = key < a.sk ? sc[nt][e] * a.scale_log2 : -INFINITY;
+        sc[nt][e] = x;
+        m[e >> 1] = fmaxf(m[e >> 1], x);
+      }
+    }
+    float l[2] = {0.f, 0.f};
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= 2 * ksteps) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = ex2(sc[nt][e] - m[e >> 1]);
+        sc[nt][e] = x;
+        l[e >> 1] += x;
+      }
+    }
+    const float r0 = __frcp_rn(quad_sum(l[0])), r1 = __frcp_rn(quad_sum(l[1]));
+
+    // O = W V: the weights e / l rounded to bf16 as A fragments (two n
+    // tiles of S are the A layout of 16 keys), V through ldmatrix.trans.
+    float o[DN][4];
+#pragma unroll
+    for (int nd = 0; nd < DN; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      if (kk >= ksteps) break;
+      const uint32_t w[4] = {pack_bf16(sc[2 * kk][0] * r0, sc[2 * kk][1] * r0),
+                             pack_bf16(sc[2 * kk][2] * r1, sc[2 * kk][3] * r1),
+                             pack_bf16(sc[2 * kk + 1][0] * r0, sc[2 * kk + 1][1] * r0),
+                             pack_bf16(sc[2 * kk + 1][2] * r1, sc[2 * kk + 1][3] * r1)};
+#pragma unroll
+      for (int nd = 0; nd < DN; nd += 2) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, va + swizzle_chunk<RB>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                nd + (lane >> 4)));
+        crowdmod::mma_bf16_16816(o[nd], w, r[0], r[1]);
+        crowdmod::mma_bf16_16816(o[nd + 1], w, r[2], r[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read: the producer may refill it
+
+    // The store: the tile into the warp's staging box (the map's swizzle),
+    // then one TMA store, rows past Sq clipped.
+    const int p = item / a.chunks;
+    const int row0 = (item % a.chunks) * a.rows + qt * 16;
+    if (row0 < a.sq) {
+      if (lane == 0) bulk_wait_read<0>();  // the last store has read the box
+      __syncwarp();
+#pragma unroll
+      for (int nd = 0; nd < DN; ++nd)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(stg + swizzle_chunk<RB>(g + 8 * i, nd) + 4 * t) =
+              __floats2bfloat162_rn(o[nd][2 * i], o[nd][2 * i + 1]);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        int c[4];
+        coords(3, row0, p % a.heads, p / a.heads, c);
+        tma_store_4d(&omap, stg, c[0], c[1], c[2], c[3]);
+        bulk_commit();
+      }
+    }
+  }
+  if (lane == 0) bulk_wait_read<0>();  // the CTA's shared memory outlives its stores' reads
+}
+
+// ---------------------------------------------------------------------------
+// bf16, a few keys: a group of Dh / 8 lanes a query row
+// ---------------------------------------------------------------------------
+
+constexpr int kRowKeys = 8;  // keys the row route holds in registers
+static_assert(kRowKeys == 8, "the row route's sum of the keys is written out for 8");
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(p[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// Lane i of a group holds elements 8 i .. 8 i + 7 of its row of Q, of each
+// of the SK keys and of each value, every one a 16-byte load straight into
+// registers, all of them issued before the first product.  The arithmetic
+// is the simt route's, operation for operation, so the two give the same
+// bits: a logit is the products summed in the order of Dh (each lane adds
+// its eight onto the running sum it takes from the lane before, by
+// shuffles; SK a template argument, so the keys' chains interleave with no
+// branch between them), then times the scale; exp of the logit less the
+// row's max; the sum over the keys in the simt route's butterfly order; the
+// weights e / l rounded to bf16; the products with V added in key order.
+template <int DH, int SK>
+__global__ void __launch_bounds__(256)
+attention_row_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int heads, int sq,
+                     long long rows, float scale, Strides qs, Strides ks, Strides vs,
+                     Strides os) {
+  constexpr int L = DH / 8;     // lanes a query row
+  constexpr int RPW = 32 / L;   // query rows a warp
+  static_assert(SK >= 1 && SK <= kRowKeys, "keys the row route holds");
+  const int lane = threadIdx.x & 31, sub = lane % L;
+  const long long r0 =
+      ((long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * RPW + lane / L;
+  const bool live = r0 < rows;
+  const long long r = live ? r0 : rows - 1;  // past the end: a live row's loads, no store
+  const long long bh = r / sq, s = r % sq;
+  const long long b = bh / heads, h = bh % heads;
+  const uint4 qv = *reinterpret_cast<const uint4*>(q + b * qs.b + h * qs.h + s * qs.s + 8 * sub);
+  const bf16* kr = k + b * ks.b + h * ks.h + 8 * sub;
+  const bf16* vr = v + b * vs.b + h * vs.h + 8 * sub;
+  uint4 kv[SK], vv[SK];
+#pragma unroll
+  for (int j = 0; j < SK; ++j) {
+    kv[j] = *reinterpret_cast<const uint4*>(kr + j * ks.s);
+    vv[j] = *reinterpret_cast<const uint4*>(vr + j * vs.s);
+  }
+  float qf[8], kf[SK][8], d[SK];
+  unpack8(qv, qf);
+#pragma unroll
+  for (int j = 0; j < SK; ++j) {
+    unpack8(kv[j], kf[j]);
+    d[j] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+#pragma unroll
+    for (int j = 0; j < SK; ++j) {
+      float t = d[j];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) t = fmaf(qf[c], kf[j][c], t);
+      d[j] = __shfl_sync(0xffffffffu, t, i, L);  // lane i's running sum
+    }
+  float e[kRowKeys], m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < SK; ++j) {
+    e[j] = __fmul_rn(d[j], scale);  // never contracted with the subtraction below
+    m = fmaxf(m, e[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kRowKeys; ++j) e[j] = j < SK ? expf(e[j] - m) : 0.f;
+  // The simt route's warp sum of a lane a key (lanes past Sk add zeros):
+  // offsets 16 and 8 add zeros, then 4, 2, 1.
+  const float l = ((e[0] + e[4]) + (e[2] + e[6])) + ((e[1] + e[5]) + (e[3] + e[7]));
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < SK; ++j) {
+    const float w = __bfloat162float(__float2bfloat16(__fdiv_rn(e[j], l)));
+    float vf[8];
+    unpack8(vv[j], vf);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = fmaf(w, vf[c], acc[c]);
+  }
+  if (live) {
+    uint4 out;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+    *reinterpret_cast<uint4*>(o + b * os.b + h * os.h + s * os.s + 8 * sub) = out;
   }
 }
 
@@ -936,11 +1265,15 @@ attention_simt_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Launchers
 // ---------------------------------------------------------------------------
 
-// Shared memory of a block of either route, in bytes, as the wrapper's
+// Shared memory of a block of each route, in bytes, as the wrapper's
 // attention_plan computes it; the simt route is streamed when its key block
 // holds fewer than Sk keys.
-long long smem_bytes(int route, int dh, int sq, int sk, int per_block, int keys_padded,
-                     int query_rows, int key_block) {
+long long smem_bytes(int route, int dh, int sq, int sk, int per_block, int warps,
+                     int keys_padded, int query_rows, int key_block, int stages) {
+  if (route == 4) return 0;  // row: registers only
+  if (route == 3)  // tile: 1024 of alignment, the ring, a staging box a consumer, barriers
+    return 1024 + 2LL * dh * (stages * (query_rows + 2LL * keys_padded) + 16LL * (warps - 1)) +
+           16LL * stages;
   if (route == 2) {  // wgmma: K and V, 2 query tiles, the two warpgroups' exchange
     const long long split = keys_padded == 2 * key_block;
     return 1024 + 2LL * keys_padded * 2 * dh + 2LL * 2 * kWgTile * dh +
@@ -955,7 +1288,6 @@ long long smem_bytes(int route, int dh, int sq, int sk, int per_block, int keys_
                   kWarps * ((long long)(query_rows / kWarps) * dh + key_block));
   return 4LL * ((long long)per_block * sk * (2 * dh + 4) + kWarps * (dh + keys_padded));
 }
-
 
 Strides strides_at(const long long* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
 
@@ -981,7 +1313,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int heads, 
 
 // A 4-D map of a (B, H, S, Dh) view with element strides st = (b, h, s):
 // dims (Dh, S, H, B) or, where H's stride is the smaller, (Dh, H, S, B), a
-// box of `rows` rows of S; *s_dim says which.
+// box of `rows` rows of S swizzled by the row's bytes (128, 64 or 32);
+// *s_dim says which.
 cudaError_t qkv_map(CUtensorMap* map, const void* p, const long long* st, int batch, int heads,
                     int len, int dh, int rows, int* s_dim) {
   const bool s_inner = st[2] <= st[1];
@@ -994,7 +1327,9 @@ cudaError_t qkv_map(CUtensorMap* map, const void* p, const long long* st, int ba
                            s_inner ? 1u : (uint32_t)rows, 1u};
   return crowdmod::hopper::bf16_tensor_map(
       map, p, 4, dims, strides, box,
-      dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+      dh == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : dh == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                 : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 template <int DH, int NK, int KS>
@@ -1071,6 +1406,83 @@ int launch_simt_streamed(const void* q, const void* k, const void* v, void* o, i
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int launch_tile(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+                int sq, int sk, int teams, int warps, int keys, int rows, int stages,
+                int blocks, int smem, float scale, const long long* st, cudaStream_t stream) {
+  TileArgs a{};
+  a.heads = heads;
+  a.sq = sq;
+  a.sk = sk;
+  a.rows = rows;
+  a.keys = keys;
+  a.tiles = rows / 16;
+  a.teams = teams;
+  a.stages = stages;
+  a.chunks = (sq + rows - 1) / rows;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  const long long items = (long long)batch * heads * a.chunks;
+  if (rows % 16 || rows < 16 || rows > kTileRows || rows >= sq + 16 || keys % 16 || keys < sk || keys >= sk + 16 ||
+      keys > kTileKeys || teams < 1 || warps != 1 + teams * a.tiles ||
+      warps > 1 + kTileConsumers || stages < 1 || stages % teams || items > 0x7fffffffLL ||
+      blocks < 1 ||
+      blocks > items)
+    return (int)cudaErrorInvalidValue;
+  a.items = (int)items;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = qkv_map(&maps[i], ptrs[i], st + 3 * i, batch, heads,
+                                    i == 1 || i == 2 ? sk : sq, DH,
+                                    i == 0 ? rows : i == 3 ? 16 : keys, &a.s_dim[i]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const auto kernel = attention_tile_kernel<DH>;
+  const cudaError_t attr =
+      crowdmod::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<(unsigned)blocks, 32 * warps, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
+  return (int)cudaGetLastError();
+}
+
+template <int DH, int SK>
+void launch_row_keys(const void* q, const void* k, const void* v, void* o, int heads, int sq,
+                     long long rows, int warps, int blocks, float scale, const long long* st,
+                     cudaStream_t stream) {
+  attention_row_kernel<DH, SK><<<(unsigned)blocks, 32 * warps, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), heads, sq, rows, scale, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3));
+}
+
+template <int DH>
+int launch_row(const void* q, const void* k, const void* v, void* o, int heads, int sq, int sk,
+               long long problems, int per_block, int warps, int blocks, float scale,
+               const long long* st, cudaStream_t stream) {
+  const long long rows = problems * sq;
+  if (sk > kRowKeys || warps < 1 || warps > 8 || per_block != warps * 32 / (DH / 8) ||
+      blocks != (rows + per_block - 1) / per_block)
+    return (int)cudaErrorInvalidValue;
+  switch (sk) {
+#define CROWDMOD_ROW(SK)                                                                   \
+  case SK:                                                                                 \
+    launch_row_keys<DH, SK>(q, k, v, o, heads, sq, rows, warps, blocks, scale, st, stream); \
+    break;
+    CROWDMOD_ROW(1)
+    CROWDMOD_ROW(2)
+    CROWDMOD_ROW(3)
+    CROWDMOD_ROW(4)
+    CROWDMOD_ROW(5)
+    CROWDMOD_ROW(6)
+    CROWDMOD_ROW(7)
+    CROWDMOD_ROW(8)
+#undef CROWDMOD_ROW
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // The built wgmma kernels, X(DH, NK, KS): head dim, keys a warpgroup holds,
 // warpgroups splitting a problem's keys; ops/kernels/attention.py's
 // WGMMA_TILES names the same (NK, KS).
@@ -1096,35 +1508,63 @@ int launch_simt_streamed(const void* q, const void* k, const void* v, void* o, i
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (b, h, s)
 // for q, k, v and o in that order.  The plan (ops/kernels/attention.py,
-// attention_plan): route 2 = "wgmma" and 1 = "mma" (bf16 only), 0 =
-// "simt"; problems a block, warps a block, keys padded (wgmma: the keys
-// the block's warpgroups hold, KS x NK; mma: Sk up to a multiple of 16;
-// simt: of 4), the query rows of a problem a block covers (Sq, but for the
-// streamed simt form), the keys a block holds in shared memory at once
-// (wgmma: NK, a warpgroup's; the padded keys, or kStreamKeys: the streamed
-// simt form) and the dynamic shared memory, which must be the plan's own.  vec:
-// the simt route may copy K and V in 16-byte loads (rows 16-byte aligned);
-// the mma route needs them so.  Returns a cudaError_t value.
+// attention_plan): route 4 = "row", 3 = "tile", 2 = "wgmma" and 1 = "mma"
+// (bf16 only), 0 = "simt"; problems a block (tile: the teams, problems in
+// flight a CTA; row: query rows a block), warps a block (tile: the
+// producer and teams x tiles consumers), keys padded (tile, mma: Sk up to
+// a multiple of 16; wgmma: the keys the block's warpgroups hold, KS x NK;
+// simt: of 4; row: Sk), the query rows a block covers (Sq, but for the
+// streamed simt form; tile: an item's Q box), the keys a block holds at
+// once (wgmma: NK, a warpgroup's; the padded keys, or kStreamKeys: the
+// streamed simt form), the dynamic shared memory, which must be the plan's
+// own, the ring's stages (tile; 1 elsewhere) and the grid (tile: the
+// persistent CTAs; elsewhere the count the route implies).  vec: the simt
+// route may copy K and V in 16-byte loads (rows 16-byte aligned); the
+// others need them so.  Returns a cudaError_t value.
 extern "C" int crowdmod_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* o, int batch, int heads, int sq, int sk, int dh,
                                   float scale, const long long* strides, int route,
                                   int per_block, int warps, int keys_padded, int query_rows,
-                                  int key_block, int smem, int vec, void* stream) {
+                                  int key_block, int smem, int vec, int stages, int blocks,
+                                  void* stream) {
   const bool streamed = route == 0 && key_block < sk;
   const bool wg = route == 2;
-  if (sk < 1 || sq < 0 || batch < 0 || heads < 1 || per_block < 1 || route < 0 || route > 2 ||
-      (route >= 1 && (dtype != 1 || sq < 16 || !vec)) ||
-      (wg ? (per_block != 1 || query_rows != sq ||
-             (keys_padded != key_block && keys_padded != 2 * key_block) ||
-             warps != 4 * keys_padded / key_block)
-          : streamed ? key_block != kStreamKeys
-                     : (key_block != keys_padded || query_rows != sq)) ||
-      smem > kMaxSmem ||
-      smem != smem_bytes(route, dh, sq, sk, per_block, keys_padded, query_rows, key_block))
-    return (int)cudaErrorInvalidValue;
   const long long problems = (long long)batch * heads;
+  const long long implied =  // the grid of the non-persistent routes
+      route == 1 || (route == 0 && !streamed) ? (problems + per_block - 1) / per_block
+      : route == 0 && query_rows > 0 ? problems * ((sq + query_rows - 1) / query_rows)
+                                     : problems;
+  if (sk < 1 || sq < 0 || batch < 0 || heads < 1 || per_block < 1 || (sq > 0 && query_rows < 1) ||
+      route < 0 || route > 4 ||
+      (route >= 1 && (dtype != 1 || !vec)) || (route >= 1 && route <= 2 && sq < 16) ||
+      (route == 1 && sk <= kKeyBlock) || (route == 3 ? stages < 1 : stages != 1) ||
+      (route < 3 && blocks != implied) || (route >= 3 && key_block != keys_padded) ||
+      (route == 4 && (keys_padded != sk || query_rows != sq)) || smem > kMaxSmem ||
+      smem != smem_bytes(route, dh, sq, sk, per_block, warps, keys_padded, query_rows, key_block,
+                         stages))
+    return (int)cudaErrorInvalidValue;
   if (problems == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route >= 3) {
+#define CROWDMOD_SHORT(DH)                                                                     \
+  if (dh == DH)                                                                                \
+    return route == 4 ? launch_row<DH>(q, k, v, o, heads, sq, sk, problems, per_block, warps,  \
+                                       blocks, scale, strides, s)                              \
+                      : launch_tile<DH>(q, k, v, o, batch, heads, sq, sk, per_block, warps,     \
+                                        keys_padded, query_rows, stages, blocks, smem, scale,   \
+                                        strides, s);
+    CROWDMOD_SHORT(16)
+    CROWDMOD_SHORT(32)
+    CROWDMOD_SHORT(64)
+#undef CROWDMOD_SHORT
+    return (int)cudaErrorInvalidValue;
+  }
+  if (wg ? (per_block != 1 || query_rows != sq ||
+            (keys_padded != key_block && keys_padded != 2 * key_block) ||
+            warps != 4 * keys_padded / key_block)
+         : streamed ? key_block != kStreamKeys
+                    : (key_block != keys_padded || query_rows != sq))
+    return (int)cudaErrorInvalidValue;
   if (wg) {
 #define CROWDMOD_WGMMA(DH, NK, KS)                                                          \
   if (dh == DH && key_block == NK && keys_padded == KS * NK)                                \

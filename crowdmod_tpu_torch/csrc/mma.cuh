@@ -1,7 +1,8 @@
 // bf16 tensor-core building blocks for sm_90a: 16-byte cp.async copies,
 // ldmatrix fragment loads and the warp-level mma.sync.m16n8k16 product with
-// f32 accumulators.  Used by attention.cu's "mma" route, and for its
-// cp.async copies by conv3d.cu's f32 narrow kernel.  Padding rows by 8
+// f32 accumulators.  Used by attention.cu's "mma" route (its "tile" route
+// takes the product alone, on fragments it loads from swizzled TMA boxes),
+// and for its cp.async copies by conv3d.cu's f32 narrow kernel.  Padding rows by 8
 // bf16 elements (row strides an odd number of 16-byte units) puts the
 // eight rows an ldmatrix phase reads in eight distinct bank groups, so
 // fragment loads are free of conflicts without a swizzle.

@@ -2,18 +2,24 @@
 
 Replaces ``crowdmod_tpu/ops/pallas/attention.py`` (``_attention_pallas``,
 kernel ``_attn_kernel``).  The CUDA source, ``csrc/attention.cu``, notes what
-bounds the kernel on the H100 (bytes) and how its three routes answer that:
-``"wgmma"``, bf16 past 64 keys at head dims 32 and 64 (FM-DiT's 216–432
-tokens): a CTA a problem, a warpgroup a 64-row query tile on ``wgmma``,
-Q, K and V staged by TMA, a row's logits in registers, past 224 keys two
-warpgroups splitting them; ``"mma"``, bf16 tiles of 16 query
-rows on the tensor cores, for the other bf16 calls with at least 16
-queries while a problem's Q, K and V fit in shared memory; ``"simt"``, a
-warp a query row in f32, for f32, for the DiT's one-query temporal
-attention and for bf16 problems too large for the mma route, with K and V
-resident in shared memory or, where they do not fit, streamed through it
-in blocks of keys.  Any number of keys.  :func:`attention_plan` picks the
-route and the block shape from the call's shape and dtype.
+bounds the kernel on the H100 (bytes, and up to 64 keys the latency of a
+call) and how its five routes answer that.  bf16: ``"row"``, a few keys
+(the DiT's temporal attention, one query against two keys): a group of
+Dh/8 lanes a query row, every row of Q, K and V one 16-byte load a lane
+straight into registers; ``"tile"``, up to 64 keys at head dims 16–64
+(the DiT's spatial and the UNet's level-2 attention): persistent CTAs, a
+producer warp keeping a ring of Q, K and V stages full by TMA, consumer
+warps on 16-row ``mma.sync`` tiles, the output stored by TMA; ``"wgmma"``,
+65–448 keys at head dims 32 and 64 (FM-DiT's 216–432 tokens): a CTA a
+problem, a warpgroup a 64-row query tile on ``wgmma``, a row's logits in
+registers, two warpgroups past 224 keys; ``"mma"``, the other problems
+with at least 16 queries past 64 keys while one fits shared memory (Dh
+16): 16-row tiles, the keys in blocks of 64 in two sweeps.  f32, Dh 8 and
+the bf16 problems none of these takes: ``"simt"``, a warp a query row in
+f32, K and V resident in shared memory or, where they do not fit,
+streamed through it in blocks of keys.  Any number of keys.
+:func:`attention_plan` picks the route and the block shape from the
+call's shape and dtype.
 
 :func:`fused_attention` takes ``(B, H, S, Dh)`` tensors.  On CPU tensors it
 runs :func:`attention_reference`; on CUDA tensors it launches the kernel or
@@ -36,14 +42,28 @@ from dataclasses import dataclass
 import torch
 
 from crowdmod_tpu_torch.ops.kernels import build, library
+from crowdmod_tpu_torch.ops.kernels.build import SMS
 
 # Limits of the kernel (csrc/attention.cu): the head dims it is compiled for
-# (the mma route's k-slices are 16 deep: Dh 8 takes the simt route) and the
-# shared memory a block can have.
+# (the tensor-core routes' k-slices are 16 deep: Dh 8 takes the simt route)
+# and the shared memory a block, and a multiprocessor, can have.
 HEAD_DIMS = (8, 16, 32, 64)
 MMA_HEAD_DIMS = (16, 32, 64)
 MAX_SMEM = 232448  # 227 KB
-MMA_MIN_QUERIES = 16  # one 16-row query tile; fewer take the SIMT route
+SM_SMEM = 233472  # 228 KB a multiprocessor, 1 KB of it reserved for each resident block
+MMA_MIN_QUERIES = 16  # one 16-row query tile; fewer take the SIMT route past 64 keys
+# The tile route (csrc/attention.cu, kTile*): up to 64 keys and 64 query
+# rows a work item (more queries: several items a problem), at most 8
+# consumer warps a CTA besides the producer.
+TILE_KEYS = 64
+TILE_ROWS = 64
+TILE_CONSUMERS = 8
+# The row route (kRowKeys): up to 8 keys, a group of Dh / 8 lanes a query
+# row; it takes problems of up to ROW_MAX_QUERIES queries, fewer lanes
+# idle than a 16-row tile's rows (csrc/attention.cu's note).
+ROW_KEYS = 8
+ROW_MAX_QUERIES = 8
+ROW_WARPS = 4
 # The streamed SIMT form: keys a block stages at once, query rows a warp
 # holds (csrc/attention.cu, kStreamKeys and kStreamRows).
 STREAM_KEYS = 128
@@ -56,15 +76,15 @@ WGMMA_QUERY_TILE = 64
 WGMMA_KEYS = (128, 160, 192, 224)
 WGMMA_TILES = frozenset({(nk, split) for nk in WGMMA_KEYS for split in (1, 2)})
 WGMMA_HEAD_DIMS = (32, 64)
-WGMMA_MIN_KEYS = 65  # up to 64 keys the mma route holds a row's logits in one block
-_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
+WGMMA_MIN_KEYS = 65  # up to 64 keys bf16 at Dh 16-64 takes the tile or the row route
+_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2, "tile": 3, "row": 4}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "crowdmod_attention": (
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     ),
 }
 
@@ -73,19 +93,25 @@ _SIGNATURES = {
 class AttentionPlan:
     """How one attention call is cut into blocks.
 
-    ``route``: ``"wgmma"`` (bf16 past 64 keys: a warpgroup a 64-row
-    query tile on ``wgmma``, K and V staged by TMA), ``"mma"`` (bf16 tensor
-    cores, a warp a 16-row query tile) or ``"simt"`` (a warp a query row,
-    f32 arithmetic); ``problems_per_block`` (b, h) problems a block holds;
-    ``warps`` a block; ``keys_padded``: Sk rounded up to the route's
-    multiple (16 or 4; wgmma: the keys its warpgroups hold, ``key_split``
-    × ``key_block``); ``query_rows``: the queries of a problem a block
-    covers (Sq, but for the streamed SIMT form); ``key_block``: the keys a
-    block holds in shared memory at once (``keys_padded``, or
+    ``route``: ``"row"`` (bf16, a few keys: Dh/8 lanes a query row),
+    ``"tile"`` (bf16 up to 64 keys: persistent CTAs on a TMA ring, a warp a
+    16-row query tile), ``"wgmma"`` (bf16 past 64 keys: a warpgroup a
+    64-row query tile on ``wgmma``, K and V staged by TMA), ``"mma"``
+    (bf16 tensor cores past 64 keys, a warp a 16-row query tile) or
+    ``"simt"`` (a warp a query row, f32 arithmetic);
+    ``problems_per_block`` (b, h) problems a block holds (tile: its teams,
+    the problems in flight; row: the query rows a block); ``warps`` a
+    block (tile: the producer and teams × tiles consumers);
+    ``keys_padded``: Sk rounded up to the route's multiple (16 or 4; row:
+    Sk; wgmma: the keys its warpgroups hold, ``key_split`` ×
+    ``key_block``); ``query_rows``: the queries of a problem a block covers
+    (Sq, but for the streamed SIMT form; tile: a work item's, its Q box);
+    ``key_block``: the keys a block holds at once (``keys_padded``, or
     :data:`STREAM_KEYS` when the SIMT route streams them; wgmma: the keys
     one warpgroup's logits hold); ``smem_bytes``: dynamic shared memory a
-    block; ``blocks`` of the grid; ``query_tile``: the query rows a tile
-    (wgmma 64, mma 16, simt 1)."""
+    block; ``blocks`` of the grid (tile: the persistent CTAs);
+    ``query_tile``: the query rows a tile (wgmma 64, mma and tile 16, simt
+    and row 1); ``stages``: the tile route's ring (1 elsewhere)."""
 
     route: str
     problems_per_block: int
@@ -96,6 +122,7 @@ class AttentionPlan:
     smem_bytes: int
     blocks: int
     query_tile: int = 1
+    stages: int = 1
 
     @property
     def streamed(self) -> bool:
@@ -138,32 +165,90 @@ def _wgmma_plan(b: int, h: int, sq: int, sk: int, dh: int,
                          WGMMA_QUERY_TILE)
 
 
-def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype) -> AttentionPlan:
-    """The block shape of :func:`fused_attention` for ``b·h`` problems of
-    ``sq`` queries against ``sk`` keys of width ``dh``.
+def tile_smem_bytes(dh: int, rows: int, keys: int, consumers: int, stages: int) -> int:
+    """Shared memory of a tile-route CTA (csrc/attention.cu ``smem_bytes``,
+    route 3): 1024 bytes of alignment, ``stages`` of Q (``rows``), K and V
+    (``keys`` each), a 16-row staging box of the output a consumer warp,
+    and two barriers a stage."""
+    return 1024 + 2 * dh * (stages * (rows + 2 * keys) + 16 * consumers) + 16 * stages
 
-    bf16 with ``sq ≥ 16``, Dh 32 or 64 and 65–448 keys (FM-DiT's 216, 336
-    and 432 tokens): the wgmma route (:func:`_wgmma_plan`).
-    Other bf16 with ``sq ≥ 16``: the mma route, ⌈sq/16⌉ query tiles a problem and
-    8 // tiles problems a block, a warp a tile up to 16 warps (the DiT's
-    spatial 27 queries: 4 problems on 8 warps; the UNet's 54: 2 on 8); Q
-    (in whole tiles), K and V (keys padded to 16)
-    in shared memory as bf16 rows of Dh + 8; fewer problems a block where
-    they would overflow it, and where one problem does, the SIMT route.
-    Dh 8 has no mma tile: it takes the SIMT route.
-    Otherwise the SIMT route: resident, 8 warps and 8 // sq problems a
-    block (fewer where their keys would overflow shared memory), K and V as
-    f32 rows plus a query row and a logit row a warp; or, where one
-    problem's K and V do not fit, streamed: one problem and up to 32 query
-    rows a block (4 a warp), K and V through shared memory 128 keys at a
-    time."""
+
+def _tile_plan(b: int, h: int, sq: int, sk: int, dh: int, sms: int = SMS, *,
+               rows: int | None = None, teams: int | None = None,
+               stages: int | None = None, ctas: int | None = None) -> AttentionPlan | None:
+    """The tile plan, or None where it does not apply (Dh 8, more than 64
+    keys).  A work item: ``rows`` query rows of a problem (Sq up to a
+    multiple of 16, at most 64) against all its keys; a team of rows / 16
+    consumer warps an item, ``teams`` = 8 // tiles of them a CTA, ``stages``
+    = teams, a stage a team (a multiple of ``teams``: each team owns its
+    stages, so its waits on their phases are unambiguous, csrc/attention.cu);
+    ``ctas`` a multiprocessor (2 where two fit its
+    shared memory), the grid at most ``ctas`` × ``sms``.  The keyword
+    arguments force a value (``chip_smoke.py``'s alternatives)."""
+    if dh not in MMA_HEAD_DIMS or sk > TILE_KEYS:
+        return None
+    rows = rows or min(-(-sq // 16), TILE_ROWS // 16) * 16
+    tiles = rows // 16
+    keys = -(-sk // 16) * 16
+    teams = teams or max(1, TILE_CONSUMERS // tiles)
+    stages = stages or teams
+    if stages % teams:
+        # A stage two teams share: a team's wait on its parity could pass on
+        # another team's phase (csrc/attention.cu, attention_tile_kernel).
+        raise ValueError(f"tile plan: {stages} stages for {teams} teams")
+    smem = tile_smem_bytes(dh, rows, keys, teams * tiles, stages)
+    if ctas is None:
+        ctas = 2 if 2 * (smem + 1024) <= SM_SMEM else 1
+    items = b * h * -(-sq // rows)
+    return AttentionPlan("tile", teams, 1 + teams * tiles, keys, rows, keys, smem,
+                         max(1, min(items, ctas * sms)), 16, stages)
+
+
+def _row_plan(b: int, h: int, sq: int, sk: int, dh: int, *,
+              warps: int = ROW_WARPS) -> AttentionPlan | None:
+    """The row plan, or None where it does not apply: Dh 16–64, at most
+    :data:`ROW_KEYS` keys and :data:`ROW_MAX_QUERIES` queries; a group of
+    Dh / 8 lanes a query row, ``warps`` a block."""
+    if dh not in MMA_HEAD_DIMS or sk > ROW_KEYS or sq > ROW_MAX_QUERIES:
+        return None
+    per_block = warps * 32 // (dh // 8)
+    return AttentionPlan("row", per_block, warps, sk, sq, sk, 0,
+                         max(1, -(-(b * h * sq) // per_block)))
+
+
+def attention_plan(b: int, h: int, sq: int, sk: int, dh: int, dtype,
+                   sms: int = SMS) -> AttentionPlan:
+    """The block shape of :func:`fused_attention` for ``b·h`` problems of
+    ``sq`` queries against ``sk`` keys of width ``dh`` on a card of ``sms``
+    multiprocessors.
+
+    bf16 at Dh 16, 32 or 64: up to :data:`ROW_KEYS` keys and
+    :data:`ROW_MAX_QUERIES` queries the row route (:func:`_row_plan`: the
+    DiT's temporal attention); up to 64 keys the tile route
+    (:func:`_tile_plan`: the DiT's spatial 27 queries, 2 tiles a problem,
+    4 problems in flight a CTA; the UNet's 54, 4 tiles, 2 in flight);
+    with ``sq ≥ 16`` and 65–448 keys at Dh 32 or 64 (FM-DiT's 216, 336
+    and 432 tokens) the wgmma route (:func:`_wgmma_plan`).  Other bf16
+    with ``sq ≥ 16``: the mma route, ⌈sq/16⌉ query tiles a problem and
+    8 // tiles problems a block, a warp a tile up to 16 warps; Q (in whole
+    tiles), K and V (keys padded to 16) in shared memory as bf16 rows of
+    Dh + 8; fewer problems a block where they would overflow it, and where
+    one problem does, the SIMT route.  Dh 8 has no tensor-core tile: it
+    takes the SIMT route.  Otherwise the SIMT route: resident, 8 warps and
+    8 // sq problems a block (fewer where their keys would overflow shared
+    memory), K and V as f32 rows plus a query row and a logit row a warp;
+    or, where one problem's K and V do not fit, streamed: one problem and
+    up to 32 query rows a block (4 a warp), K and V through shared memory
+    128 keys at a time."""
     tiles = -(-sq // 16)
     keys16 = -(-sk // 16) * 16
     mma_smem = lambda n: 2 * (dh + 8) * n * (tiles * 16 + 2 * keys16)  # noqa: E731
     problems = b * h
-    wg = _wgmma_plan(b, h, sq, sk, dh) if dtype == torch.bfloat16 else None
-    if wg is not None:
-        return wg
+    if dtype == torch.bfloat16:
+        short = (_wgmma_plan(b, h, sq, sk, dh) or _row_plan(b, h, sq, sk, dh)
+                 or _tile_plan(b, h, sq, sk, dh, sms))
+        if short is not None:
+            return short
     if (dtype == torch.bfloat16 and sq >= MMA_MIN_QUERIES and dh in MMA_HEAD_DIMS
             and mma_smem(1) <= MAX_SMEM):
         per_block = max(1, 8 // tiles)
@@ -194,13 +279,14 @@ def rows_aligned(ptr: int, strides, elsize: int) -> bool:
 
 def check_rows(route: str, rows: dict, elsize: int) -> bool:
     """``rows``: name → (data pointer, (b, h, s) strides).  Whether all of
-    them are 16-byte aligned; raises where the ``"mma"`` route needs it."""
+    them are 16-byte aligned; raises where a route other than ``"simt"``
+    needs it (TMA's boxes, 16-byte copies and loads)."""
     bad = [n for n, (ptr, strides) in rows.items() if not rows_aligned(ptr, strides, elsize)]
     if bad and route != "simt":
         raise ValueError(
             f"fused_attention: rows of {', '.join(bad)} are not 16-byte aligned "
-            f"({ {n: rows[n] for n in bad} }); the tensor-core routes copy "
-            "16-byte pieces"
+            f"({ {n: rows[n] for n in bad} }); only the simt route reads "
+            "other than 16-byte pieces"
         )
     return not bad
 
@@ -311,7 +397,7 @@ def _attention_cuda(q, k, v, scale: float) -> torch.Tensor:
     out = _empty_out(q)
     if out.numel() == 0:
         return out
-    plan = attention_plan(b, h, sq, sk, dh, q.dtype)
+    plan = attention_plan(b, h, sq, sk, dh, q.dtype, build.sm_count(q.device))
     if plan.smem_bytes > MAX_SMEM:
         raise ValueError(
             f"fused_attention: {plan.smem_bytes} bytes of shared memory for "
@@ -329,7 +415,7 @@ def _attention_cuda(q, k, v, scale: float) -> torch.Tensor:
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, h, sq, sk, dh, scale, strides, _ROUTES[plan.route],
         plan.problems_per_block, plan.warps, plan.keys_padded, plan.query_rows,
-        plan.key_block, plan.smem_bytes, int(vec),
+        plan.key_block, plan.smem_bytes, int(vec), plan.stages, plan.blocks,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
